@@ -1,0 +1,391 @@
+"""Unified sparse decoder over the concatenated multi-task query set
+(counterpart of ``hipad_tpu/models/decoder.py`` at ``stage2()`` semantics).
+
+The decoder program is data: ``cfg.operation_order`` is a flat tuple of op
+names (concat / temp_gnn / gnn / inter_gnn / norm / split / deformable / ffn
+/ refine) run by a Python loop. Every submodule is named after its flax
+path (``gnn_{op_idx}``, ``{task}_deformable_{i}``, ``det_refine_{i}`` ...).
+The temporal banks are passed in and returned; the first frame is the case
+``bank_states=None``.
+
+Knobs outside stage 2 are refused in :func:`check_supported`.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..core.geometry import agent_to_lidar_trajs, sine_embed_2d
+from ..ops.sampling import front_view_feature
+from . import instance_bank as banks
+from .attention_blocks import (GroupedCrossAttention, cross_attention_groups,
+                               self_attention_groups)
+from .common import MLPLN, AsymmetricFFN, BatchNorm
+from .deformable import DeformableAggregation
+from .encoders import SparseBox3DEncoder, SparsePoint3DEncoder
+from .keypoints import BoxKeypoints, PointKeypoints
+from .refine import (EgoStatusRefinement, SparseBox3DRefinement, SparseMotionRefinement,
+                     SparsePlanAlignRefinement, SparsePoint3DRefinement)
+
+QUEUE1_SERVING = "ROADMAP queue 1, item 11 (serving knobs)"
+
+
+def check_supported(cfg) -> None:
+    """Refuse, loudly, every knob outside ``stage2()`` semantics."""
+    refused = [
+        (cfg.with_topk_det, "with_topk_det", QUEUE1_SERVING),
+        (cfg.with_topk_mode, "with_topk_mode", QUEUE1_SERVING),
+        (cfg.sampler_point_frac < 1.0, "sampler_point_frac < 1", QUEUE1_SERVING),
+        (cfg.sampler_level_k is not None, "sampler_level_k", QUEUE1_SERVING),
+        (cfg.sampler_row_packed, "sampler_row_packed",
+         "ROADMAP queue 1, item 14 (not ported: measured slower on the TPU)"),
+        (cfg.fused_deformable, "fused_deformable",
+         "ROADMAP queue 1, item 14 (not ported: measured slower on the TPU)"),
+        (cfg.with_concat_map_points or cfg.with_concat_plan_points
+         or cfg.with_deform_map_points or cfg.with_deform_plan_points,
+         "the point-expansion options (with_concat_*, with_deform_*)", QUEUE1_SERVING),
+        (cfg.with_distance_attn_mask or cfg.with_velocity_attn_mask,
+         "the distance/velocity attention masks", QUEUE1_SERVING),
+    ]
+    for on, what, item in refused:
+        if on:
+            raise NotImplementedError(f"hipad_torch does not run {what} yet: {item}")
+    if cfg.num_single_frame_decoder < 1:
+        raise NotImplementedError("hipad_torch needs num_single_frame_decoder >= 1")
+
+
+class FrontViewEncoder(nn.Module):
+    """Front-camera global feature: conv3x3-BN-conv3x3/2-BN-ReLU, then the mean
+    of the FIRST pooling window, whose kernel is half the PRE-conv dims (for
+    odd dims the reference's single AvgPool window drops the trailing
+    row/col)."""
+
+    def __init__(self, embed_dims: int):
+        super().__init__()
+        self.conv1 = nn.Conv2d(embed_dims, embed_dims, 3, padding=1, bias=False)
+        self.bn1 = BatchNorm(embed_dims)
+        self.conv2 = nn.Conv2d(embed_dims, embed_dims, 3, stride=2, padding=1, bias=False)
+        self.bn2 = BatchNorm(embed_dims)
+
+    def forward(self, fmap: torch.Tensor) -> torch.Tensor:
+        """fmap [bs, H, W, C] -> [bs, C]."""
+        h, w = fmap.shape[1:3]
+        x = fmap.permute(0, 3, 1, 2)  # NCHW view in channels_last memory
+        x = self.bn1(self.conv1(x))
+        x = F.relu(self.bn2(self.conv2(x)))
+        kh = max(1, min(x.shape[2], h // 2))
+        kw = max(1, min(x.shape[3], w // 2))
+        return x[:, :, :kh, :kw].mean(dim=(2, 3))
+
+
+class SparseOneDecoder(nn.Module):
+    def __init__(self, cfg):
+        super().__init__()
+        check_supported(cfg)
+        self.cfg = cfg
+        C = cfg.embed_dims
+        L = cfg.num_levels
+
+        # bank parameters and constants
+        self.det_anchor = nn.Parameter(torch.as_tensor(np.asarray(cfg.det_anchor, np.float32)))
+        self.det_feature = nn.Parameter(torch.zeros(cfg.num_det_anchor, C))
+        self.map_anchor = nn.Parameter(torch.as_tensor(np.asarray(cfg.map_anchor, np.float32)))
+        self.map_feature = nn.Parameter(torch.zeros(cfg.num_map_anchor, C))
+        self.plan_anchor = nn.Parameter(torch.as_tensor(np.asarray(cfg.plan_anchor, np.float32)))
+        self.register_buffer("ego_anchor_init", torch.as_tensor(cfg.ego_anchor_init),
+                             persistent=False)
+        self.register_buffer("motion_anchor", torch.as_tensor(
+            np.asarray(cfg.motion_anchor, np.float32)), persistent=False)
+
+        # shared submodules
+        self.det_anchor_encoder = SparseBox3DEncoder((C // 2, C // 8, C // 8, C // 4))
+        self.map_anchor_encoder = SparsePoint3DEncoder(cfg.map_num_pts * 2, C)
+        self.plan_anchor_encoder = SparsePoint3DEncoder(cfg.ego_fut_ts * 2, C)
+        self.ego_feature_encoder = FrontViewEncoder(C)
+        self.plan_feature_encoder = FrontViewEncoder(C)
+        self.fc_before = nn.Linear(C, C * 2, bias=False)
+        self.fc_after = nn.Linear(C * 2, C, bias=False)
+        if cfg.with_target_point_embed:
+            self.target_point_encoder_mlp = MLPLN(C, C, 2, 1)
+            self.target_point_encoder_out = nn.Linear(C, C)
+        if cfg.with_command_embed:
+            self.command_encoder_mlp = MLPLN(cfg.num_command, C, 2, 1)
+            self.command_encoder_out = nn.Linear(C, C)
+        self.with_motion = "motion" in cfg.task_select
+        if self.with_motion:
+            self.motion_anchor_encoder_mlp = MLPLN(C, C, 1, 1)
+            self.motion_anchor_encoder_out = nn.Linear(C, C)
+
+        self.gnn_groups = self_attention_groups([("det",), ("map",)], [True, False])
+        self.temp_groups = cross_attention_groups(
+            [("det",), ("map",), ("plan", "ego")],
+            [("det",), ("map",), ("det", "map")],
+            [True, False, False],
+        )
+        self.inter_groups = cross_attention_groups([("plan", "ego")], [("det", "map")], [False])
+
+        kps_specs = {"det": (BoxKeypoints, cfg.det_kps), "map": (PointKeypoints, cfg.map_kps),
+                     "plan": (PointKeypoints, cfg.plan_kps), "ego": (BoxKeypoints, cfg.ego_kps)}
+        deform_i = refine_i = 0
+        for op_idx, op in enumerate(cfg.operation_order):
+            if op == "gnn":
+                self.add_module(f"gnn_{op_idx}",
+                                GroupedCrossAttention(C, cfg.num_groups, self.gnn_groups))
+            elif op == "temp_gnn":
+                self.add_module(f"temp_gnn_{op_idx}",
+                                GroupedCrossAttention(C, cfg.num_groups, self.temp_groups))
+            elif op == "inter_gnn":
+                self.add_module(f"inter_gnn_{op_idx}",
+                                GroupedCrossAttention(C, cfg.num_groups, self.inter_groups))
+            elif op == "norm":
+                self.add_module(f"norm_{op_idx}", nn.LayerNorm(C, eps=1e-5))
+            elif op == "ffn":
+                self.add_module(f"ffn_{op_idx}", AsymmetricFFN(C * 2, C, C * 4))
+            elif op == "deformable":
+                for q in cfg.query_select:
+                    kps_cls, spec = kps_specs[q]
+                    kps = kps_cls(spec, C)
+                    self.add_module(f"{q}_kps_{deform_i}", kps)
+                    self.add_module(f"{q}_deformable_{deform_i}", DeformableAggregation(
+                        C, cfg.num_groups, L, cfg.num_cams, kps.num_pts,
+                        sampler=cfg.sampler, sampler_cam_k=cfg.sampler_cam_k,
+                        sampler_cam_renorm=cfg.sampler_cam_renorm,
+                        sampler_matmul_levels=cfg.sampler_matmul_levels))
+                deform_i += 1
+            elif op == "refine":
+                self.add_module(f"det_refine_{refine_i}",
+                                SparseBox3DRefinement(cfg, cfg.num_det_classes))
+                self.add_module(f"map_refine_{refine_i}", SparsePoint3DRefinement(
+                    cfg, cfg.num_map_classes, cfg.map_num_pts * 2))
+                if self.with_motion:
+                    self.add_module(f"motion_refine_{refine_i}", SparseMotionRefinement(cfg))
+                self.add_module(f"ego_refine_{refine_i}", EgoStatusRefinement(cfg))
+                self.add_module(f"plan_refine_{refine_i}", SparsePlanAlignRefinement(cfg))
+                refine_i += 1
+            elif op not in ("concat", "split"):
+                raise NotImplementedError(f"unknown op {op!r}")
+
+    def forward(self, feature_maps: Sequence[torch.Tensor], metas: Dict[str, torch.Tensor],
+                bank_states: Optional[banks.BankStates] = None):
+        cfg = self.cfg
+        C = cfg.embed_dims
+        bs = feature_maps[0].shape[0]
+        has_temp = bank_states is not None
+        qs = cfg.query_select
+        det_enc = self.det_anchor_encoder
+
+        timestamp = metas["timestamp"]
+        projection_mat = metas["projection_mat"]
+        image_wh = metas["image_wh"]
+
+        # ---- query init (banks .get) -------------------------------------
+        feat: Dict[str, Optional[torch.Tensor]] = {}
+        anchor: Dict[str, torch.Tensor] = {}
+        embed: Dict[str, Optional[torch.Tensor]] = {}
+        tfeat: Dict[str, Optional[torch.Tensor]] = {}
+        tembed: Dict[str, Optional[torch.Tensor]] = {}
+
+        feat["det"] = self.det_feature.detach()[None].expand(bs, -1, -1)
+        anchor["det"] = self.det_anchor[None].expand(bs, -1, -1)
+        temp_det_feat, temp_det_anchor, time_interval, det_mask = banks.det_bank_get(
+            cfg, bank_states.det if has_temp else None, bs, timestamp,
+            metas["T_global"], metas["T_global_inv"])
+        embed["det"] = det_enc(anchor["det"])
+        tfeat["det"] = temp_det_feat
+        tembed["det"] = det_enc(temp_det_anchor) if has_temp else None
+
+        feat["map"] = self.map_feature[None].expand(bs, -1, -1)
+        anchor["map"] = self.map_anchor[None].expand(bs, -1, -1)
+        embed["map"] = self.map_anchor_encoder(anchor["map"])
+        tfeat["map"] = tembed["map"] = None
+
+        front = front_view_feature(feature_maps)
+        plan_base = self.plan_feature_encoder(front)  # [bs, C]
+        feat["plan"] = plan_base[:, None].expand(-1, cfg.num_plan_anchor, -1)
+        anchor["plan"] = self.plan_anchor[None].expand(bs, -1, -1)
+        embed["plan"] = self.plan_anchor_encoder(anchor["plan"])
+        temp_plan_feat, temp_plan_anchor = banks.plan_bank_get(
+            cfg, bank_states.plan if has_temp else None)
+        tfeat["plan"] = temp_plan_feat
+        tembed["plan"] = self.plan_anchor_encoder(temp_plan_anchor) if has_temp else None
+
+        feat["ego"] = self.ego_feature_encoder(front)[:, None]  # [bs, 1, C]
+        anchor["ego"] = self.ego_anchor_init[None].expand(bs, -1, -1)
+        embed["ego"] = det_enc(anchor["ego"])
+        temp_ego_feat, temp_ego_anchor = banks.ego_bank_get(
+            bank_states.ego if has_temp else None)
+        tfeat["ego"] = temp_ego_feat
+        tembed["ego"] = det_enc(temp_ego_anchor) if has_temp else None
+
+        def joint_pair(f_d, e_d):
+            """Concatenate features and embeds over query_select."""
+            fparts, eparts, sections, start = [], [], {}, 0
+            for q in qs:
+                f, e = f_d[q], e_d[q]
+                if f is None:
+                    f = e = torch.zeros((bs, 0, C), dtype=torch.float32,
+                                        device=feature_maps[0].device)
+                fparts.append(f)
+                eparts.append(e)
+                sections[q] = (start, start + f.shape[1])
+                start += f.shape[1]
+            return torch.cat(fparts, dim=1), torch.cat(eparts, dim=1), sections
+
+        out: Dict[str, Dict[str, List]] = {
+            "det": {"classification": [], "prediction": [], "quality": []},
+            "map": {"classification": [], "prediction": []},
+            "ego": {"status": []},
+            "plan": {"classification": [], "prediction": []},
+            "motion": {"classification": [], "prediction": []},
+        }
+        det_bank_state = bank_states.det if has_temp else None
+        det_cls = plan_cls = None
+        joint_feat = joint_embed = None
+        temp_joint_feat = temp_joint_embed = None
+        cur_sections = temp_sections = None
+        deform_i = refine_i = 0
+
+        for op_idx, op in enumerate(cfg.operation_order):
+            if op == "concat":
+                joint_feat, joint_embed, cur_sections = joint_pair(feat, embed)
+                if has_temp:
+                    temp_joint_feat, temp_joint_embed, temp_sections = joint_pair(tfeat, tembed)
+
+            elif op == "split":
+                for q in qs:
+                    s, e = cur_sections[q]
+                    feat[q] = joint_feat[:, s:e]
+                    embed[q] = joint_embed[:, s:e]
+
+            elif op == "gnn":
+                joint_feat = getattr(self, f"gnn_{op_idx}")(
+                    joint_feat, joint_embed, cur_sections, self.fc_before, self.fc_after)
+
+            elif op == "temp_gnn":
+                joint_feat = getattr(self, f"temp_gnn_{op_idx}")(
+                    joint_feat, joint_embed, cur_sections, self.fc_before, self.fc_after,
+                    key_x=temp_joint_feat, key_pos=temp_joint_embed,
+                    key_sections=temp_sections, has_value=has_temp)
+
+            elif op == "inter_gnn":
+                joint_feat = getattr(self, f"inter_gnn_{op_idx}")(
+                    joint_feat, joint_embed, cur_sections, self.fc_before, self.fc_after,
+                    key_x=joint_feat, key_pos=joint_embed, key_sections=cur_sections)
+
+            elif op == "norm":
+                joint_feat = getattr(self, f"norm_{op_idx}")(joint_feat)
+
+            elif op == "ffn":
+                joint_feat = getattr(self, f"ffn_{op_idx}")(joint_feat)
+
+            elif op == "deformable":
+                for q in qs:
+                    feat[q] = getattr(self, f"{q}_deformable_{deform_i}")(
+                        getattr(self, f"{q}_kps_{deform_i}"), feat[q], anchor[q], embed[q],
+                        feature_maps, projection_mat, image_wh)
+                deform_i += 1
+
+            elif op == "refine":
+                # ---- det -------------------------------------------------
+                anchor["det"], det_cls, det_qt = getattr(self, f"det_refine_{refine_i}")(
+                    feat["det"], anchor["det"], embed["det"], time_interval)
+                out["det"]["prediction"].append(anchor["det"])
+                out["det"]["classification"].append(det_cls)
+                out["det"]["quality"].append(det_qt)
+                if refine_i + 1 == cfg.num_single_frame_decoder and has_temp:
+                    feat["det"], anchor["det"], det_bank_state = banks.det_bank_update(
+                        cfg, det_bank_state, temp_det_feat, temp_det_anchor,
+                        feat["det"], anchor["det"], det_cls, det_mask)
+                embed["det"] = det_enc(anchor["det"])
+                if refine_i + 1 > cfg.num_single_frame_decoder and has_temp:
+                    tembed["det"] = embed["det"][:, :cfg.num_temp_det_anchor]
+
+                # ---- map -------------------------------------------------
+                anchor["map"], map_cls = getattr(self, f"map_refine_{refine_i}")(
+                    feat["map"], anchor["map"], embed["map"])
+                out["map"]["prediction"].append(anchor["map"])
+                out["map"]["classification"].append(map_cls)
+                embed["map"] = self.map_anchor_encoder(anchor["map"])
+
+                # ---- motion ----------------------------------------------
+                if self.with_motion:
+                    m_anchor = self.motion_anchor[det_cls.argmax(dim=-1)]  # [bs, n, mode, ts, 2]
+                    m_anchor = agent_to_lidar_trajs(m_anchor, anchor["det"].detach())
+                    mode_embed = sine_embed_2d(m_anchor[..., -1, :], C)
+                    mode_q = self.motion_anchor_encoder_out(
+                        self.motion_anchor_encoder_mlp(mode_embed))
+                    motion_q = mode_q + (feat["det"] + embed["det"])[:, :, None]
+                    m_cls, m_reg = getattr(self, f"motion_refine_{refine_i}")(motion_q)
+                    out["motion"]["classification"].append(m_cls)
+                    out["motion"]["prediction"].append(m_reg)
+
+                # ---- ego -------------------------------------------------
+                out["ego"]["status"].append(getattr(self, f"ego_refine_{refine_i}")(
+                    feat["ego"], embed["ego"]))
+
+                # ---- plan ------------------------------------------------
+                plan_embed = embed["plan"]
+                if cfg.with_target_point_embed:
+                    tp = sine_embed_2d(metas["target_point"], C)
+                    plan_embed = plan_embed + self.target_point_encoder_out(
+                        self.target_point_encoder_mlp(tp))[:, None]
+                if cfg.with_command_embed:
+                    cmd = metas["gt_ego_fut_cmd"].float()
+                    plan_embed = plan_embed + self.command_encoder_out(
+                        self.command_encoder_mlp(cmd))[:, None]
+                if cfg.with_ego_instance_feature:
+                    feat["plan"] = feat["plan"] + feat["ego"]
+                    plan_embed = plan_embed + embed["ego"]
+                plan_reg, plan_cls = getattr(self, f"plan_refine_{refine_i}")(
+                    feat["plan"], anchor["plan"], plan_embed)
+                anchor["plan"] = plan_reg
+                wp = plan_reg.reshape(bs, -1, cfg.ego_fut_ts, 2)
+                offsets = torch.cat([wp[..., :1, :], wp[..., 1:, :] - wp[..., :-1, :]], dim=-2)
+                out["plan"]["prediction"].append(offsets[:, None])  # [bs, 1, N, ts, 2]
+                out["plan"]["classification"].append(plan_cls.reshape(bs, 1, -1))
+                embed["plan"] = self.plan_anchor_encoder(anchor["plan"])
+                refine_i += 1
+
+        # ---- cache banks for the next frame ------------------------------
+        new_det_state, temp_conf = banks.det_bank_cache(
+            cfg, det_bank_state.confidence if has_temp else None,
+            feat["det"], anchor["det"], det_cls, timestamp, metas["T_global"])
+        instance_id, new_det_state = banks.det_assign_instance_ids(
+            cfg, det_bank_state, new_det_state, temp_conf, det_cls)
+        new_bank_states = banks.BankStates(
+            det=new_det_state,
+            ego=banks.ego_bank_cache(feat["ego"], anchor["ego"], timestamp),
+            plan=banks.plan_bank_cache(
+                cfg, bank_states.plan.confidence if has_temp else None,
+                feat["plan"], anchor["plan"], plan_cls, timestamp),
+        )
+
+        outputs: Dict[str, Any] = {
+            "det": {
+                "classification": torch.stack(out["det"]["classification"]),
+                "prediction": torch.stack(out["det"]["prediction"]),
+                "quality": torch.stack(out["det"]["quality"]),
+                "instance_id": instance_id,
+            },
+            "map": {
+                "classification": torch.stack(out["map"]["classification"]),
+                "prediction": torch.stack(out["map"]["prediction"]),
+            },
+            "ego": {"status": torch.stack(out["ego"]["status"])},
+            "plan": {
+                "classification": torch.stack(out["plan"]["classification"]),
+                "prediction": torch.stack(out["plan"]["prediction"]),
+                "final_waypoints": anchor["plan"],
+            },
+        }
+        if self.with_motion:
+            outputs["motion"] = {
+                "classification": torch.stack(out["motion"]["classification"]),
+                "prediction": torch.stack(out["motion"]["prediction"]),
+            }
+        return outputs, new_bank_states

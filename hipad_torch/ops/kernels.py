@@ -1,0 +1,224 @@
+"""Build, bind and launch the sampler's CUDA kernels.
+
+The sources ``hipad_torch/csrc/*.cu`` are compiled with plain ``nvcc`` for
+``sm_90a`` into one shared library with a C interface, on first use, into
+``build/hipad_torch_kernels/`` at the root of the checkout, and loaded with
+``ctypes``. Nothing here runs at import time: the CPU tests import this
+module on hosts without a card or a compiler.
+
+Each wrapper checks device, dtype, shape, contiguity and alignment, raises
+on anything its kernel does not take, allocates its output with
+``torch.empty``, launches on PyTorch's current stream and raises if
+``cudaGetLastError()`` is not 0 after the launch. Each keeps ``launches``,
+the number of launches it made, so a run can show that the main path went
+through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+from typing import Sequence
+
+import torch
+
+CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "hipad_torch_kernels"
+LIB_NAME = "libhipad_kernels.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_VEC = 8  # channels per lane per load (csrc/sample_common.cuh: kVec)
+_MAX_C = 1024  # 32 lanes * kVec * kMaxChunks
+_MAX_FINE_LEVELS = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class Library:
+    lib: ctypes.CDLL
+    path: pathlib.Path
+    build_seconds: float  # 0.0 when an up-to-date build was reused
+    log: str  # nvcc/ptxas output of the build (registers, spills)
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the sampler kernels are built with the "
+                           "CUDA toolkit (set CUDA_HOME)")
+    return found
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> Library:
+    """Build (if any source is newer than the library) and load the kernels."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = BUILD_DIR / LIB_NAME
+    newest = max(p.stat().st_mtime for p in _sources())
+    seconds, log = 0.0, ""
+    if not out.exists() or out.stat().st_mtime < newest:
+        tmp = BUILD_DIR / f".{LIB_NAME}.{os.getpid()}"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               *(str(p) for p in sorted(CSRC.glob("*.cu")))]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        log = res.stdout + res.stderr
+        if res.returncode != 0:
+            raise RuntimeError(f"kernel build failed ({' '.join(cmd)}):\n{log}")
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.hipad_interp_sample_camsum.argtypes = [p, i, p, p, p, p] + [i] * 7 + [p]
+    lib.hipad_interp_sample_camsum.restype = i
+    lib.hipad_patch_sample.argtypes = [p] * 4 + [i] * 10 + [p] * 5 + [i] * 6 + [p]
+    lib.hipad_patch_sample.restype = i
+    return Library(lib=lib, path=out, build_seconds=seconds, log=log)
+
+
+def _check(cond: bool, msg: str):
+    if not cond:
+        raise ValueError(msg)
+
+
+def _check_tensor(name: str, t: torch.Tensor, device: torch.device, dtypes, kernel: str):
+    _check(t.device == device, f"{kernel}: {name} is on {t.device}, expected {device}")
+    _check(t.dtype in dtypes, f"{kernel}: {name} has dtype {t.dtype}, takes {dtypes}")
+    _check(t.is_contiguous(), f"{kernel}: {name} must be contiguous")
+    _check(t.data_ptr() % 16 == 0, f"{kernel}: {name} must be 16-byte aligned")
+
+
+def _check_channels(kernel: str, C: int, G: int):
+    _check(C % G == 0 and (C // G) % _VEC == 0 and C <= _MAX_C,
+           f"{kernel}: takes C <= {_MAX_C} with C/G a multiple of {_VEC}; "
+           f"got C={C}, G={G}")
+
+
+def _stream(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+class InterpSampleCamsum:
+    """K1 (``csrc/interp_sample.cu``): coarse-level bilinear sampling summed
+    over cameras; replaces ``hipad_tpu/ops/pallas_interp.py:
+    interp_matmul_pallas`` plus the camera sum of ``interp_matmul_camsum``.
+    Plain version: ``ops/sampling.py:interp_matmul_camsum``."""
+
+    name = "interp_sample_camsum"
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, fm: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
+                 wg: torch.Tensor, bs: int, cams: int) -> torch.Tensor:
+        """fm ``[bs*cams, H, W, C]`` fp32|bf16; px, py ``[bs*cams, M]`` fp32
+        pixel coordinates; wg ``[bs*cams, M, G]`` fp32 -> ``[bs, M, C]`` fp32."""
+        k = "K1 interp_sample_camsum"
+        _check(fm.is_cuda, f"{k}: takes CUDA tensors, got {fm.device}")
+        dev = fm.device
+        _check(fm.dim() == 4 and fm.shape[0] == bs * cams,
+               f"{k}: fm must be [bs*cams, H, W, C], got {tuple(fm.shape)}")
+        B, H, W, C = fm.shape
+        _check(px.shape == py.shape and px.dim() == 2 and px.shape[0] == B,
+               f"{k}: px, py must be [bs*cams, M], got {tuple(px.shape)}, {tuple(py.shape)}")
+        M = px.shape[1]
+        _check(wg.dim() == 3 and wg.shape[:2] == (B, M),
+               f"{k}: wg must be [bs*cams, M, G], got {tuple(wg.shape)}")
+        G = wg.shape[2]
+        _check_channels(k, C, G)
+        _check_tensor("fm", fm, dev, (torch.float32, torch.bfloat16), k)
+        for name, t in (("px", px), ("py", py), ("wg", wg)):
+            _check_tensor(name, t, dev, (torch.float32,), k)
+        out = torch.empty(bs, M, C, dtype=torch.float32, device=dev)
+        lib = library().lib
+        with torch.cuda.device(dev):
+            err = lib.hipad_interp_sample_camsum(
+                fm.data_ptr(), int(fm.dtype == torch.bfloat16), px.data_ptr(),
+                py.data_ptr(), wg.data_ptr(), out.data_ptr(),
+                bs, cams, H, W, C, G, M, _stream(dev))
+        if err != 0:
+            raise RuntimeError(f"{k}: launch failed with CUDA error {err}")
+        self.launches += 1
+        return out
+
+
+class PatchSample:
+    """K2 (``csrc/patch_sample.cu``): fine-level patch sampling of
+    camera-compacted samples, summed over the kept cameras and the fine
+    levels; replaces the ``patch_bilinear_w`` loop of
+    ``hipad_tpu/ops/sampling.py:deformable_samples_topk_flat``.
+    Plain version: ``ops/sampling.py:patch_sample_plain``."""
+
+    name = "patch_sample"
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, fine_maps: Sequence[torch.Tensor], cam: torch.Tensor,
+                 x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+                 cam_k: int) -> torch.Tensor:
+        """fine_maps: ``[bs, cams, H_l, W_l, C]`` fp32|bf16 (one dtype);
+        cam ``[bs, M]`` int32; x, y ``[bs, M]`` fp32; w ``[bs, M, nlev, G]``
+        fp32; ``M = M0*cam_k`` -> ``[bs, M0, C]`` fp32."""
+        k = "K2 patch_sample"
+        _check(x.is_cuda, f"{k}: takes CUDA tensors, got {x.device}")
+        dev = x.device
+        nlev = len(fine_maps)
+        _check(1 <= nlev <= _MAX_FINE_LEVELS,
+               f"{k}: takes 1..{_MAX_FINE_LEVELS} fine levels, got {nlev}")
+        _check(x.dim() == 2 and x.shape == y.shape == cam.shape,
+               f"{k}: cam, x, y must be [bs, M], got {tuple(cam.shape)}, "
+               f"{tuple(x.shape)}, {tuple(y.shape)}")
+        bs, M = x.shape
+        _check(cam_k >= 1 and M % cam_k == 0, f"{k}: M={M} is not a multiple of cam_k={cam_k}")
+        _check(w.dim() == 4 and w.shape[:3] == (bs, M, nlev),
+               f"{k}: w must be [bs, M, {nlev}, G], got {tuple(w.shape)}")
+        G = w.shape[3]
+        cams, C = fine_maps[0].shape[1], fine_maps[0].shape[-1]
+        _check_channels(k, C, G)
+        fm_dtype = fine_maps[0].dtype
+        for i, fm in enumerate(fine_maps):
+            _check(fm.dim() == 5 and fm.shape[0] == bs and fm.shape[1] == cams
+                   and fm.shape[-1] == C,
+                   f"{k}: level {i} must be [bs, cams, H, W, C], got {tuple(fm.shape)}")
+            _check(fm.shape[2] >= 2 and fm.shape[3] >= 2,
+                   f"{k}: level {i} needs H, W >= 2, got {tuple(fm.shape)}")
+            _check(fm.dtype == fm_dtype, f"{k}: fine levels must share one dtype")
+            _check_tensor(f"level {i}", fm, dev, (torch.float32, torch.bfloat16), k)
+        _check_tensor("cam", cam, dev, (torch.int32,), k)
+        for name, t in (("x", x), ("y", y), ("w", w)):
+            _check_tensor(name, t, dev, (torch.float32,), k)
+        M0 = M // cam_k
+        out = torch.empty(bs, M0, C, dtype=torch.float32, device=dev)
+        ptrs = [fm.data_ptr() for fm in fine_maps] + [0] * (_MAX_FINE_LEVELS - nlev)
+        hs = [fm.shape[2] for fm in fine_maps] + [0] * (_MAX_FINE_LEVELS - nlev)
+        ws = [fm.shape[3] for fm in fine_maps] + [0] * (_MAX_FINE_LEVELS - nlev)
+        lib = library().lib
+        with torch.cuda.device(dev):
+            err = lib.hipad_patch_sample(
+                *ptrs, *hs, *ws, nlev, int(fm_dtype == torch.bfloat16),
+                cam.data_ptr(), x.data_ptr(), y.data_ptr(), w.data_ptr(),
+                out.data_ptr(), bs, cams, C, G, M0, cam_k, _stream(dev))
+        if err != 0:
+            raise RuntimeError(f"{k}: launch failed with CUDA error {err}")
+        self.launches += 1
+        return out
+
+
+interp_sample_camsum = InterpSampleCamsum()
+patch_sample = PatchSample()
+KERNELS = (interp_sample_camsum, patch_sample)

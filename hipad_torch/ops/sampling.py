@@ -1,0 +1,289 @@
+"""Multi-camera multi-scale deformable sampling: plain PyTorch versions and
+the dispatch to the CUDA kernels.
+
+Counterpart of ``hipad_tpu/ops/sampling.py`` at ``stage2()`` semantics. For
+every (anchor, keypoint, camera, level) the sampler reads a bilinear sample
+of an NHWC feature pyramid at a normalised 2D location, multiplies it by a
+per-(point, camera, level, group) weight and sums into a per-anchor feature.
+
+Layouts are the JAX package's: feature maps ``[bs, cams, H, W, C]``, points
+``[bs, n, P, cams, 2]`` in (x, y) order, weights ``[bs, n, P, cams, L, G]``
+with channels split into ``G`` contiguous groups.
+
+Two functions dispatch by device and by nothing else:
+
+  * :func:`interp_sample_camsum` (coarse levels, counterpart of the Pallas
+    kernel ``interp_matmul_pallas`` plus the camera sum) -> kernel K1;
+  * :func:`patch_sample` (fine levels, counterpart of ``patch_bilinear_w`` as
+    driven by ``deformable_samples_topk_flat``) -> kernel K2.
+
+A CPU tensor takes the plain version beside each; a CUDA tensor takes the
+kernel in ``ops/kernels.py``, which raises on anything it does not take.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import torch
+
+from . import kernels
+
+
+def _inside(points_2d: torch.Tensor) -> torch.Tensor:
+    """Samples strictly inside the open unit square (the reference's bounds
+    check); the last axis holds (x, y)."""
+    return ((points_2d > 0.0) & (points_2d < 1.0)).all(dim=-1)
+
+
+def deformable_aggregation(
+    feature_maps: Sequence[torch.Tensor],
+    points_2d: torch.Tensor,
+    weights: torch.Tensor,
+) -> torch.Tensor:
+    """Exact oracle: four corner row gathers per (sample, camera, level).
+
+    Samples outside the open unit square get weight zero, and each bilinear
+    corner outside the map contributes zero. Returns ``[bs, anchor, C]`` in
+    the weights' dtype.
+    """
+    bs, num_anchor, num_pts, num_cams, _ = points_2d.shape
+    channels = feature_maps[0].shape[-1]
+    groups = weights.shape[-1]
+    group_dims = channels // groups
+
+    inside = _inside(points_2d).permute(0, 3, 1, 2)  # [b, c, a, p]
+    x = points_2d[..., 0].permute(0, 3, 1, 2)
+    y = points_2d[..., 1].permute(0, 3, 1, 2)
+    w = weights.permute(0, 3, 1, 2, 4, 5)  # [b, c, a, p, L, G]
+
+    out = torch.zeros(bs, num_anchor, channels, dtype=weights.dtype,
+                      device=weights.device)
+    for lvl, feat in enumerate(feature_maps):
+        h_l, w_l = feat.shape[2], feat.shape[3]
+        fm = feat.reshape(bs * num_cams, h_l * w_l, channels)
+        px = x * w_l - 0.5
+        py = y * h_l - 0.5
+        x0 = torch.floor(px)
+        y0 = torch.floor(py)
+        fx = px - x0
+        fy = py - y0
+        x0 = x0.long()
+        y0 = y0.long()
+        w_lvl = w[..., lvl, :] * inside[..., None]  # [b, c, a, p, G]
+        for dy, dx, cw in (
+            (0, 0, (1.0 - fy) * (1.0 - fx)),
+            (0, 1, (1.0 - fy) * fx),
+            (1, 0, fy * (1.0 - fx)),
+            (1, 1, fy * fx),
+        ):
+            xi = x0 + dx
+            yi = y0 + dy
+            valid = (xi >= 0) & (xi < w_l) & (yi >= 0) & (yi < h_l)
+            idx = yi.clamp(0, h_l - 1) * w_l + xi.clamp(0, w_l - 1)
+            idx = idx.reshape(bs * num_cams, num_anchor * num_pts, 1)
+            gathered = torch.gather(fm, 1, idx.expand(-1, -1, channels))
+            gathered = gathered.reshape(bs, num_cams, num_anchor, num_pts,
+                                        groups, group_dims)
+            corner_w = (cw * valid).to(weights.dtype)[..., None] * w_lvl
+            out = out + torch.einsum(
+                "bcapgd,bcapg->bagd", gathered.to(weights.dtype), corner_w
+            ).reshape(bs, num_anchor, channels)
+    return out
+
+
+def interp_matmul_level(
+    fm: torch.Tensor,  # [B, H, W, C]
+    px: torch.Tensor,  # [B, M] continuous pixel x
+    py: torch.Tensor,
+    wg: torch.Tensor,  # [B, M, G] group weights (0 for out-of-bounds samples)
+    groups: int,
+) -> torch.Tensor:
+    """Bilinear sampling of one level as a dense ``[M, H*W] x [H*W, C]``
+    product with separable hat weights ``max(0, 1 - |p - iota|)``: corners
+    out of bounds get weight zero. Returns ``[B, M, G, C/G]``, already
+    multiplied by ``wg``. The product runs in float32 whatever the map's
+    dtype (the kernel, K1, also reads bf16 maps into float32)."""
+    B, H, W, C = fm.shape
+    M = px.shape[1]
+    iota_h = torch.arange(H, dtype=torch.float32, device=fm.device)
+    iota_w = torch.arange(W, dtype=torch.float32, device=fm.device)
+    wy = torch.clamp(1.0 - (py.float()[..., None] - iota_h).abs(), min=0.0)
+    wx = torch.clamp(1.0 - (px.float()[..., None] - iota_w).abs(), min=0.0)
+    interp = (wy[..., :, None] * wx[..., None, :]).reshape(B, M, H * W)
+    out = torch.bmm(interp, fm.reshape(B, H * W, C).float())
+    return out.reshape(B, M, groups, C // groups) * wg.float()[..., None]
+
+
+def interp_matmul_camsum(fm, px, py, wg, bs: int, cams: int) -> torch.Tensor:
+    """Plain version of K1: :func:`interp_matmul_level` summed over the
+    camera axis -> ``[bs, M, C]`` float32. ``fm`` is ``[bs*cams, H, W, C]``,
+    ``px, py`` are ``[bs*cams, M]`` pixel coordinates, ``wg [bs*cams, M, G]``."""
+    B, M = px.shape
+    C = fm.shape[-1]
+    c = interp_matmul_level(fm, px, py, wg, wg.shape[-1])
+    return c.reshape(bs, cams, M, C).sum(dim=1)
+
+
+def interp_sample_camsum(fm, px, py, wg, bs: int, cams: int) -> torch.Tensor:
+    """Coarse-level sampling summed over cameras -> ``[bs, M, C]`` float32.
+    A CPU tensor takes :func:`interp_matmul_camsum`; anything else takes
+    kernel K1 (``kernels.interp_sample_camsum``), which raises off the card."""
+    if fm.device.type == "cpu":
+        return interp_matmul_camsum(fm, px, py, wg, bs, cams)
+    return kernels.interp_sample_camsum(fm, px, py, wg, bs, cams)
+
+
+def patch_sample_plain(
+    fine_maps: Sequence[torch.Tensor],
+    cam: torch.Tensor,
+    x: torch.Tensor,
+    y: torch.Tensor,
+    w: torch.Tensor,
+    cam_k: int,
+) -> torch.Tensor:
+    """Plain version of K2: fine-level patch sampling of camera-compacted
+    samples, summed over the ``cam_k`` slots and the fine levels.
+
+    Args:
+      fine_maps: per-level ``[bs, cams, H, W, C]`` maps (H, W >= 2).
+      cam: ``[bs, M]`` int camera of each compacted sample, ``M = M0*cam_k``
+        with the slot index fastest.
+      x, y: ``[bs, M]`` normalised locations.
+      w: ``[bs, M, len(fine_maps), G]`` group weights carrying the inside
+        mask and the camera renormalisation.
+
+    Each sample reads one ``(2, 2, C)`` patch whose origin is clamped to
+    ``[0, H-2] x [0, W-2]``; the hat weights ``max(0, 1 - |p - origin - i|)``
+    taken against the clamped origin give corners out of bounds weight zero.
+    Returns ``[bs, M0, C]`` float32.
+    """
+    bs, M = cam.shape
+    C = fine_maps[0].shape[-1]
+    G = w.shape[-1]
+    two = torch.arange(2, dtype=torch.float32, device=x.device)
+    cam = cam.long()
+    out = torch.zeros(bs, M, C, dtype=torch.float32, device=x.device)
+    for lvl, feat in enumerate(fine_maps):
+        cams, h_l, w_l = feat.shape[1:4]
+        px = x.float() * w_l - 0.5
+        py = y.float() * h_l - 0.5
+        sy = torch.floor(py).clamp(0, h_l - 2)
+        sx = torch.floor(px).clamp(0, w_l - 2)
+        wy = torch.clamp(1.0 - (py[..., None] - (sy[..., None] + two)).abs(), min=0.0)
+        wx = torch.clamp(1.0 - (px[..., None] - (sx[..., None] + two)).abs(), min=0.0)
+        row = (cam * h_l + sy.long()) * w_l + sx.long()  # [bs, M] top-left cell
+        offs = torch.tensor([0, 1, w_l, w_l + 1], device=x.device)
+        idx = (row[..., None] + offs).reshape(bs, M * 4, 1)
+        patch = torch.gather(feat.reshape(bs, cams * h_l * w_l, C), 1,
+                             idx.expand(-1, -1, C)).reshape(bs, M, 4, C).float()
+        w4 = (wy[..., :, None] * wx[..., None, :]).reshape(bs, M, 4)
+        sampled = torch.einsum("bmqc,bmq->bmc", patch, w4)
+        out = out + (sampled.reshape(bs, M, G, C // G)
+                     * w[:, :, lvl].float()[..., None]).reshape(bs, M, C)
+    return out.reshape(bs, M // cam_k, cam_k, C).sum(dim=2)
+
+
+def patch_sample(fine_maps, cam, x, y, w, cam_k: int) -> torch.Tensor:
+    """Fine-level sampling -> ``[bs, M0, C]`` float32. A CPU tensor takes
+    :func:`patch_sample_plain`; anything else takes kernel K2
+    (``kernels.patch_sample``), which raises off the card."""
+    if x.device.type == "cpu":
+        return patch_sample_plain(fine_maps, cam, x, y, w, cam_k)
+    return kernels.patch_sample(fine_maps, cam, x, y, w, cam_k)
+
+
+def deformable_samples_topk_flat(
+    feature_maps: Sequence[torch.Tensor],
+    points_2d: torch.Tensor,  # [bs, M0, cams, 2]
+    weights: torch.Tensor,  # [bs, M0, cams, L, G]
+    cam_k: int = 3,
+    matmul_levels: Sequence[int] = (2, 3),
+    cam_renorm: bool = False,
+) -> torch.Tensor:
+    """Camera-compacted hybrid sampler on flat samples -> ``[bs, M0, C]``.
+
+    Each sample keeps the ``cam_k`` cameras ranked by in-bounds-ness (ties to
+    the lowest camera index, as the JAX package's ``topk_by_argmax``). With
+    ``cam_renorm`` the kept cameras' (level, group) weights are rescaled to
+    the full in-bounds mass (floor ``1e-9``). The levels in ``matmul_levels``
+    are sampled on all cameras by :func:`interp_sample_camsum` (one launch of
+    K1 each on the card); the other levels by :func:`patch_sample` on the
+    compacted samples (one launch of K2).
+    """
+    bs, M0, num_cams, _ = points_2d.shape
+    num_levels = len(feature_maps)
+    channels = feature_maps[0].shape[-1]
+    groups = weights.shape[-1]
+    cam_k = min(cam_k, num_cams)
+
+    inside = _inside(points_2d)  # [bs, M0, cams]
+    # All keys distinct: in-bounds cameras first, lower index first.
+    rank_key = inside.long() * num_cams - torch.arange(num_cams, device=inside.device)
+    cam_idx = rank_key.topk(cam_k, dim=-1).indices  # [bs, M0, k]
+    pts = torch.gather(points_2d, 2, cam_idx[..., None].expand(-1, -1, -1, 2))
+    ins = torch.gather(inside, 2, cam_idx).to(weights.dtype)
+    wts = torch.gather(weights, 2,
+                       cam_idx[..., None, None].expand(-1, -1, -1, num_levels, groups))
+    w = wts * ins[..., None, None]  # [bs, M0, k, L, G]
+    if cam_renorm and cam_k < num_cams:
+        full = (weights * inside[..., None, None].to(weights.dtype)).sum(dim=2)
+        kept = w.sum(dim=2)
+        w = w * (full / torch.clamp(kept, min=1e-9))[:, :, None]
+
+    M = M0 * cam_k
+    out = torch.zeros(bs, M0, channels, dtype=torch.float32, device=points_2d.device)
+    fine = [l for l in range(num_levels) if l not in matmul_levels]
+    if fine:
+        w_fine = w.reshape(bs, M, num_levels, groups)[:, :, fine].float().contiguous()
+        out = out + patch_sample(
+            [feature_maps[l] for l in fine],
+            cam_idx.reshape(bs, M).to(torch.int32),
+            pts[..., 0].reshape(bs, M).float().contiguous(),
+            pts[..., 1].reshape(bs, M).float().contiguous(),
+            w_fine, cam_k)
+
+    coarse = [l for l in matmul_levels if l < num_levels]
+    if coarse:
+        B = bs * num_cams
+        xf = points_2d[..., 0].permute(0, 2, 1).reshape(B, M0).float()
+        yf = points_2d[..., 1].permute(0, 2, 1).reshape(B, M0).float()
+        insf = inside.permute(0, 2, 1).reshape(B, M0)
+        wf = weights.permute(0, 2, 1, 3, 4).reshape(B, M0, num_levels, groups)
+        wf = wf.float() * insf[..., None, None]
+        for lvl in coarse:
+            feat = feature_maps[lvl]
+            h_l, w_l = feat.shape[2], feat.shape[3]
+            out = out + interp_sample_camsum(
+                feat.reshape(B, h_l, w_l, channels),
+                (xf * w_l - 0.5).contiguous(), (yf * h_l - 0.5).contiguous(),
+                wf[:, :, lvl].contiguous(), bs, num_cams)
+    return out.to(weights.dtype)
+
+
+def deformable_aggregation_topk(
+    feature_maps: Sequence[torch.Tensor],
+    points_2d: torch.Tensor,
+    weights: torch.Tensor,
+    cam_k: int = 3,
+    matmul_levels: Sequence[int] = (2, 3),
+    cam_renorm: bool = False,
+) -> torch.Tensor:
+    """The stage-2 sampler: :func:`deformable_samples_topk_flat` on the
+    flattened (anchor, point) samples, summed over each anchor's points ->
+    ``[bs, anchors, C]``."""
+    bs, num_anchor, num_pts, num_cams, _ = points_2d.shape
+    flat = deformable_samples_topk_flat(
+        feature_maps,
+        points_2d.reshape(bs, num_anchor * num_pts, num_cams, 2),
+        weights.reshape(bs, num_anchor * num_pts, num_cams,
+                        weights.shape[-2], weights.shape[-1]),
+        cam_k=cam_k, matmul_levels=matmul_levels, cam_renorm=cam_renorm,
+    )
+    return flat.reshape(bs, num_anchor, num_pts, -1).sum(dim=2)
+
+
+def front_view_feature(feature_maps: List[torch.Tensor], level: int = -1,
+                       cam: int = 0) -> torch.Tensor:
+    """One camera's map at one pyramid level: ``[bs, H, W, C]``."""
+    return feature_maps[level][:, cam]

@@ -1,0 +1,89 @@
+"""What the port must never do: import JAX, or fall back to the CPU when it
+was asked to run on a card."""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+_NO_JAX_FORWARD = r"""
+import sys
+sys.modules["jax"] = None   # any import of jax or flax now raises ImportError
+sys.modules["flax"] = None
+import pkgutil, importlib, torch
+import hipad_torch
+for m in pkgutil.walk_packages(hipad_torch.__path__, "hipad_torch."):
+    importlib.import_module(m.name)
+from hipad_tpu.configs.model import tiny
+from hipad_tpu.data import synthetic
+from hipad_torch.models.detector import HiPAD, batch_to_torch
+from hipad_torch.weights import init_random
+cfg = tiny()
+model = init_random(HiPAD(cfg), 0)
+images, metas = batch_to_torch(synthetic.make_batch(cfg, 1), "cpu")
+with torch.no_grad():
+    out, banks = model(images, metas)
+    out, banks = model(images, metas, banks)
+assert torch.isfinite(out["plan"]["final_waypoints"]).all()
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax")
+                and sys.modules[m] is not None)
+assert not loaded, loaded
+import chip_smoke  # defines its phases only; runs nothing on import
+shared = {"hipad_tpu", "hipad_tpu.configs", "hipad_tpu.configs.model", "hipad_tpu.data",
+          "hipad_tpu.data.synthetic"}
+reached = {m for m in sys.modules if m.split(".")[0] == "hipad_tpu"}
+assert reached <= shared, sorted(reached - shared)
+print("ok")
+"""
+
+
+def _env():
+    return dict(os.environ, PYTHONPATH=str(ROOT))
+
+
+def test_port_imports_and_runs_without_jax():
+    res = subprocess.run([sys.executable, "-c", _NO_JAX_FORWARD], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().endswith("ok")
+
+
+def test_port_sources_never_import_jax():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|flax)\b", re.M)
+    offenders = [str(p.relative_to(ROOT)) for p in (ROOT / "hipad_torch").rglob("*.py")
+                 if pat.search(p.read_text())]
+    offenders += ["chip_smoke.py"] if pat.search((ROOT / "chip_smoke.py").read_text()) else []
+    assert not offenders
+
+
+def test_chip_smoke_fails_without_a_card():
+    """On a host without CUDA the smoke exits non-zero and prints no result:
+    there is no CPU fallback to report as a chip run."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """The CUDA wrappers launch or raise; they never compute on the CPU."""
+    from hipad_torch.ops import kernels
+
+    fm = torch.zeros(2, 4, 5, 32)
+    px = torch.zeros(2, 7)
+    wg = torch.ones(2, 7, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.interp_sample_camsum(fm, px, px, wg, 1, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.patch_sample([torch.zeros(1, 2, 4, 5, 32)], torch.zeros(1, 6, dtype=torch.int32),
+                             torch.zeros(1, 6), torch.zeros(1, 6), torch.ones(1, 6, 1, 4), 2)
+    assert kernels.interp_sample_camsum.launches == 0
+    assert kernels.patch_sample.launches == 0
