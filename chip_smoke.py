@@ -8,17 +8,34 @@ Phases, one printed line (or a few) each; any failure exits non-zero:
   1. environment: torch/CUDA versions and the card's name and power limit
      (``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``);
   2. build the sampler kernels from ``hipad_torch/csrc/*.cu`` with nvcc;
-  3. each kernel against its plain PyTorch version on the card, at the
-     stage-2 shapes the main path gives it, fp32 and bf16 feature maps;
-  4. the main path: ``stage2()`` with seeded random weights, bs=1, 2 warm-up
-     and 8 timed frames with the banks chained and a new image per frame, in
-     fp32 and then under bf16 autocast; finite outputs; every kernel's launch
-     count over those frames; then frame 1 once more on the CPU (plain path,
-     fp32) against the card's fp32 frame 1.
+  3. each forward kernel (K1, K2) against its plain PyTorch version on the
+     card, at the stage-2 shapes the main path gives it, fp32 and bf16
+     feature maps; timed against the plain version and against
+     ``F.grid_sample``, which computes a related but not the same function;
+  3b. each backward kernel (K1-bwd, K2-bwd) against ``torch.autograd.grad``
+     of the plain version at the same shapes, every gradient output, fp32
+     and bf16 maps, coordinates on the hat weights' kinks included; timed
+     the same way;
+  4. the serving path: ``stage2()`` with seeded random weights, bs=1, 2
+     warm-up and 8 timed frames with the banks chained and a new image per
+     frame, in fp32 and then under bf16 autocast; finite outputs; every
+     kernel's launch count over those frames; then frame 1 once more on the
+     CPU (plain path, fp32) against the card's fp32 frame 1;
+  5. the training path: the stage-2 training step at bs=1 with seeded
+     random weights, dropout 0.1 and GridMask on, 2 warm-up and 6 timed
+     steps with the banks chained, fp32 and then bf16 autocast; finite
+     losses and gradient norm, step time, peak memory, every kernel's launch
+     count against the op program's; then 6 rounds of one fp32 and one bf16
+     step in turn, which compare the two on the host clock; then step 0
+     without dropout and GridMask on the card and on the CPU plain path,
+     loss by loss.
 
-The line before the last is a JSON object with one entry per kernel; the last
-is ``{"ok": true, "device": {...}}``. There is no CPU fallback: without a
-CUDA device the script exits non-zero and prints no result.
+The line before the last is a JSON object with one entry per kernel (its
+time, its plain version's, the bound the card's peaks set for the bytes and
+operations these inputs need, the nearest library call's, and its launches
+in phase 5's fp32 run and in phase 4's); the last is ``{"ok": true, "device": {...}}``. There is no
+CPU fallback: without a CUDA device the script exits non-zero and prints no
+result.
 """
 
 from __future__ import annotations
@@ -32,6 +49,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
+DEVICE = "cuda"  # every phase runs here; there is no CPU fallback
 WARMUP_FRAMES, TIMED_FRAMES = 2, 8
 # kernel vs plain version on the same inputs: both read the same values into
 # fp32 and sum in fp32 in another order (<= 4 taps x 6 cameras, or x 2 slots
@@ -98,97 +116,361 @@ def phase_build():
 
 
 def _max_err(got, ref):
-    return float((got - ref).abs().max()), float(ref.abs().max())
+    return float((got.float() - ref.float()).abs().max()), float(ref.float().abs().max())
+
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet, 700 W): HBM bytes/s
+# and fp32 FLOP/s outside the tensor cores. The sampler kernels do fp32
+# arithmetic on CUDA cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+
+
+def bound(nbytes: float, flops: float) -> tuple:
+    """Least time the card could take: (ms, "bytes" | "operations")."""
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _timed(fns, iters=20):
+    """CUDA-event medians of fns in the order given -> list of ms."""
+    return [cuda_time_ms(f, iters) for f in fns]
+
+
+class _Rec:
+    """Per-kernel numbers for the JSON line; times and bounds summed over the
+    calls one main-path invocation makes (both coarse levels for K1)."""
+
+    def __init__(self):
+        self.err = self.ms = self.plain_ms = self.bound_ms = self.library_ms = 0.0
+        self.bound_by = ""
+
+    def add_bound(self, ms_by):
+        self.bound_ms += ms_by[0]
+        self.bound_by = ms_by[1]
+
+
+def _k1_inputs(cfg, g, dev, lvl, dtype):
+    bs, cams, C, G = 1, cfg.num_cams, cfg.embed_dims, cfg.num_groups
+    H, W = cfg.input_size
+    h, w = H // cfg.strides[lvl], W // cfg.strides[lvl]
+    n_pts = len(cfg.det_kps.fix_scale) + cfg.det_kps.num_learnable
+    M0 = cfg.num_det_anchor * n_pts
+    import torch
+
+    fm = torch.randn(bs * cams, h, w, C, generator=g, device=dev).to(dtype)
+    px = torch.rand(bs * cams, M0, generator=g, device=dev) * (w + 2) - 1.5
+    py = torch.rand(bs * cams, M0, generator=g, device=dev) * (h + 2) - 1.5
+    # every 50th coordinate on an integer: the kinks of the hat weights
+    px[:, ::50] = px[:, ::50].round()
+    py[:, ::50] = py[:, ::50].round()
+    wg = torch.rand(bs * cams, M0, G, generator=g, device=dev)
+    wg = wg * (torch.rand(bs * cams, M0, 1, generator=g, device=dev) < 0.4)
+    return fm, px, py, wg, bs, cams
+
+
+def _k2_inputs(cfg, g, dev, dtype):
+    import torch
+
+    bs, cams, C, G = 1, cfg.num_cams, cfg.embed_dims, cfg.num_groups
+    H, W = cfg.input_size
+    fine = [l for l in range(cfg.num_levels) if l not in cfg.sampler_matmul_levels]
+    n_pts = len(cfg.det_kps.fix_scale) + cfg.det_kps.num_learnable
+    cam_k = cfg.sampler_cam_k
+    M = cfg.num_det_anchor * n_pts * cam_k
+    maps = [torch.randn(bs, cams, H // cfg.strides[l], W // cfg.strides[l], C, generator=g,
+                        device=dev).to(dtype) for l in fine]
+    cam = torch.randint(0, cams, (bs, M), generator=g, device=dev, dtype=torch.int32)
+    x = torch.rand(bs, M, generator=g, device=dev) * 1.2 - 0.1
+    y = torch.rand(bs, M, generator=g, device=dev) * 1.2 - 0.1
+    inside = ((x > 0) & (x < 1) & (y > 0) & (y < 1)).float()
+    w = torch.rand(bs, M, len(fine), G, generator=g, device=dev)
+    w = w * (torch.rand(bs, M, 1, 1, generator=g, device=dev) < 0.7) * inside[..., None, None]
+    return maps, cam, x, y, w, cam_k
+
+
+def _tap_ok(ty, tx, bwd):
+    """Whether a tap at hat arguments ``|ty|, |tx|`` is read: the forward
+    reads taps whose hat weight is non-zero; the backward also those whose
+    weight is zero but whose hat derivative is not (a kink, |t| == 1)."""
+    if not bwd:
+        return (ty < 1) & (tx < 1)
+    return (ty <= 1) & (tx <= 1) & ~((ty == 1) & (tx == 1))
+
+
+def _k1_reads(px, py, wg, h, w, bwd):
+    """(taps read, distinct map rows read) by K1 (or K1-bwd) on one level.
+    The forward skips (sample, camera) pairs whose group weights are all
+    zero; the backward reads every pair in range, because d wg needs the
+    sampled row whatever the weight."""
+    import torch
+
+    B, M = px.shape
+    bc = torch.arange(B, device=px.device)[:, None].expand(B, M)
+    if bwd:
+        ok0 = (px >= -1) & (px <= w) & (py >= -1) & (py <= h)
+        offs = (-1, 0, 1)
+    else:
+        ok0 = (px > -1) & (px < w) & (py > -1) & (py < h) & (wg != 0).any(-1)
+        offs = (0, 1)
+    x0, y0 = px.clamp(-2, w + 1).floor(), py.clamp(-2, h + 1).floor()
+    cells = []
+    for dy in offs:
+        for dx in offs:
+            yy, xx = y0 + dy, x0 + dx
+            ok = (ok0 & (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+                  & _tap_ok((py - yy).abs(), (px - xx).abs(), bwd))
+            cells.append(((bc * h + yy.long()) * w + xx.long())[ok])
+    cells = torch.cat(cells)
+    return cells.numel(), int(torch.unique(cells).numel())
+
+
+def _k2_reads(maps, cam, x, y, w, bwd):
+    """(taps read, map bytes read) by K2 (or K2-bwd) over its fine levels.
+    The forward skips (slot, level) pairs whose group weights are all zero;
+    the backward reads every slot with a valid camera (d w needs the row)."""
+    import torch
+
+    bs, M = x.shape
+    cams = maps[0].shape[1]
+    bcam = (torch.arange(bs, device=x.device)[:, None] * cams + cam).long()
+    valid = (cam >= 0) & (cam < cams)
+    taps, nbytes = 0, 0
+    for l, m in enumerate(maps):
+        H, W, C = m.shape[2:]
+        ok0 = valid if bwd else valid & (w[:, :, l] != 0).any(-1)
+        p, q = x * W - 0.5, y * H - 0.5
+        sx, sy = p.floor().clamp(0, W - 2), q.floor().clamp(0, H - 2)
+        cells = []
+        for i in (0, 1):
+            for j in (0, 1):
+                ok = ok0 & _tap_ok((q - (sy + i)).abs(), (p - (sx + j)).abs(), bwd)
+                cells.append(((bcam * H + (sy + i).long()) * W + (sx + j).long())[ok])
+        cells = torch.cat(cells)
+        taps += cells.numel()
+        nbytes += int(torch.unique(cells).numel()) * C * m.element_size()
+    return taps, nbytes
 
 
 def phase_kernels(cfg, card: str):
     """K1 on levels 2-3 (all 6 cameras), K2 on levels 0-1 (cam_k slots), at
     the det task's sample count, against the plain versions."""
     import torch
+    import torch.nn.functional as F
 
     from hipad_torch.ops import kernels, sampling
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(SEED)
-    bs, cams, C, G = 1, cfg.num_cams, cfg.embed_dims, cfg.num_groups
-    H, W = cfg.input_size
-    dims = [(H // s, W // s) for s in cfg.strides]
-    n_pts = len(cfg.det_kps.fix_scale) + cfg.det_kps.num_learnable
-    M0 = cfg.num_det_anchor * n_pts
-    cam_k = cfg.sampler_cam_k
-    fine = [l for l in range(cfg.num_levels) if l not in cfg.sampler_matmul_levels]
     coarse = [l for l in cfg.sampler_matmul_levels if l < cfg.num_levels]
-    results = {}
-
-    def sparse_weights(shape, keep):
-        w = torch.rand(shape, generator=g, device=dev)
-        return w * (torch.rand(shape[:-1], generator=g, device=dev) < keep)[..., None]
+    k1, k2 = _Rec(), _Rec()
 
     # ---- K1 -------------------------------------------------------------
-    k1 = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         for lvl in coarse:
-            h, w = dims[lvl]
-            fm = torch.randn(bs * cams, h, w, C, generator=g, device=dev).to(dtype)
-            px = torch.rand(bs * cams, M0, generator=g, device=dev) * (w + 2) - 1.5
-            py = torch.rand(bs * cams, M0, generator=g, device=dev) * (h + 2) - 1.5
-            wg = sparse_weights((bs * cams, M0, G), keep=0.4)
+            fm, px, py, wg, bs, cams = _k1_inputs(cfg, g, dev, lvl, dtype)
+            B, h, w, C = fm.shape
+            M = px.shape[1]
             got = kernels.interp_sample_camsum(fm, px, py, wg, bs, cams)
             ref = sampling.interp_matmul_camsum(fm, px, py, wg, bs, cams)
             torch.cuda.synchronize()
             err, scale = _max_err(got, ref)
             ok = err <= KERNEL_RTOL * scale
             say(f"[kernels] K1 interp_sample_camsum level {lvl} ({h}x{w}) {str(dtype)[6:]} "
-                f"B={bs * cams} M={M0} C={C}: max_abs_err {err:.3e} (tol {KERNEL_RTOL:g} x "
+                f"B={B} M={M} C={C}: max_abs_err {err:.3e} (tol {KERNEL_RTOL:g} x "
                 f"{scale:.3e}) {'ok' if ok else 'FAIL'}")
             if not ok:
                 fail(f"K1 disagrees with its plain version at level {lvl}, {dtype}")
-            k1["err"] = max(k1["err"], err)
+            k1.err = max(k1.err, err)
             if dtype == torch.float32:
-                t = [cuda_time_ms(f, 20) for f in (
-                    lambda: sampling.interp_matmul_camsum(fm, px, py, wg, bs, cams),
-                    lambda: kernels.interp_sample_camsum(fm, px, py, wg, bs, cams),
-                    lambda: kernels.interp_sample_camsum(fm, px, py, wg, bs, cams),
-                    lambda: sampling.interp_matmul_camsum(fm, px, py, wg, bs, cams))]
-                k1["ms"] += min(t[1], t[2])
-                k1["plain_ms"] += min(t[0], t[3])
+                grid = torch.stack([(px + 0.5) / w * 2 - 1, (py + 0.5) / h * 2 - 1], -1)[:, None]
+                fm_nchw = fm.permute(0, 3, 1, 2)
+                t = _timed([lambda: sampling.interp_matmul_camsum(fm, px, py, wg, bs, cams),
+                            lambda: kernels.interp_sample_camsum(fm, px, py, wg, bs, cams),
+                            lambda: kernels.interp_sample_camsum(fm, px, py, wg, bs, cams),
+                            lambda: sampling.interp_matmul_camsum(fm, px, py, wg, bs, cams),
+                            lambda: F.grid_sample(fm_nchw, grid, align_corners=False)])
+                k1.ms += min(t[1], t[2])
+                k1.plain_ms += min(t[0], t[3])
+                k1.library_ms += t[4]
+                taps, rows = _k1_reads(px, py, wg, h, w, bwd=False)
+                b = bound(rows * C * fm.element_size() + _nbytes(px, py, wg, got), taps * C * 2)
+                k1.add_bound(b)
                 say(f"[kernels] K1 level {lvl} fp32 on {card}: kernel {min(t[1], t[2]):.4f} ms, "
-                    f"plain {min(t[0], t[3]):.4f} ms (median of 20, plain/kernel/kernel/plain)")
-    results["interp_sample_camsum"] = k1
+                    f"plain {min(t[0], t[3]):.4f} ms, F.grid_sample (per camera, no weights "
+                    f"or camera sum: not the same function) {t[4]:.4f} ms "
+                    f"(median of 20, plain/kernel/kernel/plain); bound {b[0]:.4f} ms "
+                    f"({b[1]}: {taps} taps, {rows} of {B * h * w} map rows read)")
 
     # ---- K2 -------------------------------------------------------------
-    k2 = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0}
-    M = M0 * cam_k
-    cam = torch.randint(0, cams, (bs, M), generator=g, device=dev, dtype=torch.int32)
-    x = torch.rand(bs, M, generator=g, device=dev) * 1.2 - 0.1
-    y = torch.rand(bs, M, generator=g, device=dev) * 1.2 - 0.1
-    inside = ((x > 0) & (x < 1) & (y > 0) & (y < 1)).float()
-    w = sparse_weights((bs, M, len(fine), G), keep=0.7) * inside[..., None, None]
     for dtype in (torch.float32, torch.bfloat16):
-        maps = [torch.randn(bs, cams, *dims[l], C, generator=g, device=dev).to(dtype)
-                for l in fine]
+        maps, cam, x, y, w, cam_k = _k2_inputs(cfg, g, dev, dtype)
+        bs, M = x.shape
+        C = maps[0].shape[-1]
         got = kernels.patch_sample(maps, cam, x, y, w, cam_k)
         ref = sampling.patch_sample_plain(maps, cam, x, y, w, cam_k)
         torch.cuda.synchronize()
         err, scale = _max_err(got, ref)
         ok = err <= KERNEL_RTOL * scale
-        say(f"[kernels] K2 patch_sample levels {fine} {str(dtype)[6:]} bs={bs} M0={M0} "
-            f"cam_k={cam_k} C={C}: max_abs_err {err:.3e} (tol {KERNEL_RTOL:g} x {scale:.3e}) "
-            f"{'ok' if ok else 'FAIL'}")
+        say(f"[kernels] K2 patch_sample levels {[tuple(m.shape[2:4]) for m in maps]} "
+            f"{str(dtype)[6:]} bs={bs} M={M} cam_k={cam_k} C={C}: max_abs_err {err:.3e} "
+            f"(tol {KERNEL_RTOL:g} x {scale:.3e}) {'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"K2 disagrees with its plain version, {dtype}")
-        k2["err"] = max(k2["err"], err)
+        k2.err = max(k2.err, err)
         if dtype == torch.float32:
-            t = [cuda_time_ms(f, 20) for f in (
-                lambda: sampling.patch_sample_plain(maps, cam, x, y, w, cam_k),
-                lambda: kernels.patch_sample(maps, cam, x, y, w, cam_k),
-                lambda: kernels.patch_sample(maps, cam, x, y, w, cam_k),
-                lambda: sampling.patch_sample_plain(maps, cam, x, y, w, cam_k))]
-            k2["ms"], k2["plain_ms"] = min(t[1], t[2]), min(t[0], t[3])
-            say(f"[kernels] K2 fp32 on {card}: kernel {k2['ms']:.4f} ms, plain "
-                f"{k2['plain_ms']:.4f} ms (median of 20, plain/kernel/kernel/plain)")
-    results["patch_sample"] = k2
-    return results
+            cams = maps[0].shape[1]
+            lib = [(m.reshape(bs * cams, *m.shape[2:]).permute(0, 3, 1, 2),
+                    torch.stack([x, y], -1).reshape(bs * cams, 1, -1, 2) * 2 - 1)
+                   for m in maps] if M % cams == 0 else []
+            t = _timed([lambda: sampling.patch_sample_plain(maps, cam, x, y, w, cam_k),
+                        lambda: kernels.patch_sample(maps, cam, x, y, w, cam_k),
+                        lambda: kernels.patch_sample(maps, cam, x, y, w, cam_k),
+                        lambda: sampling.patch_sample_plain(maps, cam, x, y, w, cam_k),
+                        lambda: [F.grid_sample(m, gr, align_corners=False) for m, gr in lib]])
+            k2.ms, k2.plain_ms, k2.library_ms = min(t[1], t[2]), min(t[0], t[3]), t[4]
+            taps, map_bytes = _k2_reads(maps, cam, x, y, w, bwd=False)
+            k2.add_bound(bound(map_bytes + _nbytes(cam, x, y, w, got), taps * C * 2))
+            say(f"[kernels] K2 fp32 on {card}: kernel {k2.ms:.4f} ms, plain "
+                f"{k2.plain_ms:.4f} ms, F.grid_sample (same sample count spread over the "
+                f"cameras, no weights: not the same function) {k2.library_ms:.4f} ms "
+                f"(median of 20, plain/kernel/kernel/plain); bound {k2.bound_ms:.4f} ms "
+                f"({k2.bound_by}: {taps} taps, {map_bytes / 1e6:.2f} of "
+                f"{_nbytes(*maps) / 1e6:.2f} MB of maps read)")
+    return {"interp_sample_camsum": k1, "patch_sample": k2}
+
+
+# Backward kernel vs autograd of the plain version, fp32 gradients: both sum
+# fp32 products in other orders (over C channels, <= 9 taps and 6 cameras or
+# 2 slots x 2 levels, and over every sample that touches a map cell), and the
+# kernels' map gradients are fp32 atomics whose order changes from run to
+# run: |diff| <= GRAD_RTOL * max|plain| per gradient. With bf16 maps the map
+# gradient is rounded to bf16 on both sides from fp32 values that differ in
+# their last bits, so one bf16 step: GRAD_BF16_RTOL.
+GRAD_RTOL = 1e-4
+GRAD_BF16_RTOL = 8e-3
+
+
+def _check_grads(what, got, ref, bf16_first):
+    worst = 0.0
+    for i, (name, a, b) in enumerate(zip(("fm", "x", "y", "w"), got, ref)):
+        if isinstance(a, (list, tuple)):
+            errs = [_max_err(ai, bi) for ai, bi in zip(a, b)]
+            err, scale = max(e for e, _ in errs), max(s for _, s in errs)
+        else:
+            err, scale = _max_err(a, b)
+        rtol = GRAD_BF16_RTOL if (i == 0 and bf16_first) else GRAD_RTOL
+        ok = err <= rtol * scale
+        say(f"[kernels-bwd] {what} d{name}: max_abs_err {err:.3e} (tol {rtol:g} x "
+            f"{scale:.3e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"{what}: d{name} disagrees with autograd of the plain version")
+        worst = max(worst, err)
+    return worst
+
+
+def phase_kernels_bwd(cfg, card: str):
+    """K1-bwd and K2-bwd at phase 3's shapes against torch.autograd.grad of
+    the plain versions, fp32 and bf16 maps; timed against the plain
+    backward (the graph built once, retained)."""
+    import torch
+    import torch.nn.functional as F
+
+    from hipad_torch.ops import kernels, sampling
+
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    coarse = [l for l in cfg.sampler_matmul_levels if l < cfg.num_levels]
+    k1, k2 = _Rec(), _Rec()
+
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        for lvl in coarse:
+            fm, px, py, wg, bs, cams = _k1_inputs(cfg, g, dev, lvl, dtype)
+            B, h, w, C = fm.shape
+            gout = torch.randn(bs, px.shape[1], C, generator=g, device=dev)
+            leaves = [t.detach().clone().requires_grad_() for t in (fm, px, py, wg)]
+            out = sampling.interp_matmul_camsum(*leaves, bs, cams)
+            ref = torch.autograd.grad(out, leaves, gout, retain_graph=True)
+            got = kernels.interp_sample_camsum_bwd(fm, px, py, wg, gout, bs, cams)
+            got = (got[0].to(dtype),) + got[1:]
+            torch.cuda.synchronize()
+            k1.err = max(k1.err, _check_grads(
+                f"K1-bwd level {lvl} ({h}x{w}) {str(dtype)[6:]}", got, ref, bf16))
+            if not bf16:
+                grid = torch.stack([(px + 0.5) / w * 2 - 1, (py + 0.5) / h * 2 - 1], -1)[:, None]
+                lib_in = [fm.permute(0, 3, 1, 2).detach().clone().requires_grad_(),
+                          grid.detach().clone().requires_grad_()]
+                lib_out = F.grid_sample(*lib_in, align_corners=False)
+                lib_g = torch.randn_like(lib_out)
+                t = _timed([
+                    lambda: torch.autograd.grad(out, leaves, gout, retain_graph=True),
+                    lambda: kernels.interp_sample_camsum_bwd(fm, px, py, wg, gout, bs, cams),
+                    lambda: kernels.interp_sample_camsum_bwd(fm, px, py, wg, gout, bs, cams),
+                    lambda: torch.autograd.grad(out, leaves, gout, retain_graph=True),
+                    lambda: torch.autograd.grad(lib_out, lib_in, lib_g, retain_graph=True)])
+                k1.ms += min(t[1], t[2])
+                k1.plain_ms += min(t[0], t[3])
+                k1.library_ms += t[4]
+                # reads: the rows it samples and every small input; writes:
+                # all of d fm (fp32) and the coordinate and weight gradients
+                taps, rows = _k1_reads(px, py, wg, h, w, bwd=True)
+                b = bound(rows * C * fm.element_size() + _nbytes(px, py, wg, gout)
+                          + _nbytes(*got), taps * C * 4)
+                k1.add_bound(b)
+                say(f"[kernels-bwd] K1-bwd level {lvl} fp32 on {card}: kernel "
+                    f"{min(t[1], t[2]):.4f} ms, plain backward {min(t[0], t[3]):.4f} ms, "
+                    f"F.grid_sample backward (not the same function) {t[4]:.4f} ms "
+                    f"(median of 20, plain/kernel/kernel/plain); bound {b[0]:.4f} ms "
+                    f"({b[1]}: {taps} taps, {rows} of {B * h * w} map rows read)")
+
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        maps, cam, x, y, w, cam_k = _k2_inputs(cfg, g, dev, dtype)
+        # every 50th location on a pixel corner of level 0: the kinks
+        W0 = maps[0].shape[3]
+        x[:, ::50] = ((x[:, ::50] * W0 - 0.5).round() + 0.5) / W0
+        bs, M = x.shape
+        C = maps[0].shape[-1]
+        gout = torch.randn(bs, M // cam_k, C, generator=g, device=dev)
+        lm = [m.detach().clone().requires_grad_() for m in maps]
+        lx, ly, lw = (t.detach().clone().requires_grad_() for t in (x, y, w))
+        out = sampling.patch_sample_plain(lm, cam, lx, ly, lw, cam_k)
+        ref = torch.autograd.grad(out, lm + [lx, ly, lw], gout, retain_graph=True)
+        ref = (ref[:len(lm)],) + tuple(ref[len(lm):])
+        dmaps, dx, dy, dw = kernels.patch_sample_bwd(maps, cam, x, y, w, gout, cam_k)
+        torch.cuda.synchronize()
+        k2.err = max(k2.err, _check_grads(
+            f"K2-bwd {str(dtype)[6:]}", ([d.to(dtype) for d in dmaps], dx, dy, dw), ref, bf16))
+        if not bf16:
+            cams = maps[0].shape[1]
+            lib_in = [[m.reshape(bs * cams, *m.shape[2:]).permute(0, 3, 1, 2).detach().clone()
+                       .requires_grad_(),
+                       (torch.stack([x, y], -1).reshape(bs * cams, 1, -1, 2) * 2 - 1)
+                       .requires_grad_()] for m in maps]
+            lib_out = [F.grid_sample(*a, align_corners=False) for a in lib_in]
+            lib_g = [torch.randn_like(o) for o in lib_out]
+            t = _timed([
+                lambda: torch.autograd.grad(out, lm + [lx, ly, lw], gout, retain_graph=True),
+                lambda: kernels.patch_sample_bwd(maps, cam, x, y, w, gout, cam_k),
+                lambda: kernels.patch_sample_bwd(maps, cam, x, y, w, gout, cam_k),
+                lambda: torch.autograd.grad(out, lm + [lx, ly, lw], gout, retain_graph=True),
+                lambda: [torch.autograd.grad(o, a, go, retain_graph=True)
+                         for o, a, go in zip(lib_out, lib_in, lib_g)]])
+            k2.ms, k2.plain_ms, k2.library_ms = min(t[1], t[2]), min(t[0], t[3]), t[4]
+            taps, map_bytes = _k2_reads(maps, cam, x, y, w, bwd=True)
+            k2.add_bound(bound(map_bytes + _nbytes(cam, x, y, w, gout, *dmaps, dx, dy, dw),
+                               taps * C * 4))
+            say(f"[kernels-bwd] K2-bwd fp32 on {card}: kernel {k2.ms:.4f} ms, plain backward "
+                f"{k2.plain_ms:.4f} ms, F.grid_sample backward (not the same function) "
+                f"{k2.library_ms:.4f} ms (median of 20, plain/kernel/kernel/plain); bound "
+                f"{k2.bound_ms:.4f} ms ({k2.bound_by}: {taps} taps, {map_bytes / 1e6:.2f} of "
+                f"{_nbytes(*maps) / 1e6:.2f} MB of maps read)")
+    return {"interp_sample_camsum_bwd": k1, "patch_sample_bwd": k2}
 
 
 def _flat(tree, prefix=""):
@@ -205,12 +487,12 @@ def phase_slice(cfg, card: str):
 
     import torch
 
-    from hipad_tpu.data import synthetic
+    from hipad_torch.data import synthetic
     from hipad_torch.models.detector import HiPAD, batch_to_torch
     from hipad_torch.ops import kernels
     from hipad_torch.weights import init_random
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     t0 = time.perf_counter()
     model = init_random(HiPAD(cfg, device=dev), SEED)
     images, metas = batch_to_torch(synthetic.make_batch(cfg, 1, seed=SEED), dev)
@@ -218,12 +500,8 @@ def phase_slice(cfg, card: str):
         f"{time.perf_counter() - t0:.1f} s: "
         f"{sum(p.numel() for p in model.parameters()) / 1e6:.2f} M parameters")
 
-    n_deform = cfg.operation_order.count("deformable") * len(cfg.query_select)
-    per_call = {
-        "interp_sample_camsum": len([l for l in cfg.sampler_matmul_levels if l < cfg.num_levels]),
-        "patch_sample": int(any(l not in cfg.sampler_matmul_levels
-                                for l in range(cfg.num_levels))),
-    }
+    n_deform, per_call = _launch_plan(cfg)
+    per_call = {k: v for k, v in per_call.items() if not k.endswith("_bwd")}  # no gradient
     n_frames = WARMUP_FRAMES + TIMED_FRAMES
 
     def frame_inputs(i):
@@ -262,11 +540,11 @@ def phase_slice(cfg, card: str):
             f"(host clock, sync per frame, frames {WARMUP_FRAMES}..{n_frames - 1}); "
             f"frame 0 {times[0]:.1f} ms")
         for name, n in launches.items():
-            want = n_frames * n_deform * per_call[name]
+            want = n_frames * n_deform * per_call.get(name, 0)
             say(f"[slice] {str(dtype)[6:]} {name}: {n} launches over {n_frames} frames = "
                 f"{n / n_frames:g}/frame (expected {n_deform} deformable calls x "
-                f"{per_call[name]} = {n_deform * per_call[name]}/frame)")
-            if n != want or n == 0:
+                f"{per_call.get(name, 0)} = {n_deform * per_call.get(name, 0)}/frame)")
+            if n != want or (n == 0 and name in per_call):
                 fail(f"{name} launched {n} times, expected {want}")
         return first, launches
 
@@ -300,6 +578,181 @@ def phase_slice(cfg, card: str):
     return launches
 
 
+def _launch_plan(cfg):
+    """(deformable calls per forward, launches of each kernel per call): K1
+    once per coarse level, K2 once for all fine levels, and each backward
+    kernel once per launch of its forward kernel."""
+    n_deform = cfg.operation_order.count("deformable") * len(cfg.query_select)
+    k1 = len([l for l in cfg.sampler_matmul_levels if l < cfg.num_levels])
+    k2 = int(any(l not in cfg.sampler_matmul_levels for l in range(cfg.num_levels)))
+    return n_deform, {"interp_sample_camsum": k1, "patch_sample": k2,
+                      "interp_sample_camsum_bwd": k1, "patch_sample_bwd": k2}
+
+
+# Card step vs CPU step (plain path), stage 2 at drop_out 0 without GridMask:
+# the same fp32 arithmetic in other orders through ResNet-50, the decoder
+# layers and the backward (atomics on the card); the losses are sums over
+# every query, the gradient norm a sum of squares over 98 M gradients.
+# |diff| <= TRAIN_RTOL * |cpu| + TRAIN_ATOL per loss, GRAD_NORM_RTOL for the
+# norm. Seen on an H100: <= 7e-7 of each loss, 2.5e-5 of the norm.
+TRAIN_RTOL, TRAIN_ATOL, GRAD_NORM_RTOL = 1e-4, 1e-5, 1e-3
+WARMUP_STEPS, TIMED_STEPS = 2, 6
+# rounds of one fp32 and one bf16 step in turn, after the warm-up steps
+PAIRED_ROUNDS = 6
+
+
+def phase_train(card: str):
+    """The training step at stage 2, bs=1: 2 warm-up and 6 timed steps with
+    the banks chained, fp32 then bf16 autocast, dropout 0.1 and GridMask on;
+    then fp32 and bf16 steps in turns; then step 0 without dropout and
+    GridMask on the card and on the CPU. -> launches of the fp32 run."""
+    import torch
+
+    from hipad_torch.configs.model import stage2
+    from hipad_torch.data import synthetic
+    from hipad_torch.models.deformable import DeformableAggregation
+    from hipad_torch.models.detector import HiPAD
+    from hipad_torch.ops import kernels
+    from hipad_torch.targets import matching
+    from hipad_torch.train.optim import AdamW
+    from hipad_torch.train.train_step import make_train_step
+    from hipad_torch.weights import init_random
+
+    dev = torch.device(DEVICE)
+    cfg = stage2()
+    n_deform, per_call = _launch_plan(cfg)
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in synthetic.make_batch(cfg, 1, seed=SEED).items()}
+    n_steps = WARMUP_STEPS + TIMED_STEPS
+
+    def step_batch(i):
+        b = dict(batch)
+        b["timestamp"] = batch["timestamp"] + 0.5 * i
+        b["images"] = batch["images"] + 1e-3 * i
+        return b
+
+    def build(c, device):
+        model = init_random(HiPAD(c, device=device), SEED)
+        return model, AdamW(model.named_parameters())
+
+    def run_steps(dtype):
+        model, opt = build(cfg, dev)
+        step = make_train_step(cfg, model, opt, dtype=dtype)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        for k in kernels.KERNELS:
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        banks, times = None, []
+        for i in range(n_steps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            banks, metrics = step(banks, step_batch(i), gen)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            bad = [k for k, v in metrics.items() if not torch.isfinite(v)]
+            if bad:
+                fail(f"train {dtype} step {i}: non-finite {bad}")
+        launches = {k.name: k.launches for k in kernels.KERNELS}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        timed = times[WARMUP_STEPS:]
+        name = str(dtype)[6:]
+        say(f"[train] stage2 bs=1 {name} on {card}: {n_steps} chained steps, every loss, "
+            f"total_loss and grad_norm finite; last step total_loss "
+            f"{float(metrics['total_loss']):.4f} grad_norm {float(metrics['grad_norm']):.4f}")
+        say(f"[train] {name} step time median {statistics.median(timed):.2f} ms, min "
+            f"{min(timed):.2f}, max {max(timed):.2f} (host clock, sync per step, steps "
+            f"{WARMUP_STEPS}..{n_steps - 1}); step 0 {times[0]:.1f} ms; "
+            f"max_memory_allocated {peak:.2f} GiB")
+        for kname, n in launches.items():
+            want = n_steps * n_deform * per_call[kname]
+            say(f"[train] {name} {kname}: {n} launches over {n_steps} steps = "
+                f"{n / n_steps:g}/step (expected {n_deform} deformable calls x "
+                f"{per_call[kname]} = {n_deform * per_call[kname]}/step)")
+            if n != want or n == 0:
+                fail(f"train: {kname} launched {n} times, expected {want}")
+        del model, opt, step
+        torch.cuda.empty_cache()
+        return launches
+
+    launches = run_steps(torch.float32)
+    run_steps(torch.bfloat16)
+
+    # The host clock of one card varies over a call and from machine to
+    # machine, so fp32 and bf16 are compared step by step: two models
+    # resident together, one step of each in turn.
+    runs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model, opt = build(cfg, dev)
+        runs[dtype] = {"step": make_train_step(cfg, model, opt, dtype=dtype), "banks": None,
+                       "gen": torch.Generator(device=dev).manual_seed(SEED), "ms": []}
+    for i in range(WARMUP_STEPS + PAIRED_ROUNDS):
+        for r in runs.values():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r["banks"], _ = r["step"](r["banks"], step_batch(i), r["gen"])
+            torch.cuda.synchronize()
+            r["ms"].append((time.perf_counter() - t) * 1e3)
+    fp32_ms, bf16_ms = (r["ms"][WARMUP_STEPS:] for r in runs.values())
+    diff = [b - a for a, b in zip(fp32_ms, bf16_ms)]
+    say(f"[train] fp32 and bf16 steps in turns, {PAIRED_ROUNDS} rounds after {WARMUP_STEPS} "
+        f"(host clock, sync per step): fp32 median {statistics.median(fp32_ms):.2f} ms "
+        f"[{min(fp32_ms):.2f}, {max(fp32_ms):.2f}], bf16 median "
+        f"{statistics.median(bf16_ms):.2f} ms [{min(bf16_ms):.2f}, {max(bf16_ms):.2f}], "
+        f"bf16 - fp32 per round median {statistics.median(diff):.2f} ms "
+        f"[{min(diff):.2f}, {max(diff):.2f}]")
+    del runs, model, opt
+    torch.cuda.empty_cache()
+
+    # step 0 on the card and on the CPU plain path, no dropout, no GridMask
+    c0 = stage2(drop_out=0.0, use_grid_mask=False)
+    solved = []
+    assign_many = matching.assign_many
+
+    def recording(problems):
+        cols = assign_many(problems)
+        solved.append([c.cpu() for c in cols])
+        return cols
+
+    card_model, _ = build(c0, dev)
+    # the CPU model takes the card model's weights: init_random draws from
+    # each device's own generator
+    weights = {k: v.detach().cpu().clone() for k, v in card_model.state_dict().items()}
+    del card_model
+    matching.assign_many = recording
+    try:
+        results = []
+        for device in (dev, torch.device("cpu")):
+            t0 = time.perf_counter()
+            model = HiPAD(c0, device=device)
+            model.load_state_dict(weights)
+            opt = AdamW(model.named_parameters())
+            for m in model.modules():
+                if isinstance(m, DeformableAggregation):
+                    m.attn_drop = 0.0
+            b = {k: v.to(device) for k, v in batch.items()}
+            _, metrics = make_train_step(c0, model, opt)(None, b, torch.Generator(device=device))
+            results.append({k: float(v) for k, v in metrics.items()})
+            say(f"[train] step 0 (drop_out 0, no GridMask, fp32) on {device.type}: "
+                f"{time.perf_counter() - t0:.1f} s, {c0.operation_order.count('refine')} "
+                f"decoder layers")
+            del model, opt
+    finally:
+        matching.assign_many = assign_many
+    differ = [i for i, (a, b) in enumerate(zip(*solved)) if not torch.equal(a, b)]
+    if differ:
+        say(f"[train] the Hungarian assignments differ between card and CPU in problem(s) "
+            f"{differ} (0 = det, 1 = map, all layers stacked)")
+    card_m, cpu_m = results
+    for k in sorted(cpu_m):
+        rtol, atol = (GRAD_NORM_RTOL, 0.0) if k == "grad_norm" else (TRAIN_RTOL, TRAIN_ATOL)
+        err, tol = abs(card_m[k] - cpu_m[k]), rtol * abs(cpu_m[k]) + atol
+        say(f"[train] card vs CPU step 0 {k}: card {card_m[k]:.6f} cpu {cpu_m[k]:.6f} "
+            f"abs_err {err:.3e} (tol {tol:.3e}) {'ok' if err <= tol else 'FAIL'}")
+        if not err <= tol:
+            fail(f"card and CPU disagree on {k}")
+    return launches
+
+
 def main():
     import torch
 
@@ -308,25 +761,40 @@ def main():
     if not os.path.isdir(os.path.join(ROOT, "hipad_torch")):
         fail(f"no hipad_torch package beside {__file__}")
     sys.path.insert(0, ROOT)
-    from hipad_tpu.configs.model import stage2
+    from hipad_torch.configs.model import stage2
 
+    t0 = time.perf_counter()
     card = phase_env()
     phase_build()
     cfg = stage2()
     k = phase_kernels(cfg, card)
-    launches = phase_slice(cfg, card)
+    k.update(phase_kernels_bwd(cfg, card))
+    frame_launches = phase_slice(cfg, card)
+    step_launches = phase_train(card)
     if any(m in sys.modules for m in ("jax", "flax")):
         fail("jax was imported")
+    if any(m.split(".")[0] == "hipad_tpu" for m in sys.modules):
+        fail("a module of the JAX package was imported")
     sources = {
         "interp_sample_camsum": ("hipad_torch/csrc/interp_sample.cu",
                                  "hipad_tpu/ops/pallas_interp.py:68"),
         "patch_sample": ("hipad_torch/csrc/patch_sample.cu", "hipad_tpu/ops/sampling.py:494"),
+        "interp_sample_camsum_bwd": ("hipad_torch/csrc/interp_sample_bwd.cu",
+                                     "hipad_tpu/ops/sampling.py:252"),
+        "patch_sample_bwd": ("hipad_torch/csrc/patch_sample_bwd.cu",
+                             "hipad_tpu/ops/sampling.py:530"),
     }
+    # launches: this slice's main path, the fp32 training run of phase 5,
+    # for every kernel; launches_frame: the fp32 serving run of phase 4
+    of = f"phase 5: {WARMUP_STEPS + TIMED_STEPS} chained stage-2 fp32 training steps"
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": k[name]["err"],
-         "ms": k[name]["ms"], "plain_ms": k[name]["plain_ms"]}
+         "launches": step_launches[name], "launches_of": of,
+         "launches_frame": frame_launches[name], "max_abs_err": k[name].err,
+         "ms": k[name].ms, "plain_ms": k[name].plain_ms, "bound_ms": k[name].bound_ms,
+         "bound_by": k[name].bound_by, "library_ms": k[name].library_ms}
         for name, (src, rep) in sources.items()]}))
+    say(f"[done] {time.perf_counter() - t0:.1f} s")
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

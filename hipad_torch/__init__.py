@@ -1,15 +1,18 @@
-"""hipad_torch: the HiP-AD streaming forward in PyTorch, with CUDA kernels for
-the deformable sampler on an NVIDIA Hopper card (sm_90a).
+"""hipad_torch: HiP-AD in PyTorch (the streaming forward and the training
+step), with hand-written CUDA kernels for the deformable sampler and its
+gradient on an NVIDIA Hopper card (sm_90a).
 
-The JAX package ``hipad_tpu`` is the reference. The port shares its numpy-only
-configuration and synthetic-data modules and imports nothing else from it:
+The JAX package ``hipad_tpu`` is the reference; this package imports nothing
+of it and keeps its own copies of the configuration and the synthetic data:
 
-    from hipad_tpu.configs.model import stage2, tiny
-    from hipad_torch.models.detector import HiPAD
+    from hipad_torch.configs.model import stage2, tiny
+    from hipad_torch.data import synthetic
+    from hipad_torch.models.detector import HiPAD          # built on the card by default
+    from hipad_torch.train.train_step import make_train_step
     from hipad_torch.weights import from_jax, to_jax, init_random
 
 A CPU tensor always takes the plain PyTorch path; a CUDA tensor takes the
 hand-written kernels in ``hipad_torch/csrc`` (built with nvcc on first use).
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

@@ -1,4 +1,5 @@
-"""3D box state layout (constants of ``hipad_tpu/core/box3d.py``).
+"""3D box state layout and the GT box encoding (counterpart of
+``hipad_tpu/core/box3d.py``).
 
 The undecoded 11-dim box state is
 
@@ -15,3 +16,17 @@ CNS, YNS = 0, 1
 
 # Decoded box: yaw angle index.
 YAW = 6
+
+
+def encode_box(box):
+    """Decoded GT boxes ``[..., x, y, z, w, l, h, yaw, (vel...)]`` -> the
+    training target ``[x, y, z, log w, log l, log h, sin, cos, vel...]``."""
+    import torch
+
+    return torch.cat([
+        box[..., 0:3],
+        torch.log(torch.clamp(box[..., 3:6], min=1e-12)),
+        torch.sin(box[..., YAW])[..., None],
+        torch.cos(box[..., YAW])[..., None],
+        box[..., YAW + 1:],
+    ], dim=-1)

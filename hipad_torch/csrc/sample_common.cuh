@@ -1,4 +1,5 @@
-// Shared pieces of the two sampler kernels (interp_sample.cu, patch_sample.cu).
+// Shared pieces of the sampler kernels (interp_sample.cu, patch_sample.cu and
+// their backward kernels interp_sample_bwd.cu, patch_sample_bwd.cu).
 //
 // Layout: one warp owns one output row [C] of one (batch, sample). Lane l
 // reads channels [8*(l + 32*j), 8*(l + 32*j) + 8) of every NHWC feature row
@@ -84,6 +85,85 @@ __device__ __forceinline__ void store_row(float* out,
       o[1] = make_float4(acc[ch][4], acc[ch][5], acc[ch][6], acc[ch][7]);
     }
   }
+}
+
+// ---- pieces of the two backward kernels --------------------------------
+
+// The bilinear hat weight max(0, 1 - |t|) and its derivative in t, with the
+// JAX package's conventions at the kinks (its adjoints are the reference):
+// d|t|/dt = 1 at t = 0, and max(0, u) passes half the gradient at u = 0.
+__device__ __forceinline__ float hat(float t) { return fmaxf(0.f, 1.f - fabsf(t)); }
+
+__device__ __forceinline__ float hat_grad(float t) {
+  const float u = 1.f - fabsf(t);
+  const float s = u > 0.f ? 1.f : (u == 0.f ? 0.5f : 0.f);
+  return t >= 0.f ? -s : s;
+}
+
+__device__ __forceinline__ void load_row(const float* p, float (&g)[kMaxChunks][kVec],
+                                         int C, int lane) {
+#pragma unroll
+  for (int ch = 0; ch < kMaxChunks; ++ch) {
+    const int c0 = (ch * 32 + lane) * kVec;
+    if (c0 < C) load8(p + c0, g[ch]);
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// One tap of the backward: row is one NHWC feature row, go the upstream
+// gradient of the output row, wg the sample's G group weights.
+//   dot_c   = sum over this lane's 8 channels of row * go   (per chunk)
+//   part[ch] += wxy * dot_c                (-> d wg of the chunk's group)
+//   dsum    += wg[group] * dot_c           (-> d x, d y through the hats)
+//   drow    += wxy * wg[group] * go        by fp32 atomics, when wxy != 0
+template <typename T>
+__device__ __forceinline__ void tap_backward(const T* row, float* drow,
+                                             const float (&go)[kMaxChunks][kVec],
+                                             const float* wg, float wxy,
+                                             float (&part)[kMaxChunks],
+                                             float& dsum, int C, int gd,
+                                             int lane) {
+#pragma unroll
+  for (int ch = 0; ch < kMaxChunks; ++ch) {
+    const int c0 = (ch * 32 + lane) * kVec;
+    if (c0 < C) {
+      float v[kVec];
+      load8(row + c0, v);
+      float dot = 0.f;
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) dot = fmaf(v[i], go[ch][i], dot);
+      const float g = wg[c0 / gd];
+      part[ch] = fmaf(wxy, dot, part[ch]);
+      dsum = fmaf(g, dot, dsum);
+      const float s = wxy * g;
+      if (s != 0.f) {
+#pragma unroll
+        for (int i = 0; i < kVec; ++i) atomicAdd(drow + c0 + i, s * go[ch][i]);
+      }
+    }
+  }
+}
+
+// Sum the per-chunk partials of one warp into the G group gradients:
+// chunk j = ch*32 + lane covers channels [8j, 8j + 8), all in group 8j/gd.
+// red is this warp's scratch of 32*kMaxChunks floats in shared memory.
+__device__ __forceinline__ void store_group_sums(float* red, const float (&part)[kMaxChunks],
+                                                 float* out, int C, int G, int lane) {
+#pragma unroll
+  for (int ch = 0; ch < kMaxChunks; ++ch) red[ch * 32 + lane] = part[ch];
+  __syncwarp();
+  const int per = C / G / kVec;  // chunks per group
+  for (int g = lane; g < G; g += 32) {
+    float s = 0.f;
+    for (int j = g * per; j < (g + 1) * per; ++j) s += red[j];
+    out[g] = s;
+  }
+  __syncwarp();
 }
 
 }  // namespace hipad

@@ -50,19 +50,20 @@ class GroupedCrossAttention(nn.Module):
     key slice is empty, or ``key_x`` is None (first frame), the group
     attends over its own queries."""
 
-    def __init__(self, embed_dims: int, num_heads: int, groups):
+    def __init__(self, embed_dims: int, num_heads: int, groups, drop: float = 0.0):
         super().__init__()
         self.groups = groups
         for gi, (_, _, decoupled) in enumerate(groups):
             dims = embed_dims * (2 if decoupled else 1)
-            self.add_module(f"attn_{gi}", MultiheadAttention(dims, num_heads))
+            self.add_module(f"attn_{gi}", MultiheadAttention(dims, num_heads, drop))
 
     def forward(self, query: torch.Tensor, query_pos: torch.Tensor, sections: Sections,
                 fc_before: nn.Module, fc_after: nn.Module,
                 key_x: Optional[torch.Tensor] = None,
                 key_pos: Optional[torch.Tensor] = None,
                 key_sections: Optional[Sections] = None,
-                has_value: bool = True) -> torch.Tensor:
+                has_value: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``has_value`` says whether the reference call site passes a value:
         without one, a decoupled group's value is its feature||pos key
         concatenation, bypassing ``fc_before``."""
@@ -83,8 +84,9 @@ class GroupedCrossAttention(nn.Module):
             if decoupled:
                 k_cat = torch.cat([k, kp], dim=-1)
                 v_in = fc_before(v) if (has_value and num_keys > 0) else k_cat
-                res = fc_after(attn(torch.cat([q, qp], dim=-1), key=k_cat, value=v_in))
+                res = fc_after(attn(torch.cat([q, qp], dim=-1), key=k_cat, value=v_in,
+                                    generator=generator))
             else:
-                res = attn(q, key=k, value=v, query_pos=qp, key_pos=kp)
+                res = attn(q, key=k, value=v, query_pos=qp, key_pos=kp, generator=generator)
             out = section_scatter(out, res, q_names, sections)
         return out

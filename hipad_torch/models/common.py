@@ -1,9 +1,13 @@
-"""Shared building blocks: MLP stacks, attention, FFN, eval-mode BatchNorm.
+"""Shared building blocks: MLP stacks, attention, FFN, BatchNorm, dropout.
 
 Counterparts of ``hipad_tpu/models/common.py``. Submodules carry the flax
 module names (``fc_{o}_{i}``, ``ln_{o}``, ``q_proj`` ...) so that
 ``hipad_torch.weights`` maps parameters by path alone. LayerNorm and
 BatchNorm use epsilon 1e-5, as the JAX package does.
+
+Train mode (``module.train()``) turns on BatchNorm's batch statistics and
+dropout. Dropout draws its mask from the ``torch.Generator`` the caller
+passes down the forward (``generator=``), never from the global RNG.
 """
 
 from __future__ import annotations
@@ -71,9 +75,31 @@ def cls_bias_init(prior_prob: float = 0.01) -> float:
     return float(-math.log((1 - prior_prob) / prior_prob))
 
 
+def dropout(x: torch.Tensor, p: float, training: bool,
+            generator: Optional[torch.Generator], mask_shape=None) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each element with probability ``1 - p`` and
+    scale the kept ones by ``1 / (1 - p)``; the identity unless ``training``
+    and ``p > 0``. The mask, of ``x``'s shape or of ``mask_shape``
+    broadcast against it, is drawn from ``generator``, which must be given
+    then."""
+    if not training or p <= 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in train mode draws from an explicit torch.Generator: "
+                         "pass generator=")
+    keep = torch.rand(mask_shape or x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class BatchNorm(nn.Module):
-    """BatchNorm over dim 1 in eval mode (running statistics), epsilon 1e-5.
-    The forward is inference only, so no batch counter is kept."""
+    """BatchNorm over dim 1, epsilon 1e-5, as flax ``nn.BatchNorm`` with
+    momentum 0.9. Eval mode normalises with the running statistics. Train
+    mode normalises with the batch mean and the BIASED batch variance, taken
+    in fp32, and updates ``running = 0.9 * running + 0.1 * batch`` with that
+    biased variance (``F.batch_norm(training=True)`` would store the unbiased
+    one)."""
+
+    momentum = 0.9
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
@@ -84,19 +110,32 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
-                            self.bias, training=False, momentum=0.0, eps=self.eps)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                                self.bias, training=False, momentum=0.0, eps=self.eps)
+        dims = [d for d in range(x.dim()) if d != 1]
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        var, mean = torch.var_mean(x.float(), dim=dims, correction=0)
+        with torch.no_grad():
+            self.running_mean.mul_(self.momentum).add_(mean, alpha=1 - self.momentum)
+            self.running_var.mul_(self.momentum).add_(var, alpha=1 - self.momentum)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        y = (x - mean.view(shape).to(x.dtype)) * scale.view(shape).to(x.dtype)
+        return y + self.bias.view(shape).to(x.dtype)
 
 
 class MultiheadAttention(nn.Module):
     """Multi-head attention with additive positional embeddings and a
     residual: key defaults to query, value to key; positions are added
     before the projections; output = query (before the position add) +
-    out_proj(attention). ``attn_bias`` is added to the logits."""
+    out_proj(attention). ``attn_bias`` is added to the logits. In train mode
+    a dropout of rate ``drop`` acts on the attention probabilities and on the
+    projected output (the JAX package's ``attn_drop`` and ``proj_drop``, both
+    ``cfg.drop_out``)."""
 
-    def __init__(self, embed_dims: int, num_heads: int):
+    def __init__(self, embed_dims: int, num_heads: int, drop: float = 0.0):
         super().__init__()
-        self.embed_dims, self.num_heads = embed_dims, num_heads
+        self.embed_dims, self.num_heads, self.drop = embed_dims, num_heads, drop
         self.q_proj = nn.Linear(embed_dims, embed_dims)
         self.k_proj = nn.Linear(embed_dims, embed_dims)
         self.v_proj = nn.Linear(embed_dims, embed_dims)
@@ -110,6 +149,7 @@ class MultiheadAttention(nn.Module):
         query_pos: Optional[torch.Tensor] = None,
         key_pos: Optional[torch.Tensor] = None,
         attn_bias: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         identity = query
         if key is None:
@@ -129,25 +169,38 @@ class MultiheadAttention(nn.Module):
         k = self.k_proj(key).reshape(bs, nk, h, d // h).transpose(1, 2)
         v = self.v_proj(value).reshape(bs, nk, h, d // h).transpose(1, 2)
         mask = None if attn_bias is None else attn_bias.to(q.dtype)
-        out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        if self.training and self.drop > 0.0:
+            # dropout on the probabilities, as the JAX package draws it
+            logits = q @ k.transpose(-1, -2) / math.sqrt(d // h)
+            if mask is not None:
+                logits = logits + mask
+            probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+            out = dropout(probs, self.drop, True, generator) @ v
+        else:
+            out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
         out = out.transpose(1, 2).reshape(bs, nq, d)
-        return identity + self.out_proj(out)
+        out = dropout(self.out_proj(out), self.drop, self.training, generator)
+        return identity + out
 
 
 class AsymmetricFFN(nn.Module):
     """pre-LN(in_channels) -> Linear(ffn) -> ReLU -> Linear(embed_dims), plus
     the identity projected by ``identity_fc`` when the widths differ."""
 
-    def __init__(self, in_channels: int, embed_dims: int, feedforward_channels: int):
+    def __init__(self, in_channels: int, embed_dims: int, feedforward_channels: int,
+                 ffn_drop: float = 0.0):
         super().__init__()
+        self.ffn_drop = ffn_drop
         self.pre_norm = nn.LayerNorm(in_channels, eps=1e-5)
         self.fc1 = nn.Linear(in_channels, feedforward_channels)
         self.fc2 = nn.Linear(feedforward_channels, embed_dims)
         self.identity_fc = (nn.Linear(in_channels, embed_dims)
                             if in_channels != embed_dims else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = self.pre_norm(x)
-        out = self.fc2(F.relu(self.fc1(x)))
+        out = dropout(F.relu(self.fc1(x)), self.ffn_drop, self.training, generator)
+        out = dropout(self.fc2(out), self.ffn_drop, self.training, generator)
         identity = x if self.identity_fc is None else self.identity_fc(x)
         return identity + out

@@ -6,7 +6,9 @@ names (concat / temp_gnn / gnn / inter_gnn / norm / split / deformable / ffn
 / refine) run by a Python loop. Every submodule is named after its flax
 path (``gnn_{op_idx}``, ``{task}_deformable_{i}``, ``det_refine_{i}`` ...).
 The temporal banks are passed in and returned; the first frame is the case
-``bank_states=None``.
+``bank_states=None``. In train mode (``module.train()``) the attention, FFN
+and deformable dropouts draw from the ``generator`` passed to the forward,
+and the front-view BatchNorms use batch statistics.
 
 Knobs outside stage 2 are refused in :func:`check_supported`.
 """
@@ -91,15 +93,16 @@ class SparseOneDecoder(nn.Module):
         C = cfg.embed_dims
         L = cfg.num_levels
 
-        # bank parameters and constants
-        self.det_anchor = nn.Parameter(torch.as_tensor(np.asarray(cfg.det_anchor, np.float32)))
+        # bank parameters and constants: copies (torch.tensor), never views of
+        # the config's arrays, which the optimizer would otherwise update
+        self.det_anchor = nn.Parameter(torch.tensor(np.asarray(cfg.det_anchor, np.float32)))
         self.det_feature = nn.Parameter(torch.zeros(cfg.num_det_anchor, C))
-        self.map_anchor = nn.Parameter(torch.as_tensor(np.asarray(cfg.map_anchor, np.float32)))
+        self.map_anchor = nn.Parameter(torch.tensor(np.asarray(cfg.map_anchor, np.float32)))
         self.map_feature = nn.Parameter(torch.zeros(cfg.num_map_anchor, C))
-        self.plan_anchor = nn.Parameter(torch.as_tensor(np.asarray(cfg.plan_anchor, np.float32)))
-        self.register_buffer("ego_anchor_init", torch.as_tensor(cfg.ego_anchor_init),
+        self.plan_anchor = nn.Parameter(torch.tensor(np.asarray(cfg.plan_anchor, np.float32)))
+        self.register_buffer("ego_anchor_init", torch.tensor(cfg.ego_anchor_init),
                              persistent=False)
-        self.register_buffer("motion_anchor", torch.as_tensor(
+        self.register_buffer("motion_anchor", torch.tensor(
             np.asarray(cfg.motion_anchor, np.float32)), persistent=False)
 
         # shared submodules
@@ -135,17 +138,20 @@ class SparseOneDecoder(nn.Module):
         for op_idx, op in enumerate(cfg.operation_order):
             if op == "gnn":
                 self.add_module(f"gnn_{op_idx}",
-                                GroupedCrossAttention(C, cfg.num_groups, self.gnn_groups))
+                                GroupedCrossAttention(C, cfg.num_groups, self.gnn_groups,
+                                                      cfg.drop_out))
             elif op == "temp_gnn":
                 self.add_module(f"temp_gnn_{op_idx}",
-                                GroupedCrossAttention(C, cfg.num_groups, self.temp_groups))
+                                GroupedCrossAttention(C, cfg.num_groups, self.temp_groups,
+                                                      cfg.drop_out))
             elif op == "inter_gnn":
                 self.add_module(f"inter_gnn_{op_idx}",
-                                GroupedCrossAttention(C, cfg.num_groups, self.inter_groups))
+                                GroupedCrossAttention(C, cfg.num_groups, self.inter_groups,
+                                                      cfg.drop_out))
             elif op == "norm":
                 self.add_module(f"norm_{op_idx}", nn.LayerNorm(C, eps=1e-5))
             elif op == "ffn":
-                self.add_module(f"ffn_{op_idx}", AsymmetricFFN(C * 2, C, C * 4))
+                self.add_module(f"ffn_{op_idx}", AsymmetricFFN(C * 2, C, C * 4, cfg.drop_out))
             elif op == "deformable":
                 for q in cfg.query_select:
                     kps_cls, spec = kps_specs[q]
@@ -171,7 +177,8 @@ class SparseOneDecoder(nn.Module):
                 raise NotImplementedError(f"unknown op {op!r}")
 
     def forward(self, feature_maps: Sequence[torch.Tensor], metas: Dict[str, torch.Tensor],
-                bank_states: Optional[banks.BankStates] = None):
+                bank_states: Optional[banks.BankStates] = None,
+                generator: Optional[torch.Generator] = None):
         cfg = self.cfg
         C = cfg.embed_dims
         bs = feature_maps[0].shape[0]
@@ -190,7 +197,8 @@ class SparseOneDecoder(nn.Module):
         tfeat: Dict[str, Optional[torch.Tensor]] = {}
         tembed: Dict[str, Optional[torch.Tensor]] = {}
 
-        feat["det"] = self.det_feature.detach()[None].expand(bs, -1, -1)
+        det_feature = self.det_feature if cfg.det_feat_grad else self.det_feature.detach()
+        feat["det"] = det_feature[None].expand(bs, -1, -1)
         anchor["det"] = self.det_anchor[None].expand(bs, -1, -1)
         temp_det_feat, temp_det_anchor, time_interval, det_mask = banks.det_bank_get(
             cfg, bank_states.det if has_temp else None, bs, timestamp,
@@ -264,30 +272,32 @@ class SparseOneDecoder(nn.Module):
 
             elif op == "gnn":
                 joint_feat = getattr(self, f"gnn_{op_idx}")(
-                    joint_feat, joint_embed, cur_sections, self.fc_before, self.fc_after)
+                    joint_feat, joint_embed, cur_sections, self.fc_before, self.fc_after,
+                    generator=generator)
 
             elif op == "temp_gnn":
                 joint_feat = getattr(self, f"temp_gnn_{op_idx}")(
                     joint_feat, joint_embed, cur_sections, self.fc_before, self.fc_after,
                     key_x=temp_joint_feat, key_pos=temp_joint_embed,
-                    key_sections=temp_sections, has_value=has_temp)
+                    key_sections=temp_sections, has_value=has_temp, generator=generator)
 
             elif op == "inter_gnn":
                 joint_feat = getattr(self, f"inter_gnn_{op_idx}")(
                     joint_feat, joint_embed, cur_sections, self.fc_before, self.fc_after,
-                    key_x=joint_feat, key_pos=joint_embed, key_sections=cur_sections)
+                    key_x=joint_feat, key_pos=joint_embed, key_sections=cur_sections,
+                    generator=generator)
 
             elif op == "norm":
                 joint_feat = getattr(self, f"norm_{op_idx}")(joint_feat)
 
             elif op == "ffn":
-                joint_feat = getattr(self, f"ffn_{op_idx}")(joint_feat)
+                joint_feat = getattr(self, f"ffn_{op_idx}")(joint_feat, generator)
 
             elif op == "deformable":
                 for q in qs:
                     feat[q] = getattr(self, f"{q}_deformable_{deform_i}")(
                         getattr(self, f"{q}_kps_{deform_i}"), feat[q], anchor[q], embed[q],
-                        feature_maps, projection_mat, image_wh)
+                        feature_maps, projection_mat, image_wh, generator)
                 deform_i += 1
 
             elif op == "refine":

@@ -1,6 +1,11 @@
 """Deformable feature aggregation (counterpart of
 ``hipad_tpu/models/deformable.py`` at ``stage2()`` semantics).
 
+In train mode a dropout of rate ``attn_drop`` drops whole (anchor, camera,
+point) columns of the sampling weights. It is 0.15, the JAX package's
+default, which its decoder never overrides: ``cfg.drop_out`` does not
+reach it.
+
 keypoints -> camera projection -> camera-conditioned softmax weights ->
 multi-view multi-scale bilinear sampling -> output projection with the
 "cat" residual (width doubles; the AsymmetricFFN squeezes it back).
@@ -12,20 +17,22 @@ The keypoint generator lives at decoder level (flax path
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from ..core.geometry import project_points
 from ..ops.sampling import deformable_aggregation, deformable_aggregation_topk
-from .common import MLPLN
+from .common import MLPLN, dropout
 from .keypoints import BoxKeypoints
 
 SAMPLERS = ("topk", "zero", "reference")
 
 
 class DeformableAggregation(nn.Module):
+    attn_drop = 0.15
+
     def __init__(self, embed_dims: int, num_groups: int, num_levels: int,
                  num_cams: int, num_pts: int, sampler: str = "topk",
                  sampler_cam_k: int = 3, sampler_cam_renorm: bool = False,
@@ -44,7 +51,8 @@ class DeformableAggregation(nn.Module):
 
     def prepare(self, kps: nn.Module, instance_feature: torch.Tensor,
                 anchor: torch.Tensor, anchor_embed: torch.Tensor,
-                projection_mat: torch.Tensor, image_wh: torch.Tensor):
+                projection_mat: torch.Tensor, image_wh: torch.Tensor,
+                generator: Optional[torch.Generator] = None):
         """-> (points_2d [bs, n, P, cams, 2], weights [bs, n, P, cams, L, G])."""
         bs, n = instance_feature.shape[:2]
         # The box generator's offsets read the anchor embed, the polyline
@@ -62,6 +70,8 @@ class DeformableAggregation(nn.Module):
         w = w.reshape(bs, n, self.num_cams * self.num_levels * num_pts, self.num_groups)
         w = torch.softmax(w, dim=-2)
         w = w.reshape(bs, n, self.num_cams, self.num_levels, num_pts, self.num_groups)
+        w = dropout(w, self.attn_drop, self.training, generator,
+                    mask_shape=(bs, n, self.num_cams, 1, num_pts, 1))
 
         pts_cam = project_points(key_points, projection_mat, image_wh)  # [bs, cams, n, P, 2]
         w = w.permute(0, 1, 4, 2, 3, 5)  # [bs, n, P, cams, L, G]
@@ -74,9 +84,10 @@ class DeformableAggregation(nn.Module):
     def forward(self, kps: nn.Module, instance_feature: torch.Tensor,
                 anchor: torch.Tensor, anchor_embed: torch.Tensor,
                 feature_maps: Sequence[torch.Tensor], projection_mat: torch.Tensor,
-                image_wh: torch.Tensor) -> torch.Tensor:
+                image_wh: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         pts2d, w = self.prepare(kps, instance_feature, anchor, anchor_embed,
-                                projection_mat, image_wh)
+                                projection_mat, image_wh, generator)
         if self.sampler == "zero":
             # ablation: full prepare cost, no sampling
             features = (torch.zeros(instance_feature.shape[:2] + (self.embed_dims,),

@@ -1,4 +1,5 @@
-"""Build, bind and launch the sampler's CUDA kernels.
+"""Build, bind and launch the sampler's CUDA kernels: K1 and K2 forward,
+K1-bwd and K2-bwd for their gradients.
 
 The sources ``hipad_torch/csrc/*.cu`` are compiled with plain ``nvcc`` for
 ``sm_90a`` into one shared library with a C interface, on first use, into
@@ -7,8 +8,8 @@ The sources ``hipad_torch/csrc/*.cu`` are compiled with plain ``nvcc`` for
 module on hosts without a card or a compiler.
 
 Each wrapper checks device, dtype, shape, contiguity and alignment, raises
-on anything its kernel does not take, allocates its output with
-``torch.empty``, launches on PyTorch's current stream and raises if
+on anything its kernel does not take, allocates its outputs (``torch.empty``;
+``torch.zeros`` for the buffers the backward kernels add into), launches on PyTorch's current stream and raises if
 ``cudaGetLastError()`` is not 0 after the launch. Each keeps ``launches``,
 the number of launches it made, so a run can show that the main path went
 through the kernel.
@@ -87,6 +88,10 @@ def library() -> Library:
     lib.hipad_interp_sample_camsum.restype = i
     lib.hipad_patch_sample.argtypes = [p] * 4 + [i] * 10 + [p] * 5 + [i] * 6 + [p]
     lib.hipad_patch_sample.restype = i
+    lib.hipad_interp_sample_camsum_bwd.argtypes = [p, i] + [p] * 8 + [i] * 7 + [p]
+    lib.hipad_interp_sample_camsum_bwd.restype = i
+    lib.hipad_patch_sample_bwd.argtypes = [p] * 8 + [i] * 10 + [p] * 8 + [i] * 6 + [p]
+    lib.hipad_patch_sample_bwd.restype = i
     return Library(lib=lib, path=out, build_seconds=seconds, log=log)
 
 
@@ -112,6 +117,69 @@ def _stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+def _check_k1(k: str, fm, px, py, wg, bs: int, cams: int):
+    """Validate K1's (or K1-bwd's) inputs -> (B, H, W, C, M, G)."""
+    _check(fm.is_cuda, f"{k}: takes CUDA tensors, got {fm.device}")
+    dev = fm.device
+    _check(fm.dim() == 4 and fm.shape[0] == bs * cams,
+           f"{k}: fm must be [bs*cams, H, W, C], got {tuple(fm.shape)}")
+    B, H, W, C = fm.shape
+    _check(px.shape == py.shape and px.dim() == 2 and px.shape[0] == B,
+           f"{k}: px, py must be [bs*cams, M], got {tuple(px.shape)}, {tuple(py.shape)}")
+    M = px.shape[1]
+    _check(wg.dim() == 3 and wg.shape[:2] == (B, M),
+           f"{k}: wg must be [bs*cams, M, G], got {tuple(wg.shape)}")
+    G = wg.shape[2]
+    _check_channels(k, C, G)
+    _check_tensor("fm", fm, dev, (torch.float32, torch.bfloat16), k)
+    for name, t in (("px", px), ("py", py), ("wg", wg)):
+        _check_tensor(name, t, dev, (torch.float32,), k)
+    return B, H, W, C, M, G
+
+
+def _check_k2(k: str, fine_maps, cam, x, y, w, cam_k: int):
+    """Validate K2's (or K2-bwd's) inputs -> (bs, M0, cams, C, G)."""
+    _check(x.is_cuda, f"{k}: takes CUDA tensors, got {x.device}")
+    dev = x.device
+    nlev = len(fine_maps)
+    _check(1 <= nlev <= _MAX_FINE_LEVELS,
+           f"{k}: takes 1..{_MAX_FINE_LEVELS} fine levels, got {nlev}")
+    _check(x.dim() == 2 and x.shape == y.shape == cam.shape,
+           f"{k}: cam, x, y must be [bs, M], got {tuple(cam.shape)}, "
+           f"{tuple(x.shape)}, {tuple(y.shape)}")
+    bs, M = x.shape
+    _check(cam_k >= 1 and M % cam_k == 0, f"{k}: M={M} is not a multiple of cam_k={cam_k}")
+    _check(w.dim() == 4 and w.shape[:3] == (bs, M, nlev),
+           f"{k}: w must be [bs, M, {nlev}, G], got {tuple(w.shape)}")
+    G = w.shape[3]
+    cams, C = fine_maps[0].shape[1], fine_maps[0].shape[-1]
+    _check_channels(k, C, G)
+    fm_dtype = fine_maps[0].dtype
+    for i, fm in enumerate(fine_maps):
+        _check(fm.dim() == 5 and fm.shape[0] == bs and fm.shape[1] == cams
+               and fm.shape[-1] == C,
+               f"{k}: level {i} must be [bs, cams, H, W, C], got {tuple(fm.shape)}")
+        _check(fm.shape[2] >= 2 and fm.shape[3] >= 2,
+               f"{k}: level {i} needs H, W >= 2, got {tuple(fm.shape)}")
+        _check(fm.dtype == fm_dtype, f"{k}: fine levels must share one dtype")
+        _check_tensor(f"level {i}", fm, dev, (torch.float32, torch.bfloat16), k)
+    _check_tensor("cam", cam, dev, (torch.int32,), k)
+    for name, t in (("x", x), ("y", y), ("w", w)):
+        _check_tensor(name, t, dev, (torch.float32,), k)
+    return bs, M // cam_k, cams, C, G
+
+
+def _level_args(fine_maps):
+    pad = _MAX_FINE_LEVELS - len(fine_maps)
+    return ([fm.shape[2] for fm in fine_maps] + [0] * pad,
+            [fm.shape[3] for fm in fine_maps] + [0] * pad)
+
+
+def _launched(k: str, err: int):
+    if err != 0:
+        raise RuntimeError(f"{k}: launch failed with CUDA error {err}")
+
+
 class InterpSampleCamsum:
     """K1 (``csrc/interp_sample.cu``): coarse-level bilinear sampling summed
     over cameras; replaces ``hipad_tpu/ops/pallas_interp.py:
@@ -128,32 +196,52 @@ class InterpSampleCamsum:
         """fm ``[bs*cams, H, W, C]`` fp32|bf16; px, py ``[bs*cams, M]`` fp32
         pixel coordinates; wg ``[bs*cams, M, G]`` fp32 -> ``[bs, M, C]`` fp32."""
         k = "K1 interp_sample_camsum"
-        _check(fm.is_cuda, f"{k}: takes CUDA tensors, got {fm.device}")
-        dev = fm.device
-        _check(fm.dim() == 4 and fm.shape[0] == bs * cams,
-               f"{k}: fm must be [bs*cams, H, W, C], got {tuple(fm.shape)}")
-        B, H, W, C = fm.shape
-        _check(px.shape == py.shape and px.dim() == 2 and px.shape[0] == B,
-               f"{k}: px, py must be [bs*cams, M], got {tuple(px.shape)}, {tuple(py.shape)}")
-        M = px.shape[1]
-        _check(wg.dim() == 3 and wg.shape[:2] == (B, M),
-               f"{k}: wg must be [bs*cams, M, G], got {tuple(wg.shape)}")
-        G = wg.shape[2]
-        _check_channels(k, C, G)
-        _check_tensor("fm", fm, dev, (torch.float32, torch.bfloat16), k)
-        for name, t in (("px", px), ("py", py), ("wg", wg)):
-            _check_tensor(name, t, dev, (torch.float32,), k)
-        out = torch.empty(bs, M, C, dtype=torch.float32, device=dev)
+        B, H, W, C, M, G = _check_k1(k, fm, px, py, wg, bs, cams)
+        out = torch.empty(bs, M, C, dtype=torch.float32, device=fm.device)
         lib = library().lib
-        with torch.cuda.device(dev):
+        with torch.cuda.device(fm.device):
             err = lib.hipad_interp_sample_camsum(
                 fm.data_ptr(), int(fm.dtype == torch.bfloat16), px.data_ptr(),
                 py.data_ptr(), wg.data_ptr(), out.data_ptr(),
-                bs, cams, H, W, C, G, M, _stream(dev))
-        if err != 0:
-            raise RuntimeError(f"{k}: launch failed with CUDA error {err}")
+                bs, cams, H, W, C, G, M, _stream(fm.device))
+        _launched(k, err)
         self.launches += 1
         return out
+
+
+class InterpSampleCamsumBwd:
+    """K1-bwd (``csrc/interp_sample_bwd.cu``): the adjoint of K1; replaces
+    ``hipad_tpu/ops/sampling.py:_interp_matmul_tpu_bwd``. Plain version:
+    autograd through ``ops/sampling.py:interp_matmul_camsum``."""
+
+    name = "interp_sample_camsum_bwd"
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, fm, px, py, wg, gout: torch.Tensor, bs: int, cams: int):
+        """K1's inputs and ``gout [bs, M, C]`` fp32, the gradient of its
+        output -> (d fm ``[bs*cams, H, W, C]`` fp32, d px, d py
+        ``[bs*cams, M]``, d wg ``[bs*cams, M, G]``)."""
+        k = "K1-bwd interp_sample_camsum_bwd"
+        B, H, W, C, M, G = _check_k1(k, fm, px, py, wg, bs, cams)
+        _check(gout.shape == (bs, M, C), f"{k}: gout must be [bs, M, C], got {tuple(gout.shape)}")
+        _check_tensor("gout", gout, fm.device, (torch.float32,), k)
+        dev = fm.device
+        dfm = torch.zeros(B, H, W, C, dtype=torch.float32, device=dev)
+        dpx = torch.empty(B, M, dtype=torch.float32, device=dev)
+        dpy = torch.empty_like(dpx)
+        dwg = torch.empty(B, M, G, dtype=torch.float32, device=dev)
+        lib = library().lib
+        with torch.cuda.device(dev):
+            err = lib.hipad_interp_sample_camsum_bwd(
+                fm.data_ptr(), int(fm.dtype == torch.bfloat16), px.data_ptr(),
+                py.data_ptr(), wg.data_ptr(), gout.data_ptr(), dfm.data_ptr(),
+                dpx.data_ptr(), dpy.data_ptr(), dwg.data_ptr(),
+                bs, cams, H, W, C, G, M, _stream(dev))
+        _launched(k, err)
+        self.launches += 1
+        return dfm, dpx, dpy, dwg
 
 
 class PatchSample:
@@ -175,50 +263,63 @@ class PatchSample:
         cam ``[bs, M]`` int32; x, y ``[bs, M]`` fp32; w ``[bs, M, nlev, G]``
         fp32; ``M = M0*cam_k`` -> ``[bs, M0, C]`` fp32."""
         k = "K2 patch_sample"
-        _check(x.is_cuda, f"{k}: takes CUDA tensors, got {x.device}")
-        dev = x.device
-        nlev = len(fine_maps)
-        _check(1 <= nlev <= _MAX_FINE_LEVELS,
-               f"{k}: takes 1..{_MAX_FINE_LEVELS} fine levels, got {nlev}")
-        _check(x.dim() == 2 and x.shape == y.shape == cam.shape,
-               f"{k}: cam, x, y must be [bs, M], got {tuple(cam.shape)}, "
-               f"{tuple(x.shape)}, {tuple(y.shape)}")
-        bs, M = x.shape
-        _check(cam_k >= 1 and M % cam_k == 0, f"{k}: M={M} is not a multiple of cam_k={cam_k}")
-        _check(w.dim() == 4 and w.shape[:3] == (bs, M, nlev),
-               f"{k}: w must be [bs, M, {nlev}, G], got {tuple(w.shape)}")
-        G = w.shape[3]
-        cams, C = fine_maps[0].shape[1], fine_maps[0].shape[-1]
-        _check_channels(k, C, G)
-        fm_dtype = fine_maps[0].dtype
-        for i, fm in enumerate(fine_maps):
-            _check(fm.dim() == 5 and fm.shape[0] == bs and fm.shape[1] == cams
-                   and fm.shape[-1] == C,
-                   f"{k}: level {i} must be [bs, cams, H, W, C], got {tuple(fm.shape)}")
-            _check(fm.shape[2] >= 2 and fm.shape[3] >= 2,
-                   f"{k}: level {i} needs H, W >= 2, got {tuple(fm.shape)}")
-            _check(fm.dtype == fm_dtype, f"{k}: fine levels must share one dtype")
-            _check_tensor(f"level {i}", fm, dev, (torch.float32, torch.bfloat16), k)
-        _check_tensor("cam", cam, dev, (torch.int32,), k)
-        for name, t in (("x", x), ("y", y), ("w", w)):
-            _check_tensor(name, t, dev, (torch.float32,), k)
-        M0 = M // cam_k
-        out = torch.empty(bs, M0, C, dtype=torch.float32, device=dev)
-        ptrs = [fm.data_ptr() for fm in fine_maps] + [0] * (_MAX_FINE_LEVELS - nlev)
-        hs = [fm.shape[2] for fm in fine_maps] + [0] * (_MAX_FINE_LEVELS - nlev)
-        ws = [fm.shape[3] for fm in fine_maps] + [0] * (_MAX_FINE_LEVELS - nlev)
+        bs, M0, cams, C, G = _check_k2(k, fine_maps, cam, x, y, w, cam_k)
+        out = torch.empty(bs, M0, C, dtype=torch.float32, device=x.device)
+        ptrs = [fm.data_ptr() for fm in fine_maps] + [0] * (_MAX_FINE_LEVELS - len(fine_maps))
+        hs, ws = _level_args(fine_maps)
         lib = library().lib
-        with torch.cuda.device(dev):
+        with torch.cuda.device(x.device):
             err = lib.hipad_patch_sample(
-                *ptrs, *hs, *ws, nlev, int(fm_dtype == torch.bfloat16),
+                *ptrs, *hs, *ws, len(fine_maps), int(fine_maps[0].dtype == torch.bfloat16),
                 cam.data_ptr(), x.data_ptr(), y.data_ptr(), w.data_ptr(),
-                out.data_ptr(), bs, cams, C, G, M0, cam_k, _stream(dev))
-        if err != 0:
-            raise RuntimeError(f"{k}: launch failed with CUDA error {err}")
+                out.data_ptr(), bs, cams, C, G, M0, cam_k, _stream(x.device))
+        _launched(k, err)
         self.launches += 1
         return out
 
 
+class PatchSampleBwd:
+    """K2-bwd (``csrc/patch_sample_bwd.cu``): the adjoint of K2 over every
+    fine level and slot in one launch; replaces ``hipad_tpu/ops/sampling.py:
+    _patch_bilinear_w_bwd`` with ``_dense_fmap_grad``. Plain version:
+    autograd through ``ops/sampling.py:patch_sample_plain``."""
+
+    name = "patch_sample_bwd"
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, fine_maps: Sequence[torch.Tensor], cam, x, y, w,
+                 gout: torch.Tensor, cam_k: int):
+        """K2's inputs and ``gout [bs, M0, C]`` fp32, the gradient of its
+        output -> (per-level d maps fp32, d x, d y ``[bs, M]``, d w
+        ``[bs, M, nlev, G]``)."""
+        k = "K2-bwd patch_sample_bwd"
+        bs, M0, cams, C, G = _check_k2(k, fine_maps, cam, x, y, w, cam_k)
+        _check(gout.shape == (bs, M0, C), f"{k}: gout must be [bs, M0, C], got {tuple(gout.shape)}")
+        dev = x.device
+        _check_tensor("gout", gout, dev, (torch.float32,), k)
+        dmaps = [torch.zeros(fm.shape, dtype=torch.float32, device=dev) for fm in fine_maps]
+        dx = torch.empty_like(x)
+        dy = torch.empty_like(y)
+        dw = torch.empty_like(w)
+        pad = [0] * (_MAX_FINE_LEVELS - len(fine_maps))
+        hs, ws = _level_args(fine_maps)
+        lib = library().lib
+        with torch.cuda.device(dev):
+            err = lib.hipad_patch_sample_bwd(
+                *[fm.data_ptr() for fm in fine_maps], *pad,
+                *[d.data_ptr() for d in dmaps], *pad, *hs, *ws, len(fine_maps),
+                int(fine_maps[0].dtype == torch.bfloat16), cam.data_ptr(), x.data_ptr(),
+                y.data_ptr(), w.data_ptr(), gout.data_ptr(), dx.data_ptr(), dy.data_ptr(),
+                dw.data_ptr(), bs, cams, C, G, M0, cam_k, _stream(dev))
+        _launched(k, err)
+        self.launches += 1
+        return dmaps, dx, dy, dw
+
+
 interp_sample_camsum = InterpSampleCamsum()
+interp_sample_camsum_bwd = InterpSampleCamsumBwd()
 patch_sample = PatchSample()
-KERNELS = (interp_sample_camsum, patch_sample)
+patch_sample_bwd = PatchSampleBwd()
+KERNELS = (interp_sample_camsum, patch_sample, interp_sample_camsum_bwd, patch_sample_bwd)

@@ -13,12 +13,19 @@ with channels split into ``G`` contiguous groups.
 Two functions dispatch by device and by nothing else:
 
   * :func:`interp_sample_camsum` (coarse levels, counterpart of the Pallas
-    kernel ``interp_matmul_pallas`` plus the camera sum) -> kernel K1;
+    kernel ``interp_matmul_pallas`` plus the camera sum) -> kernel K1, with
+    K1-bwd as its gradient;
   * :func:`patch_sample` (fine levels, counterpart of ``patch_bilinear_w`` as
-    driven by ``deformable_samples_topk_flat``) -> kernel K2.
+    driven by ``deformable_samples_topk_flat``) -> kernel K2, with K2-bwd as
+    its gradient.
 
-A CPU tensor takes the plain version beside each; a CUDA tensor takes the
-kernel in ``ops/kernels.py``, which raises on anything it does not take.
+A CPU tensor takes the plain version beside each, and autograd through it
+gives the gradient; a CUDA tensor takes the kernels in ``ops/kernels.py``
+through a ``torch.autograd.Function``, and they raise on anything they do
+not take. Gradients reach the feature maps, the continuous coordinates and
+the group weights, as the JAX package's adjoints do: the coordinates
+through the hat weights (:func:`hat`), never through an integer patch
+origin.
 """
 
 from __future__ import annotations
@@ -28,6 +35,15 @@ from typing import List, Sequence
 import torch
 
 from . import kernels
+
+
+def hat(t: torch.Tensor) -> torch.Tensor:
+    """The bilinear hat weight ``max(0, 1 - |t|)``, written so that autograd
+    takes the JAX package's conventions at the kinks: ``|t|' = 1`` at 0
+    (``torch.abs`` gives 0) and ``max(0, u)`` passes half the gradient at
+    ``u = 0`` (``torch.clamp`` passes all of it). The kernels' backward does
+    the same (``csrc/sample_common.cuh``)."""
+    return torch.maximum(1.0 - torch.where(t >= 0, t, -t), torch.zeros((), device=t.device))
 
 
 def _inside(points_2d: torch.Tensor) -> torch.Tensor:
@@ -108,8 +124,8 @@ def interp_matmul_level(
     M = px.shape[1]
     iota_h = torch.arange(H, dtype=torch.float32, device=fm.device)
     iota_w = torch.arange(W, dtype=torch.float32, device=fm.device)
-    wy = torch.clamp(1.0 - (py.float()[..., None] - iota_h).abs(), min=0.0)
-    wx = torch.clamp(1.0 - (px.float()[..., None] - iota_w).abs(), min=0.0)
+    wy = hat(py.float()[..., None] - iota_h)
+    wx = hat(px.float()[..., None] - iota_w)
     interp = (wy[..., :, None] * wx[..., None, :]).reshape(B, M, H * W)
     out = torch.bmm(interp, fm.reshape(B, H * W, C).float())
     return out.reshape(B, M, groups, C // groups) * wg.float()[..., None]
@@ -125,13 +141,31 @@ def interp_matmul_camsum(fm, px, py, wg, bs: int, cams: int) -> torch.Tensor:
     return c.reshape(bs, cams, M, C).sum(dim=1)
 
 
+class _InterpSampleCamsum(torch.autograd.Function):
+    """K1 forward, K1-bwd backward."""
+
+    @staticmethod
+    def forward(ctx, fm, px, py, wg, bs: int, cams: int):
+        ctx.save_for_backward(fm, px, py, wg)
+        ctx.bs, ctx.cams = bs, cams
+        return kernels.interp_sample_camsum(fm, px, py, wg, bs, cams)
+
+    @staticmethod
+    def backward(ctx, gout):
+        fm, px, py, wg = ctx.saved_tensors
+        dfm, dpx, dpy, dwg = kernels.interp_sample_camsum_bwd(
+            fm, px, py, wg, gout.float().contiguous(), ctx.bs, ctx.cams)
+        return dfm.to(fm.dtype), dpx, dpy, dwg, None, None
+
+
 def interp_sample_camsum(fm, px, py, wg, bs: int, cams: int) -> torch.Tensor:
     """Coarse-level sampling summed over cameras -> ``[bs, M, C]`` float32.
     A CPU tensor takes :func:`interp_matmul_camsum`; anything else takes
-    kernel K1 (``kernels.interp_sample_camsum``), which raises off the card."""
+    kernel K1 (``kernels.interp_sample_camsum``) and, for its gradient,
+    K1-bwd; both raise off the card."""
     if fm.device.type == "cpu":
         return interp_matmul_camsum(fm, px, py, wg, bs, cams)
-    return kernels.interp_sample_camsum(fm, px, py, wg, bs, cams)
+    return _InterpSampleCamsum.apply(fm, px, py, wg, bs, cams)
 
 
 def patch_sample_plain(
@@ -170,8 +204,8 @@ def patch_sample_plain(
         py = y.float() * h_l - 0.5
         sy = torch.floor(py).clamp(0, h_l - 2)
         sx = torch.floor(px).clamp(0, w_l - 2)
-        wy = torch.clamp(1.0 - (py[..., None] - (sy[..., None] + two)).abs(), min=0.0)
-        wx = torch.clamp(1.0 - (px[..., None] - (sx[..., None] + two)).abs(), min=0.0)
+        wy = hat(py[..., None] - (sy[..., None] + two))
+        wx = hat(px[..., None] - (sx[..., None] + two))
         row = (cam * h_l + sy.long()) * w_l + sx.long()  # [bs, M] top-left cell
         offs = torch.tensor([0, 1, w_l, w_l + 1], device=x.device)
         idx = (row[..., None] + offs).reshape(bs, M * 4, 1)
@@ -184,13 +218,31 @@ def patch_sample_plain(
     return out.reshape(bs, M // cam_k, cam_k, C).sum(dim=2)
 
 
+class _PatchSample(torch.autograd.Function):
+    """K2 forward, K2-bwd backward; the maps ride last in ``*maps``."""
+
+    @staticmethod
+    def forward(ctx, cam, x, y, w, cam_k: int, *maps):
+        ctx.save_for_backward(cam, x, y, w, *maps)
+        ctx.cam_k = cam_k
+        return kernels.patch_sample(list(maps), cam, x, y, w, cam_k)
+
+    @staticmethod
+    def backward(ctx, gout):
+        cam, x, y, w, *maps = ctx.saved_tensors
+        dmaps, dx, dy, dw = kernels.patch_sample_bwd(
+            maps, cam, x, y, w, gout.float().contiguous(), ctx.cam_k)
+        return (None, dx, dy, dw, None, *(d.to(m.dtype) for d, m in zip(dmaps, maps)))
+
+
 def patch_sample(fine_maps, cam, x, y, w, cam_k: int) -> torch.Tensor:
     """Fine-level sampling -> ``[bs, M0, C]`` float32. A CPU tensor takes
     :func:`patch_sample_plain`; anything else takes kernel K2
-    (``kernels.patch_sample``), which raises off the card."""
+    (``kernels.patch_sample``) and, for its gradient, K2-bwd; both raise off
+    the card."""
     if x.device.type == "cpu":
         return patch_sample_plain(fine_maps, cam, x, y, w, cam_k)
-    return kernels.patch_sample(fine_maps, cam, x, y, w, cam_k)
+    return _PatchSample.apply(cam, x, y, w, cam_k, *fine_maps)
 
 
 def deformable_samples_topk_flat(

@@ -1,5 +1,5 @@
-"""What the port must never do: import JAX, or fall back to the CPU when it
-was asked to run on a card."""
+"""What the port must never do: import JAX or anything of the JAX package
+``hipad_tpu``, or fall back to the CPU when it was asked to run on a card."""
 
 import os
 import pathlib
@@ -20,25 +20,30 @@ import pkgutil, importlib, torch
 import hipad_torch
 for m in pkgutil.walk_packages(hipad_torch.__path__, "hipad_torch."):
     importlib.import_module(m.name)
-from hipad_tpu.configs.model import tiny
-from hipad_tpu.data import synthetic
+import chip_smoke  # defines its phases only; runs nothing on import
+from hipad_torch.configs.model import tiny
+from hipad_torch.data import synthetic
 from hipad_torch.models.detector import HiPAD, batch_to_torch
+from hipad_torch.train.optim import AdamW
+from hipad_torch.train.train_step import make_train_step
 from hipad_torch.weights import init_random
 cfg = tiny()
-model = init_random(HiPAD(cfg), 0)
-images, metas = batch_to_torch(synthetic.make_batch(cfg, 1), "cpu")
+model = init_random(HiPAD(cfg, device="cpu"), 0)
+batch = synthetic.make_batch(cfg, 1)
+images, metas = batch_to_torch(batch, "cpu")
 with torch.no_grad():
     out, banks = model(images, metas)
     out, banks = model(images, metas, banks)
 assert torch.isfinite(out["plan"]["final_waypoints"]).all()
+step = make_train_step(cfg, model, AdamW(model.named_parameters()))
+banks, metrics = step(banks, {k: torch.as_tensor(v) for k, v in batch.items()},
+                      torch.Generator().manual_seed(0))
+assert all(torch.isfinite(v) for v in metrics.values()), metrics
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax")
                 and sys.modules[m] is not None)
 assert not loaded, loaded
-import chip_smoke  # defines its phases only; runs nothing on import
-shared = {"hipad_tpu", "hipad_tpu.configs", "hipad_tpu.configs.model", "hipad_tpu.data",
-          "hipad_tpu.data.synthetic"}
-reached = {m for m in sys.modules if m.split(".")[0] == "hipad_tpu"}
-assert reached <= shared, sorted(reached - shared)
+reached = sorted(m for m in sys.modules if m.split(".")[0] == "hipad_tpu")
+assert not reached, reached
 print("ok")
 """
 
@@ -55,7 +60,7 @@ def test_port_imports_and_runs_without_jax():
 
 
 def test_port_sources_never_import_jax():
-    pat = re.compile(r"^\s*(import|from)\s+(jax|flax)\b", re.M)
+    pat = re.compile(r"^\s*(import|from)\s+(jax|flax|hipad_tpu)\b", re.M)
     offenders = [str(p.relative_to(ROOT)) for p in (ROOT / "hipad_torch").rglob("*.py")
                  if pat.search(p.read_text())]
     offenders += ["chip_smoke.py"] if pat.search((ROOT / "chip_smoke.py").read_text()) else []
@@ -87,3 +92,17 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                              torch.zeros(1, 6), torch.zeros(1, 6), torch.ones(1, 6, 1, 4), 2)
     assert kernels.interp_sample_camsum.launches == 0
     assert kernels.patch_sample.launches == 0
+
+
+def test_model_is_built_on_the_card_by_default():
+    """``HiPAD(cfg)`` asks for the card; only ``device="cpu"`` gives a CPU
+    model. On a host without CUDA the default therefore fails."""
+    from hipad_torch.configs.model import tiny
+    from hipad_torch.models.detector import HiPAD
+
+    if torch.cuda.is_available():
+        assert next(HiPAD(tiny()).parameters()).is_cuda
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            HiPAD(tiny())
+    assert next(HiPAD(tiny(), device="cpu").parameters()).device.type == "cpu"

@@ -16,8 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from hipad_tpu.configs.model import tiny
-from hipad_tpu.data import synthetic
+from hipad_torch.configs.model import tiny
+from hipad_torch.data import synthetic
 from hipad_tpu.models.detector import HiPAD as JHiPAD
 from hipad_torch.models.common import BatchNorm, Scale
 from hipad_torch.models.detector import META_KEYS, HiPAD, batch_to_torch
@@ -32,7 +32,7 @@ RTOL, ATOL = 1e-4, 1e-5
 
 
 def _port(cfg, seed=0):
-    model = init_random(HiPAD(cfg), seed)
+    model = init_random(HiPAD(cfg, device="cpu"), seed)
     g = torch.Generator().manual_seed(seed + 1)
     with torch.no_grad():
         for m in model.modules():
@@ -123,16 +123,18 @@ def test_weights_round_trip_is_bit_exact():
 
 def test_weights_cover_every_flax_leaf():
     """The port's state_dict, through to_jax, has exactly the flax model's
-    leaves with their shapes: no JAX leaf is left unset, none is extra."""
+    leaves with their shapes, depth head included (the training tree,
+    initialised with ``return_depth=True`` as ``create_train_state`` does):
+    no JAX leaf is left unset, none is extra."""
     cfg = tiny()
     batch = synthetic.make_batch(cfg, 1)
     jm = JHiPAD(cfg)
     shapes = jax.eval_shape(
         lambda r: jm.init(r, jnp.asarray(batch["images"]),
-                          {k: jnp.asarray(batch[k]) for k in META_KEYS}),
+                          {k: jnp.asarray(batch[k]) for k in META_KEYS}, return_depth=True),
         jax.random.PRNGKey(0))
     want = {k: tuple(v.shape) for k, v in _leaves(shapes)}
-    got = {k: tuple(v.shape) for k, v in _leaves(to_jax(HiPAD(cfg).state_dict()))}
+    got = {k: tuple(v.shape) for k, v in _leaves(to_jax(HiPAD(cfg, device="cpu").state_dict()))}
     assert got.keys() == want.keys(), sorted(set(got) ^ set(want))[:10]
     assert got == want
 
@@ -148,4 +150,4 @@ def test_weights_cover_every_flax_leaf():
 ])
 def test_knobs_outside_stage2_are_refused(knob):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        HiPAD(tiny(**knob))
+        HiPAD(tiny(**knob), device="cpu")

@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from hipad_tpu.configs.model import tiny
+from hipad_torch.configs.model import tiny
 from hipad_tpu.core import geometry as jgeo
 from hipad_tpu.models import attention_blocks as jattn
 from hipad_tpu.models import backbone as jbb
@@ -98,7 +98,7 @@ def _box_anchors(rng, n=N):
 
 
 def _projection(rng):
-    from hipad_tpu.data.synthetic import _projection_matrices
+    from hipad_torch.data.synthetic import _projection_matrices
 
     return _projection_matrices(CFG, np.random.RandomState(int(rng.integers(1000))), BS)
 
