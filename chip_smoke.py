@@ -7,7 +7,8 @@ Phases, one printed line (or a few) each; any failure exits non-zero:
 
   1. environment: torch/CUDA versions and the card's name and power limit
      (``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``);
-  2. build the sampler kernels from ``hipad_torch/csrc/*.cu`` with nvcc;
+  2. build the kernels from ``hipad_torch/csrc/*.cu``, one nvcc per source,
+     all started together;
   3. each forward kernel (K1, K2) against its plain PyTorch version on the
      card, at the stage-2 shapes the main path gives it, fp32 and bf16
      feature maps; timed against the plain version and against
@@ -28,14 +29,31 @@ Phases, one printed line (or a few) each; any failure exits non-zero:
      count against the op program's; then 6 rounds of one fp32 and one bf16
      step in turn, which compare the two on the host clock; then step 0
      without dropout and GridMask on the card and on the CPU plain path,
-     loss by loss.
+     loss by loss;
+  6. the serving frame: ``stage2_serving_det()`` (keypoint top-k, det-query
+     pruning), bs=1, 2 warm-up and 8 timed chained frames with
+     ``post_process_arrays``, fp32 then bf16 autocast; finite outputs; K1/K2
+     launches against the op program; frame 0 post-processed on the card
+     and on the CPU plain path with every selection recorded (keypoints,
+     sorts, top-k): a pick that differs is printed with its score gap and
+     fails above the tolerance, and the outputs are held key by key where
+     the selections agree; then stage2 and serving frames in turns
+     (informational);
+  7. the agent: ``AgentCore(stage2_serving_det())`` in fp32 over the fake
+     simulator's 6 x 1600x900 uint8 cameras, JPEG q20 and the native
+     resize/crop, 2 warm-up and 20 ticks; every control finite and clipped;
+     the median host preprocessing and upload+inference per tick;
+  8. the gather probes P2-P4 at the probe tool's shapes: the tool's own
+     timed run (its launches), then each kernel against its plain version
+     (equal: a copy), and its device time (calls queued back to back)
+     against the plain version's and ``torch.index_select``'s.
 
 The line before the last is a JSON object with one entry per kernel (its
 time, its plain version's, the bound the card's peaks set for the bytes and
-operations these inputs need, the nearest library call's, and its launches
-in phase 5's fp32 run and in phase 4's); the last is ``{"ok": true, "device": {...}}``. There is no
-CPU fallback: without a CUDA device the script exits non-zero and prints no
-result.
+operations these inputs need, the nearest library call's, its launches on
+its own path and on every path that ran it); the last is ``{"ok": true,
+"device": {...}}``. There is no CPU fallback: without a CUDA device the
+script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -139,6 +157,32 @@ def _nbytes(*ts) -> int:
 def _timed(fns, iters=20):
     """CUDA-event medians of fns in the order given -> list of ms."""
     return [cuda_time_ms(f, iters) for f in fns]
+
+
+def _device_ms(fns, iters=20, reps=5):
+    """Device time per call of each fn, in the order given: ``iters`` calls
+    queued behind a ``torch.cuda._sleep`` kernel, so that the card runs them
+    back to back, timed by CUDA events around them; the median of ``reps``
+    -> list of ms. Unlike events around one call, it leaves out the host's
+    time to launch, which dominates a copy of a few microseconds."""
+    import torch
+
+    out = []
+    for fn in fns:
+        fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(20_000_000)  # ~10 ms: longer than queueing the calls takes
+            start.record()
+            for _ in range(iters):
+                fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / iters)
+        out.append(statistics.median(times))
+    return out
 
 
 class _Rec:
@@ -663,7 +707,8 @@ def phase_train(card: str):
             f"{min(timed):.2f}, max {max(timed):.2f} (host clock, sync per step, steps "
             f"{WARMUP_STEPS}..{n_steps - 1}); step 0 {times[0]:.1f} ms; "
             f"max_memory_allocated {peak:.2f} GiB")
-        for kname, n in launches.items():
+        for kname in per_call:
+            n = launches[kname]
             want = n_steps * n_deform * per_call[kname]
             say(f"[train] {name} {kname}: {n} launches over {n_steps} steps = "
                 f"{n / n_steps:g}/step (expected {n_deform} deformable calls x "
@@ -753,6 +798,331 @@ def phase_train(card: str):
     return launches
 
 
+class _Selections:
+    """Every ranking a forward and its post-processing make, all through
+    ``hipad_torch.ops.ranking.topk``: the keypoint top-k, the first frame's
+    confidence sort, the banks' top-k and the decode's top-k.
+
+    On the card it records each call's picks. On the CPU, given the card's
+    record, it checks each call's own picks against the card's (where they
+    differ: the gap between the two picked items' CPU scores, which may not
+    exceed E2E_RTOL x the largest score + E2E_ATOL) and then takes the
+    card's picks, so that both runs go on with the same selections and
+    their outputs can be held key by key. ``stage`` ("forward" or "decode")
+    is set by the caller."""
+
+    def __init__(self, card_calls=None):
+        self.card_calls, self.calls, self.differ, self.stage = card_calls, [], 0, "forward"
+
+    def _pick(self, scores, k):
+        """-> the indices this run goes on with (the card's, on the CPU)."""
+        i = len(self.calls)
+        mine = self._topk(scores, k)[1]
+        what = (self.stage, tuple(scores.shape), k)
+        self.calls.append((what, mine.cpu()))
+        if self.card_calls is None:
+            return mine
+        if i >= len(self.card_calls) or self.card_calls[i][0] != what:
+            fail(f"selection {i}: the CPU ranked {what} where the card ranked "
+                 f"{self.card_calls[i][0] if i < len(self.card_calls) else 'nothing'}")
+        card = self.card_calls[i][1]
+        same = card == mine
+        if not same.all():
+            gap = (scores.gather(-1, card) - scores.gather(-1, mine)).abs()
+            tol = E2E_RTOL * float(scores.abs().max()) + E2E_ATOL
+            where = (~same).nonzero()
+            self.differ += len(where)
+            worst = float(gap[~same].max())
+            shown = ", ".join(
+                f"rank {tuple(w.tolist())}: card {int(card[tuple(w)])} cpu "
+                f"{int(mine[tuple(w)])} gap {float(gap[tuple(w)]):.3e}" for w in where[:4])
+            say(f"[serve] selection {i} ({self.stage}, top-{k} of {tuple(scores.shape)}): "
+                f"{len(where)} ranks differ, largest gap {worst:.3e} (tol {tol:.3e}); {shown}; "
+                f"the CPU goes on with the card's picks")
+            if worst > tol:
+                fail(f"selection {i}: card and CPU picks differ by more than the tolerance")
+        return card
+
+    def __enter__(self):
+        from hipad_torch.ops import ranking
+
+        self._ranking, self._topk = ranking, ranking.topk
+
+        def topk(x, k):
+            idx = self._pick(x, k)
+            return x.gather(-1, idx), idx
+
+        ranking.topk = topk
+        return self
+
+    def __exit__(self, *exc):
+        self._ranking.topk = self._topk
+
+
+# stage2_serving_det frames timed in turns with stage2 frames (informational)
+SERVE_ROUNDS = 6
+
+
+def phase_serving(card: str):
+    """``stage2_serving_det()`` bs=1: chained frames with post-processing in
+    fp32 and bf16 autocast, K1/K2 launches against the op program; frame 0
+    post-processed on the card and on the CPU, selection by selection and key
+    by key; then stage2 and serving frames in turns. -> (fp32 launches,
+    the serving model's weights)."""
+    import torch
+
+    from hipad_torch import postprocess
+    from hipad_torch.configs.model import stage2, stage2_serving_det
+    from hipad_torch.data import synthetic
+    from hipad_torch.models.detector import HiPAD, batch_to_torch
+    from hipad_torch.ops import kernels
+    from hipad_torch.weights import init_random
+
+    dev = torch.device(DEVICE)
+    cfg = stage2_serving_det()
+    t0 = time.perf_counter()
+    model = init_random(HiPAD(cfg, device=dev), SEED)
+    images, metas = batch_to_torch(synthetic.make_batch(cfg, 1, seed=SEED), dev)
+    say(f"[serve] stage2_serving_det (sampler_point_frac {cfg.sampler_point_frac}, "
+        f"topk_det_list {cfg.topk_det_list}) built with seeded weights in "
+        f"{time.perf_counter() - t0:.1f} s")
+    n_deform, per_call = _launch_plan(cfg)
+    per_call = {k: v for k, v in per_call.items() if not k.endswith("_bwd")}
+    n_frames = WARMUP_FRAMES + TIMED_FRAMES
+
+    def frame_inputs(i):
+        return images + 1e-3 * i, dict(metas, timestamp=metas["timestamp"] + 0.5 * i)
+
+    def frame(m, dtype, i, banks, decode=True):
+        img, mt = frame_inputs(i)
+        with torch.no_grad(), torch.autocast("cuda", dtype=dtype,
+                                             enabled=dtype != torch.float32):
+            out, banks = m(img, mt, banks)
+            dec = postprocess.post_process_arrays(
+                cfg, out, mt["gt_ego_fut_cmd"]) if decode else None
+        return dec, banks
+
+    launches = None
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        for k in kernels.KERNELS:
+            k.launches = 0
+        banks, times = None, []
+        for i in range(n_frames):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            dec, banks = frame(model, dtype, i, banks)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            bad = [k for k, v in dec.items() if v.is_floating_point() and not torch.isfinite(v).all()]
+            if bad:
+                fail(f"serving {name} frame {i}: non-finite post-processed outputs {bad[:5]}")
+        timed = sorted(times[WARMUP_FRAMES:])
+        say(f"[serve] stage2_serving_det bs=1 {name} on {card}: {n_frames} chained frames with "
+            f"post_process_arrays, every output finite; per frame median "
+            f"{statistics.median(timed):.2f} ms, min {timed[0]:.2f}, max {timed[-1]:.2f} "
+            f"(host clock, sync per frame, frames {WARMUP_FRAMES}..{n_frames - 1}); "
+            f"frame 0 {times[0]:.1f} ms")
+        counts = {k.name: k.launches for k in kernels.KERNELS}
+        for kname, per in per_call.items():
+            want = n_frames * n_deform * per
+            say(f"[serve] {name} {kname}: {counts[kname]} launches over {n_frames} frames "
+                f"(expected {n_deform} deformable calls x {per} = {n_deform * per}/frame)")
+            if counts[kname] != want or want == 0:
+                fail(f"serving: {kname} launched {counts[kname]} times, expected {want}")
+        launches = launches or counts
+
+    # frame 0 on the card, then on the CPU plain path with the card's picks
+    cpu_model = HiPAD(cfg, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    decoded, card_calls = [], None
+    t0 = time.perf_counter()
+    for m, d in ((model, dev), (cpu_model, torch.device("cpu"))):
+        img, mt = frame_inputs(0)
+        img, mt = img.to(d), {k: v.to(d) for k, v in mt.items()}
+        with torch.no_grad(), _Selections(card_calls) as sel:
+            out, _ = m(img, mt)
+            sel.stage = "decode"
+            dec = postprocess.post_process_arrays(cfg, out, mt["gt_ego_fut_cmd"])
+        per = cfg.ego_fut_cmd * cfg.ego_fut_mode
+        ri = cfg.plan_anchor_types.index(cfg.plan_anchor_refer)
+        dec["refer_cls"] = out["plan"]["classification"][-1][:, 0, per * ri:per * (ri + 1)]
+        decoded.append({k: v.cpu() for k, v in dec.items()})
+        card_calls = sel.calls
+    say(f"[serve] frame 0 on the card, then on the CPU with the card's picks: "
+        f"{time.perf_counter() - t0:.1f} s, {len(card_calls)} selections, {sel.differ} "
+        f"ranks of them picked differently by the CPU (each within tolerance)")
+    got, ref = decoded
+    same_mode = int(got["plan_mode_idx"][0]) == int(ref["plan_mode_idx"][0])
+    if not same_mode:
+        c = ref["refer_cls"][0]
+        gap = abs(float(c[got["plan_mode_idx"][0]] - c[ref["plan_mode_idx"][0]]))
+        tol = E2E_RTOL * float(c.abs().max()) + E2E_ATOL
+        say(f"[serve] plan mode: card {int(got['plan_mode_idx'][0])} cpu "
+            f"{int(ref['plan_mode_idx'][0])} gap {gap:.3e} (tol {tol:.3e}); the plan "
+            f"waypoints are not compared")
+        if gap > tol:
+            fail("plan mode selection differs by more than the tolerance")
+    for key in sorted(k for k in ref if k != "refer_cls"):
+        if key.startswith("plan_") and not same_mode:
+            continue
+        r, g = ref[key], got[key]
+        if not r.is_floating_point():
+            ok = torch.equal(r, g)
+            say(f"[serve] card vs CPU {key} {tuple(r.shape)}: {'equal' if ok else 'DIFFERENT'}")
+        else:
+            err = float((g.double() - r.double()).abs().max())
+            tol = E2E_RTOL * float(r.abs().max()) + E2E_ATOL
+            ok = err <= tol
+            say(f"[serve] card vs CPU {key} {tuple(r.shape)}: max_abs_err {err:.3e} "
+                f"(tol {tol:.3e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"card and CPU disagree on {key}")
+    del cpu_model
+
+    # stage2 and serving frames in turns (informational)
+    base = init_random(HiPAD(stage2(), device=dev), SEED)
+    runs = {"stage2": [base, None, []], "stage2_serving_det": [model, None, []]}
+    for i in range(WARMUP_FRAMES + SERVE_ROUNDS):
+        for r in runs.values():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, r[1] = frame(r[0], torch.float32, i, r[1], decode=False)
+            torch.cuda.synchronize()
+            r[2].append((time.perf_counter() - t) * 1e3)
+    a, b = (r[2][WARMUP_FRAMES:] for r in runs.values())
+    diff = [y - x for x, y in zip(a, b)]
+    say(f"[serve] stage2 and stage2_serving_det fp32 frames in turns, {SERVE_ROUNDS} rounds "
+        f"after {WARMUP_FRAMES} (host clock, sync per frame; the serving frame without "
+        f"post-processing here): stage2 median {statistics.median(a):.2f} ms "
+        f"[{min(a):.2f}, {max(a):.2f}], serving {statistics.median(b):.2f} ms "
+        f"[{min(b):.2f}, {max(b):.2f}], serving - stage2 per round median "
+        f"{statistics.median(diff):.2f} ms [{min(diff):.2f}, {max(diff):.2f}] (informational)")
+    weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del base, runs, model
+    torch.cuda.empty_cache()
+    return launches, weights
+
+
+AGENT_WARMUP, AGENT_TICKS = 2, 20
+
+
+def phase_agent(card: str, weights):
+    """``AgentCore(stage2_serving_det(), seeded weights)`` in fp32 over the
+    fake simulator at its 6 x 1600x900 uint8 cameras, JPEG q20 and the native
+    resize/crop: 2 warm-up and 20 timed ticks. -> K1/K2 launches."""
+    import numpy as np
+    import torch
+
+    from hipad_torch.agent.core import AgentCore
+    from hipad_torch.agent.replay import FakeSim
+    from hipad_torch.configs.model import stage2_serving_det
+    from hipad_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    agent = AgentCore(stage2_serving_det(), weights, dtype=torch.float32, device=DEVICE)
+    sim = FakeSim(seed=SEED)
+    say(f"[agent] AgentCore(stage2_serving_det) fp32 built in {time.perf_counter() - t0:.1f} s; "
+        f"{len(agent.banks)} banks in round robin; cameras {sim.img_hw[1]}x{sim.img_hw[0]} uint8")
+    for k in kernels.KERNELS:
+        k.launches = 0
+    phases, ticks = [], []
+    for t in range(AGENT_WARMUP + AGENT_TICKS):
+        obs = sim.observe()
+        t1 = time.perf_counter()
+        control = agent.run_step(obs)
+        ticks.append((time.perf_counter() - t1) * 1e3)
+        phases.append(dict(agent.last_phase_ms))
+        vals = [control["steer"], control["throttle"], control["brake"]]
+        if not (np.isfinite(vals).all() and -1 <= vals[0] <= 1 and 0 <= vals[1] <= 0.75
+                and 0 <= vals[2] <= 1):
+            fail(f"agent tick {t}: control {vals} not finite or outside the clip ranges")
+        sim.apply(control)
+    if any(b is None for b in agent.banks[:min(len(agent.banks), len(ticks))]):
+        fail("agent: a bank of the round robin was never written")
+    counts = {k.name: k.launches for k in kernels.KERNELS}
+    timed = phases[AGENT_WARMUP:]
+    med = {k: statistics.median(p[k] for p in timed) for k in timed[0]}
+    say(f"[agent] {AGENT_TICKS} ticks after {AGENT_WARMUP} on {card}: every control finite and "
+        f"clipped; per tick median host_preproc {med['host_preproc']:.2f} ms "
+        f"[{min(p['host_preproc'] for p in timed):.2f}, "
+        f"{max(p['host_preproc'] for p in timed):.2f}], upload_infer "
+        f"{med['upload_infer']:.2f} ms [{min(p['upload_infer'] for p in timed):.2f}, "
+        f"{max(p['upload_infer'] for p in timed):.2f}], run_step "
+        f"{statistics.median(ticks[AGENT_WARMUP:]):.2f} ms (host clock); "
+        f"K1 {counts['interp_sample_camsum']} and K2 {counts['patch_sample']} launches over "
+        f"{len(ticks)} ticks")
+    if not counts["interp_sample_camsum"] or not counts["patch_sample"]:
+        fail("agent: the sampler kernels were not launched")
+    del agent
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_gather(card: str):
+    """P2-P4 at the probe tool's shapes: the tool's own run (launches), then
+    each kernel against its plain version (equal) and timed against it and
+    ``torch.index_select``. -> ({name: _Rec}, launches in the tool's run)."""
+    import numpy as np
+    import torch
+
+    from hipad_torch.ops import gather, kernels
+    from hipad_torch.tools import probe_gather
+
+    dev = torch.device(DEVICE)
+    recs, launches = {}, {}
+    for which, kernel in (("A", kernels.gather_rows_f32), ("D", kernels.gather_rows_bf16),
+                          ("C", kernels.gather_rows_f32_every8)):
+        kernel.launches = 0
+        _, _, correct, tool_ms = probe_gather.run(which, DEVICE, time_it=True)
+        launches[kernel.name] = kernel.launches
+        fn, _, _, stride = gather.PROBES[which]
+        rng = np.random.RandomState(0)
+        rows = rng.randn(probe_gather.N, gather.ROW).astype(np.float32)
+        idx = torch.as_tensor(rng.randint(0, probe_gather.N, probe_gather.M).astype(np.int32),
+                              device=dev)
+        idx[0], idx[8] = 0, probe_gather.N - 1  # both ends, also among P4's every 8th
+        table = gather.make_table(which, rows, dev)
+        got = fn(idx, table)
+        ref = gather.gather_rows_plain(table, idx, stride)
+        torch.cuda.synchronize()
+        equal = torch.equal(got, ref)
+        say(f"[gather] {kernel.probe} {kernel.name} (probe {which}) table "
+            f"{tuple(table.shape)} {str(table.dtype)[6:]}, {idx.numel()} indices, stride "
+            f"{stride}: the tool says correct={correct}; kernel == plain version: "
+            f"{'equal' if equal else 'DIFFERENT'}; {launches[kernel.name]} launches in the "
+            f"tool's timed run (median {tool_ms:.4f} ms)")
+        if not (equal and correct):
+            fail(f"{kernel.name} disagrees with its plain version")
+        flat = table.reshape(-1, gather.ROW)
+        sel = idx[::stride].contiguous()
+        fns = [lambda: gather.gather_rows_plain(table, idx, stride),
+               lambda: fn(idx, table), lambda: fn(idx, table),
+               lambda: gather.gather_rows_plain(table, idx, stride),
+               lambda: torch.index_select(flat, 0, sel)]
+        t = _device_ms(fns)
+        call = _timed(fns)
+        rec = _Rec()
+        rec.err = float((got.float() - ref.float()).abs().max())
+        rec.ms, rec.plain_ms, rec.library_ms = min(t[1], t[2]), min(t[0], t[3]), t[4]
+        uniq = int(torch.unique(sel).numel())
+        row_bytes = gather.ROW * table.element_size()
+        rec.add_bound(bound(uniq * row_bytes + _nbytes(got) + _nbytes(sel), 0.0))
+        recs[kernel.name] = rec
+        say(f"[gather] {kernel.name} on {card}: device time kernel {rec.ms:.4f} ms, plain "
+            f"{rec.plain_ms:.4f} ms, torch.index_select (the same function) "
+            f"{rec.library_ms:.4f} ms (20 calls queued behind a sleep kernel, CUDA events, "
+            f"median of 5, in turns plain/kernel/kernel/plain); each call with its Python "
+            f"launch, CUDA events, "
+            f"median of 20: kernel {min(call[1], call[2]):.4f} ms, plain "
+            f"{min(call[0], call[3]):.4f} ms, index_select {call[4]:.4f} ms; bound "
+            f"{rec.bound_ms:.4f} ms (bytes: {uniq} distinct "
+            f"table rows of {row_bytes} B read, {_nbytes(got) / 1e6:.2f} MB written, the "
+            f"indices; the {_nbytes(table) / 1e6:.2f} MB table fits in the 50 MB L2, so the "
+            f"HBM bound is a floor the L2 may beat)")
+    return recs, launches
+
+
 def main():
     import torch
 
@@ -771,29 +1141,52 @@ def main():
     k.update(phase_kernels_bwd(cfg, card))
     frame_launches = phase_slice(cfg, card)
     step_launches = phase_train(card)
+    serve_launches, weights = phase_serving(card)
+    agent_launches = phase_agent(card, weights)
+    del weights
+    gather_recs, probe_launches = phase_gather(card)
+    k.update(gather_recs)
     if any(m in sys.modules for m in ("jax", "flax")):
         fail("jax was imported")
     if any(m.split(".")[0] == "hipad_tpu" for m in sys.modules):
         fail("a module of the JAX package was imported")
+    gather_src = "hipad_torch/csrc/row_gather.cu"
     sources = {
         "interp_sample_camsum": ("hipad_torch/csrc/interp_sample.cu",
-                                 "hipad_tpu/ops/pallas_interp.py:68"),
-        "patch_sample": ("hipad_torch/csrc/patch_sample.cu", "hipad_tpu/ops/sampling.py:494"),
+                                 "hipad_tpu/ops/pallas_interp.py:68", "serving_frame"),
+        "patch_sample": ("hipad_torch/csrc/patch_sample.cu", "hipad_tpu/ops/sampling.py:494",
+                         "serving_frame"),
         "interp_sample_camsum_bwd": ("hipad_torch/csrc/interp_sample_bwd.cu",
-                                     "hipad_tpu/ops/sampling.py:252"),
+                                     "hipad_tpu/ops/sampling.py:252", "step"),
         "patch_sample_bwd": ("hipad_torch/csrc/patch_sample_bwd.cu",
-                             "hipad_tpu/ops/sampling.py:530"),
+                             "hipad_tpu/ops/sampling.py:530", "step"),
+        "gather_rows_f32": (gather_src, "tools/probe_pallas_gather.py:39", "probe"),
+        "gather_rows_bf16": (gather_src, "tools/probe_pallas_gather.py:79", "probe"),
+        "gather_rows_f32_every8": (gather_src, "tools/probe_pallas_gather.py:133", "probe"),
     }
-    # launches: this slice's main path, the fp32 training run of phase 5,
-    # for every kernel; launches_frame: the fp32 serving run of phase 4
-    of = f"phase 5: {WARMUP_STEPS + TIMED_STEPS} chained stage-2 fp32 training steps"
-    say(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": step_launches[name], "launches_of": of,
-         "launches_frame": frame_launches[name], "max_abs_err": k[name].err,
-         "ms": k[name].ms, "plain_ms": k[name].plain_ms, "bound_ms": k[name].bound_ms,
-         "bound_by": k[name].bound_by, "library_ms": k[name].library_ms}
-        for name, (src, rep) in sources.items()]}))
+    paths = {
+        "step": (step_launches, f"phase 5: {WARMUP_STEPS + TIMED_STEPS} chained stage-2 fp32 "
+                                "training steps"),
+        "frame": (frame_launches, f"phase 4: {WARMUP_FRAMES + TIMED_FRAMES} chained stage-2 "
+                                  "fp32 frames"),
+        "serving_frame": (serve_launches, f"phase 6: {WARMUP_FRAMES + TIMED_FRAMES} chained "
+                                          "stage2_serving_det fp32 frames"),
+        "agent": (agent_launches, f"phase 7: {AGENT_WARMUP + AGENT_TICKS} AgentCore ticks"),
+        "probe": (probe_launches, "phase 8: python -m hipad_torch.tools.probe_gather <probe> "
+                                  "time"),
+    }
+    rows = []
+    for name, (src, rep, own) in sources.items():
+        by_path = {p: c[name] for p, (c, _) in paths.items() if c.get(name)}
+        if not by_path.get(own):
+            fail(f"{name} was not launched on its path ({paths[own][1]})")
+        rows.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
+                     "launches": by_path[own], "launches_of": paths[own][1],
+                     "launches_by_path": by_path, "max_abs_err": k[name].err,
+                     "ms": k[name].ms, "plain_ms": k[name].plain_ms,
+                     "bound_ms": k[name].bound_ms, "bound_by": k[name].bound_by,
+                     "library_ms": k[name].library_ms})
+    say(json.dumps({"kernels": rows}))
     say(f"[done] {time.perf_counter() - t0:.1f} s")
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -528,8 +528,8 @@ def stage2_serving_topk(kmeans_dir: str = REFERENCE_KMEANS_DIR,
     pruning (`sparse_onedecoder.py:982-1007`, shipped upstream behind
     ``with_topk_mode`` but not enabled in its configs): keep the top-12 of
     48 plan modes per anchor group from refine layer 3 on, shrinking the
-    live query set of layers 3-6 by 24%. Measured +18% serving fps
-    (17.5 -> 20.6 on a v5e); det/map outputs are bit-identical to
+    live query set of layers 3-6 by 24% (its speed on the card: PERF.md);
+    det/map outputs are bit-identical to
     ``stage2_serving`` (the pruning touches only plan queries), while the
     decoded plan trajectory can change whenever the pruning layer's score
     ranking disagrees with the final layer's — an effect the random-weight
@@ -551,8 +551,8 @@ def stage2_serving_det(kmeans_dir: str = REFERENCE_KMEANS_DIR,
     the CURRENT layer's score and still cost 0.53 m plan L2 on the same
     checkpoint — so only the measured-safe knob is promoted; the faster
     ``stage2_serving_topk`` / ``stage2_serving_prune`` variants remain
-    opt-in pending real-checkpoint retention validation. Measured
-    +17% serving fps (16.4 -> 19.2 same-session v5e ladder)."""
+    opt-in pending real-checkpoint retention validation. Its speed on the
+    card: PERF.md."""
     overrides.setdefault("with_topk_det", True)
     overrides.setdefault("topk_det_list", (900, 900, 450, 450, 450, 450))
     return stage2_serving(kmeans_dir, **overrides)

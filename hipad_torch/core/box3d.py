@@ -1,11 +1,12 @@
-"""3D box state layout and the GT box encoding (counterpart of
-``hipad_tpu/core/box3d.py``).
+"""3D box state layout, the box decoding and the GT box encoding
+(counterpart of ``hipad_tpu/core/box3d.py``).
 
 The undecoded 11-dim box state is
 
     [x, y, z, log(w), log(l), log(h), sin(yaw), cos(yaw), vx, vy, vz]
 
-and the quality channels are (centerness, yawness).
+and the quality channels are (centerness, yawness). A decoded box is
+``[x, y, z, w, l, h, yaw, vx, vy, vz]``.
 """
 
 X, Y, Z, W, L, H, SIN_YAW, COS_YAW, VX, VY, VZ = range(11)
@@ -16,6 +17,16 @@ CNS, YNS = 0, 1
 
 # Decoded box: yaw angle index.
 YAW = 6
+
+
+def decode_box(box):
+    """Undecoded 11-dim state -> decoded 10-dim box: sizes exponentiated,
+    (sin, cos) collapsed to an angle."""
+    import torch
+
+    yaw = torch.atan2(box[..., SIN_YAW], box[..., COS_YAW])
+    return torch.cat([box[..., X:Z + 1], torch.exp(box[..., W:H + 1]), yaw[..., None],
+                      box[..., VX:]], dim=-1)
 
 
 def encode_box(box):

@@ -10,7 +10,22 @@ The temporal banks are passed in and returned; the first frame is the case
 and deformable dropouts draw from the ``generator`` passed to the forward,
 and the front-view BatchNorms use batch statistics.
 
-Knobs outside stage 2 are refused in :func:`check_supported`.
+The serving knobs run as in the JAX package:
+
+  * ``with_topk_det`` prunes det queries after each refine layer from the
+    merge on, by static prefix slices of the two confidence-sorted bank
+    segments (temporal | fresh). Dropped queries freeze at their drop-layer
+    state; the per-layer output stacks and the end-of-frame bank interfaces
+    are re-spliced to the full width from the frozen tails. A first frame
+    sorts the fresh set by confidence and lays it into the segment geometry
+    (``instance_bank.det_cold_layout``);
+  * ``with_topk_mode`` keeps the top ``topk_mode_list[i]`` plan modes per
+    anchor group after refine layer ``i``; the output stacks and the cached
+    plan tensors are padded back to the full mode count with cls ``-1e9``,
+    reg ``+1e6`` (zero features);
+  * ``sampler_point_frac`` is the deformable op's keypoint top-k.
+
+The other knobs outside stage 2 are refused in :func:`check_supported`.
 """
 
 from __future__ import annotations
@@ -23,6 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.geometry import agent_to_lidar_trajs, sine_embed_2d
+from ..ops import ranking
 from ..ops.sampling import front_view_feature
 from . import instance_bank as banks
 from .attention_blocks import (GroupedCrossAttention, cross_attention_groups,
@@ -38,11 +54,20 @@ QUEUE1_SERVING = "ROADMAP queue 1, item 11 (serving knobs)"
 
 
 def check_supported(cfg) -> None:
-    """Refuse, loudly, every knob outside ``stage2()`` semantics."""
+    """Refuse, loudly, every knob the port does not run."""
+    nsf = cfg.num_single_frame_decoder
+    if nsf < 1:
+        raise NotImplementedError("hipad_torch needs num_single_frame_decoder >= 1")
+    ks = cfg.topk_det_list[:cfg.operation_order.count("refine")] if cfg.with_topk_det else ()
     refused = [
-        (cfg.with_topk_det, "with_topk_det", QUEUE1_SERVING),
-        (cfg.with_topk_mode, "with_topk_mode", QUEUE1_SERVING),
-        (cfg.sampler_point_frac < 1.0, "sampler_point_frac < 1", QUEUE1_SERVING),
+        (ks and ks[nsf - 1] < cfg.num_det_anchor,
+         f"with_topk_det pruning at the merge layer (topk_det_list[{nsf - 1}] < "
+         f"num_det_anchor): the JAX package takes that layer's cls/quality tails from the "
+         f"pre-merge order", "ROADMAP queue 3 (prune only after the merge layer)"),
+        (len(ks) >= 2 and ks[-1] < ks[-2],
+         "with_topk_det pruning after the last refine layer: the JAX package splices the "
+         "new tails into that layer's unpruned cls for the bank cache",
+         "ROADMAP queue 3 (prune only before the last layer)"),
         (cfg.sampler_level_k is not None, "sampler_level_k", QUEUE1_SERVING),
         (cfg.sampler_row_packed, "sampler_row_packed",
          "ROADMAP queue 1, item 14 (not ported: measured slower on the TPU)"),
@@ -57,8 +82,6 @@ def check_supported(cfg) -> None:
     for on, what, item in refused:
         if on:
             raise NotImplementedError(f"hipad_torch does not run {what} yet: {item}")
-    if cfg.num_single_frame_decoder < 1:
-        raise NotImplementedError("hipad_torch needs num_single_frame_decoder >= 1")
 
 
 class FrontViewEncoder(nn.Module):
@@ -161,7 +184,8 @@ class SparseOneDecoder(nn.Module):
                         C, cfg.num_groups, L, cfg.num_cams, kps.num_pts,
                         sampler=cfg.sampler, sampler_cam_k=cfg.sampler_cam_k,
                         sampler_cam_renorm=cfg.sampler_cam_renorm,
-                        sampler_matmul_levels=cfg.sampler_matmul_levels))
+                        sampler_matmul_levels=cfg.sampler_matmul_levels,
+                        sampler_point_frac=cfg.sampler_point_frac))
                 deform_i += 1
             elif op == "refine":
                 self.add_module(f"det_refine_{refine_i}",
@@ -258,6 +282,36 @@ class SparseOneDecoder(nn.Module):
         cur_sections = temp_sections = None
         deform_i = refine_i = 0
 
+        # det-query pruning: ``det_live`` = live (temporal, fresh) prefix
+        # lengths; ``det_tails`` maps an output key to the (temporal, fresh)
+        # rows frozen at their drop layer, in ascending original-slot order
+        det_prune = cfg.with_topk_det and cfg.topk_det_list is not None
+        nt, nd = cfg.num_temp_det_anchor, cfg.num_det_anchor
+        det_live = (nt, nd - nt)
+        det_tails: Dict[str, tuple] = {}
+
+        def det_splice(live, key):
+            """A live det tensor back at the full slot layout: the frozen
+            tails spliced behind each segment's live prefix."""
+            if key not in det_tails:
+                return live
+            tail_t, tail_f = det_tails[key]
+            tk = det_live[0]
+            return torch.cat([live[:, :tk], tail_t, live[:, tk:], tail_f], dim=1)
+
+        ng = cfg.plan_anchor_group
+        per_full = cfg.ego_fut_cmd * cfg.ego_fut_mode
+
+        def pad_modes(x, fill):
+            """Pruned per-group plan modes padded back to ``per_full``."""
+            k = x.shape[1] // ng
+            if k == per_full:
+                return x
+            xg = x.reshape((bs, ng, k) + x.shape[2:])
+            pad = torch.full((bs, ng, per_full - k) + x.shape[2:], fill, dtype=x.dtype,
+                             device=x.device)
+            return torch.cat([xg, pad], dim=2).reshape((bs, ng * per_full) + x.shape[2:])
+
         for op_idx, op in enumerate(cfg.operation_order):
             if op == "concat":
                 joint_feat, joint_embed, cur_sections = joint_pair(feat, embed)
@@ -304,16 +358,21 @@ class SparseOneDecoder(nn.Module):
                 # ---- det -------------------------------------------------
                 anchor["det"], det_cls, det_qt = getattr(self, f"det_refine_{refine_i}")(
                     feat["det"], anchor["det"], embed["det"], time_interval)
-                out["det"]["prediction"].append(anchor["det"])
-                out["det"]["classification"].append(det_cls)
-                out["det"]["quality"].append(det_qt)
-                if refine_i + 1 == cfg.num_single_frame_decoder and has_temp:
-                    feat["det"], anchor["det"], det_bank_state = banks.det_bank_update(
-                        cfg, det_bank_state, temp_det_feat, temp_det_anchor,
-                        feat["det"], anchor["det"], det_cls, det_mask)
+                out["det"]["prediction"].append(det_splice(anchor["det"], "prediction"))
+                out["det"]["classification"].append(det_splice(det_cls, "classification"))
+                out["det"]["quality"].append(det_splice(det_qt, "quality"))
+                if refine_i + 1 == cfg.num_single_frame_decoder:
+                    if has_temp:
+                        feat["det"], anchor["det"], det_bank_state = banks.det_bank_update(
+                            cfg, det_bank_state, temp_det_feat, temp_det_anchor,
+                            feat["det"], anchor["det"], det_cls, det_mask,
+                            sort_fresh_full=det_prune)
+                    elif det_prune:
+                        feat["det"], anchor["det"] = banks.cold_layout(
+                            cfg, det_cls.max(dim=-1).values, feat["det"], anchor["det"])
                 embed["det"] = det_enc(anchor["det"])
                 if refine_i + 1 > cfg.num_single_frame_decoder and has_temp:
-                    tembed["det"] = embed["det"][:, :cfg.num_temp_det_anchor]
+                    tembed["det"] = embed["det"][:, :det_live[0]]
 
                 # ---- map -------------------------------------------------
                 anchor["map"], map_cls = getattr(self, f"map_refine_{refine_i}")(
@@ -331,8 +390,8 @@ class SparseOneDecoder(nn.Module):
                         self.motion_anchor_encoder_mlp(mode_embed))
                     motion_q = mode_q + (feat["det"] + embed["det"])[:, :, None]
                     m_cls, m_reg = getattr(self, f"motion_refine_{refine_i}")(motion_q)
-                    out["motion"]["classification"].append(m_cls)
-                    out["motion"]["prediction"].append(m_reg)
+                    out["motion"]["classification"].append(det_splice(m_cls, "m_cls"))
+                    out["motion"]["prediction"].append(det_splice(m_reg, "m_reg"))
 
                 # ---- ego -------------------------------------------------
                 out["ego"]["status"].append(getattr(self, f"ego_refine_{refine_i}")(
@@ -353,20 +412,76 @@ class SparseOneDecoder(nn.Module):
                     plan_embed = plan_embed + embed["ego"]
                 plan_reg, plan_cls = getattr(self, f"plan_refine_{refine_i}")(
                     feat["plan"], anchor["plan"], plan_embed)
+                if cfg.with_topk_mode and cfg.topk_mode_list is not None:
+                    # per-layer plan-mode top-k; even k == all modes reorders
+                    # them by score, as the JAX package does every layer
+                    per_prev = plan_reg.shape[1] // ng
+                    k_l = min(int(cfg.topk_mode_list[refine_i]), per_prev)
+                    cls_g = plan_cls.reshape(bs, ng, per_prev)
+                    scores, idx = ranking.topk(cls_g, k_l)
+                    if cfg.keep_topk_relative_pos:
+                        idx = idx.sort(dim=-1).values
+                        scores = torch.gather(cls_g, 2, idx)
+
+                    def take(a):
+                        ag = a.reshape(bs, ng, per_prev, -1)
+                        return torch.gather(ag, 2, idx[..., None].expand(-1, -1, -1, ag.shape[-1]))
+
+                    plan_reg = take(plan_reg).reshape(bs, ng * k_l, -1)
+                    feat["plan"] = take(feat["plan"]).reshape(bs, ng * k_l, -1)
+                    plan_cls = scores.reshape(bs, ng * k_l, 1)
                 anchor["plan"] = plan_reg
                 wp = plan_reg.reshape(bs, -1, cfg.ego_fut_ts, 2)
                 offsets = torch.cat([wp[..., :1, :], wp[..., 1:, :] - wp[..., :-1, :]], dim=-2)
-                out["plan"]["prediction"].append(offsets[:, None])  # [bs, 1, N, ts, 2]
-                out["plan"]["classification"].append(plan_cls.reshape(bs, 1, -1))
+                out["plan"]["prediction"].append(pad_modes(offsets, 1e6)[:, None])  # [bs, 1, N, ts, 2]
+                out["plan"]["classification"].append(
+                    pad_modes(plan_cls.reshape(bs, -1, 1), -1e9).reshape(bs, 1, -1))
                 embed["plan"] = self.plan_anchor_encoder(anchor["plan"])
+
+                # ---- det-query pruning, at the end of the refine block -----
+                if det_prune and refine_i + 1 >= cfg.num_single_frame_decoder:
+                    cur_t, cur_f = det_live
+                    k = min(int(cfg.topk_det_list[refine_i]), cur_t + cur_f)
+                    tk = k * nt // nd
+                    nk = k - tk
+                    if tk < cur_t or nk < cur_f:
+                        new_vals = {"prediction": anchor["det"], "classification": det_cls,
+                                    "quality": det_qt, "feat": feat["det"]}
+                        if self.with_motion:
+                            new_vals.update(m_cls=m_cls, m_reg=m_reg)
+                        for key, full in new_vals.items():
+                            tail_t, tail_f = full[:, tk:cur_t], full[:, cur_t + nk:]
+                            if key in det_tails:
+                                # newly dropped rows precede earlier drops
+                                tail_t = torch.cat([tail_t, det_tails[key][0]], dim=1)
+                                tail_f = torch.cat([tail_f, det_tails[key][1]], dim=1)
+                            det_tails[key] = (tail_t, tail_f)
+
+                        def keep(x):
+                            return torch.cat([x[:, :tk], x[:, cur_t:cur_t + nk]], dim=1)
+
+                        feat["det"], anchor["det"], embed["det"] = (
+                            keep(feat["det"]), keep(anchor["det"]), keep(embed["det"]))
+                        if has_temp:
+                            tfeat["det"] = tfeat["det"][:, :tk]
+                            tembed["det"] = tembed["det"][:, :tk]
+                        det_live = (tk, nk)
                 refine_i += 1
 
+        # pruned plan modes padded back to the full count before caching
+        feat["plan"] = pad_modes(feat["plan"], 0.0)
+        anchor["plan"] = pad_modes(anchor["plan"], 1e6)
+        plan_cls = pad_modes(plan_cls.reshape(bs, -1, 1), -1e9)
+
         # ---- cache banks for the next frame ------------------------------
+        # under det pruning, at the full slot layout: live rows + frozen tails
+        det_cls_full = det_splice(det_cls, "classification")
         new_det_state, temp_conf = banks.det_bank_cache(
             cfg, det_bank_state.confidence if has_temp else None,
-            feat["det"], anchor["det"], det_cls, timestamp, metas["T_global"])
+            det_splice(feat["det"], "feat"), det_splice(anchor["det"], "prediction"),
+            det_cls_full, timestamp, metas["T_global"])
         instance_id, new_det_state = banks.det_assign_instance_ids(
-            cfg, det_bank_state, new_det_state, temp_conf, det_cls)
+            cfg, det_bank_state, new_det_state, temp_conf, det_cls_full)
         new_bank_states = banks.BankStates(
             det=new_det_state,
             ego=banks.ego_bank_cache(feat["ego"], anchor["ego"], timestamp),

@@ -1,6 +1,11 @@
 """Deformable feature aggregation (counterpart of
 ``hipad_tpu/models/deformable.py`` at ``stage2()`` semantics).
 
+With ``sampler_point_frac < 1`` (the serving knob of
+``stage2_serving``) :meth:`prepare` keeps only ``ceil(frac * P)`` keypoints
+of each anchor, ranked by their in-bounds weight mass, and rescales the
+kept weights to the full mass, so the sampler's kernels see fewer samples.
+
 In train mode a dropout of rate ``attn_drop`` drops whole (anchor, camera,
 point) columns of the sampling weights. It is 0.15, the JAX package's
 default, which its decoder never overrides: ``cfg.drop_out`` does not
@@ -23,6 +28,7 @@ import torch
 from torch import nn
 
 from ..core.geometry import project_points
+from ..ops import ranking
 from ..ops.sampling import deformable_aggregation, deformable_aggregation_topk
 from .common import MLPLN, dropout
 from .keypoints import BoxKeypoints
@@ -36,7 +42,8 @@ class DeformableAggregation(nn.Module):
     def __init__(self, embed_dims: int, num_groups: int, num_levels: int,
                  num_cams: int, num_pts: int, sampler: str = "topk",
                  sampler_cam_k: int = 3, sampler_cam_renorm: bool = False,
-                 sampler_matmul_levels: Tuple[int, ...] = (2, 3)):
+                 sampler_matmul_levels: Tuple[int, ...] = (2, 3),
+                 sampler_point_frac: float = 1.0):
         super().__init__()
         if sampler not in SAMPLERS:
             raise ValueError(f"sampler must be one of {SAMPLERS}, got {sampler!r}")
@@ -45,6 +52,7 @@ class DeformableAggregation(nn.Module):
         self.sampler = sampler
         self.cam_k, self.cam_renorm = sampler_cam_k, sampler_cam_renorm
         self.matmul_levels = tuple(sampler_matmul_levels)
+        self.point_frac = sampler_point_frac
         self.camera_encoder = MLPLN(12, embed_dims, 1, 2)
         self.weights_fc = nn.Linear(embed_dims, num_groups * num_levels * num_pts)
         self.output_proj = nn.Linear(embed_dims, embed_dims)
@@ -74,9 +82,31 @@ class DeformableAggregation(nn.Module):
                     mask_shape=(bs, n, self.num_cams, 1, num_pts, 1))
 
         pts_cam = project_points(key_points, projection_mat, image_wh)  # [bs, cams, n, P, 2]
+        if self.point_frac < 1.0:
+            return self._keep_top_points(pts_cam, w)
         w = w.permute(0, 1, 4, 2, 3, 5)  # [bs, n, P, cams, L, G]
         pts2d = pts_cam.permute(0, 2, 3, 1, 4)  # [bs, n, P, cams, 2]
         return pts2d, w
+
+    def _keep_top_points(self, pts_cam: torch.Tensor, w: torch.Tensor):
+        """Early keypoint top-k: keep the ``ceil(frac * P)`` points of each
+        anchor with the most in-bounds weight mass (ties to the lower point,
+        as the JAX package's ``topk_by_argmax``),
+        their weights scaled per (camera, level, group) so that the kept mass
+        equals the full in-bounds mass (floor 1e-9). ``pts_cam [bs, cams, n,
+        P, 2]``, ``w [bs, n, cams, L, P, G]`` -> (points ``[bs, n, kp, cams,
+        2]``, weights ``[bs, n, kp, cams, L, G]``)."""
+        bs, n, cams, L, P, G = w.shape
+        kp = max(1, int(-(-P * self.point_frac // 1)))
+        inside = ((pts_cam > 0.0) & (pts_cam < 1.0)).all(dim=-1).permute(0, 2, 1, 3)
+        wm = w * inside[:, :, :, None, :, None].to(w.dtype)  # [bs, n, cams, L, P, G]
+        imp = wm.sum(dim=(2, 3, 5)).float()  # [bs, n, P]
+        pidx = ranking.topk(imp, kp)[1]
+        at = pidx[:, :, None, None, :, None].expand(bs, n, cams, L, kp, G)
+        ratio = wm.sum(dim=4) / torch.clamp(torch.gather(wm, 4, at).sum(dim=4), min=1e-9)
+        w = torch.gather(w, 4, at) * ratio[:, :, :, :, None]
+        pts = torch.gather(pts_cam, 3, pidx[:, None, :, :, None].expand(bs, cams, n, kp, 2))
+        return pts.permute(0, 2, 3, 1, 4), w.permute(0, 1, 4, 2, 3, 5)
 
     def finish(self, features: torch.Tensor, instance_feature: torch.Tensor):
         return torch.cat([self.output_proj(features), instance_feature], dim=-1)

@@ -5,9 +5,8 @@ Per-sample sequence resets follow the time mask (a gap above
 ``max_time_interval`` resets that sample). The first frame, with no cache,
 is the separate case ``state=None``.
 
-Every top-k here breaks ties towards the lower index, as ``lax.top_k`` does:
-a stable descending sort, not ``torch.topk``, whose order for ties is not
-specified.
+Every top-k here is ``ops.ranking.topk``: ties go to the lower index, as
+with ``lax.top_k``.
 """
 
 from __future__ import annotations
@@ -20,6 +19,7 @@ import torch
 
 from ..core.box3d import VX
 from ..core.geometry import box_anchor_projection, fp32
+from ..ops import ranking
 
 
 @dataclasses.dataclass
@@ -58,8 +58,7 @@ class BankStates:
 def topk_gather(confidence: torch.Tensor, k: int, *inputs):
     """Top-k rows along dim 1 by ``confidence [bs, n]`` (ties -> lower index)
     -> (top confidences, [x gathered at the top rows for x in inputs])."""
-    conf, idx = torch.sort(confidence, dim=-1, descending=True, stable=True)
-    conf, idx = conf[:, :k], idx[:, :k]
+    conf, idx = ranking.topk(confidence, k)
     outs = [torch.gather(x, 1, idx.reshape(idx.shape + (1,) * (x.dim() - 2)).expand(
         idx.shape + x.shape[2:])) for x in inputs]
     return conf, outs
@@ -68,8 +67,8 @@ def topk_gather(confidence: torch.Tensor, k: int, *inputs):
 def det_cold_layout(cfg) -> np.ndarray:
     """Permutation placing confidence-sorted ranks into the [temporal |
     fresh] segment geometry by Bresenham round-robin, so that every
-    proportional prefix keeps the global top-k (used by ``with_topk_det``,
-    which the port does not run yet). ``layout[s] = sorted[inv[s]]``."""
+    proportional prefix keeps the global top-k (``with_topk_det`` on a cold
+    sample). ``layout[s] = sorted[inv[s]]``."""
     nt, nd = cfg.num_temp_det_anchor, cfg.num_det_anchor
     r = np.arange(nd)
     ct = (r * nt) // nd
@@ -78,6 +77,14 @@ def det_cold_layout(cfg) -> np.ndarray:
     inv = np.empty(nd, np.int64)
     inv[slot] = r
     return inv
+
+
+def cold_layout(cfg, confidence: torch.Tensor, *inputs):
+    """``inputs`` (rows along dim 1) sorted by ``confidence`` and laid into
+    the segment geometry by :func:`det_cold_layout`."""
+    _, outs = topk_gather(confidence, cfg.num_det_anchor, *inputs)
+    inv = torch.as_tensor(det_cold_layout(cfg), device=confidence.device)
+    return [x[:, inv] for x in outs]
 
 
 @fp32
@@ -99,17 +106,26 @@ def det_bank_get(cfg, state: Optional[DetBankState], batch_size: int,
 
 
 def det_bank_update(cfg, state: DetBankState, temp_feature, temp_anchor,
-                    instance_feature, anchor, cls_logits, mask):
+                    instance_feature, anchor, cls_logits, mask,
+                    sort_fresh_full: bool = False):
     """Merge after the single-frame layer: keep the top-(N-K) fresh
     detections behind the K cached instances; samples whose time gap is
-    invalid keep the fresh set and zero their cached confidence and ids."""
+    invalid keep the fresh set and zero their cached confidence and ids.
+
+    ``sort_fresh_full`` (``with_topk_det``): those samples keep the whole
+    fresh set sorted by confidence and laid into the segment geometry
+    (:func:`det_cold_layout`), so that the prefix pruning downstream keeps
+    the top-k single-frame detections, not an arbitrary anchor prefix."""
     n_fresh = cfg.num_det_anchor - cfg.num_temp_det_anchor
     conf = cls_logits.max(dim=-1).values
     _, (sel_feat, sel_anchor) = topk_gather(conf, n_fresh, instance_feature, anchor)
     merged_feat = torch.cat([temp_feature, sel_feat], dim=1)
     merged_anchor = torch.cat([temp_anchor, sel_anchor], dim=1)
-    out_feat = torch.where(mask[:, None, None], merged_feat, instance_feature)
-    out_anchor = torch.where(mask[:, None, None], merged_anchor, anchor)
+    fresh_feat, fresh_anchor = instance_feature, anchor
+    if sort_fresh_full:
+        fresh_feat, fresh_anchor = cold_layout(cfg, conf, instance_feature, anchor)
+    out_feat = torch.where(mask[:, None, None], merged_feat, fresh_feat)
+    out_anchor = torch.where(mask[:, None, None], merged_anchor, fresh_anchor)
     new_state = dataclasses.replace(
         state,
         confidence=torch.where(mask[:, None], state.confidence,

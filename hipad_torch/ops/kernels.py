@@ -1,8 +1,10 @@
-"""Build, bind and launch the sampler's CUDA kernels: K1 and K2 forward,
-K1-bwd and K2-bwd for their gradients.
+"""Build, bind and launch the port's CUDA kernels: the sampler's K1 and K2
+forward, K1-bwd and K2-bwd for their gradients, and the row gather that
+stands in for the Pallas gather probes P2-P4.
 
 The sources ``hipad_torch/csrc/*.cu`` are compiled with plain ``nvcc`` for
-``sm_90a`` into one shared library with a C interface, on first use, into
+``sm_90a``, one ``nvcc`` per source and all started together, then linked
+into one shared library with a C interface, on first use, into
 ``build/hipad_torch_kernels/`` at the root of the checkout, and loaded with
 ``ctypes``. Nothing here runs at import time: the CPU tests import this
 module on hosts without a card or a compiler.
@@ -33,7 +35,7 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "hipad_torch_kernels"
 LIB_NAME = "libhipad_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _VEC = 8  # channels per lane per load (csrc/sample_common.cuh: kVec)
 _MAX_C = 1024  # 32 lanes * kVec * kMaxChunks
@@ -72,16 +74,30 @@ def library() -> Library:
     newest = max(p.stat().st_mtime for p in _sources())
     seconds, log = 0.0, ""
     if not out.exists() or out.stat().st_mtime < newest:
-        tmp = BUILD_DIR / f".{LIB_NAME}.{os.getpid()}"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(p) for p in sorted(CSRC.glob("*.cu")))]
+        nvcc, pid = _nvcc(), os.getpid()
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        objs, procs = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = BUILD_DIR / f".{src.stem}.{pid}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+        tmp = BUILD_DIR / f".{LIB_NAME}.{pid}"
+        link = [nvcc, "-shared", "-o", str(tmp), *(str(o) for o in objs)]
+        for cmd, proc in procs:
+            text = proc.communicate()[0]
+            log += text
+            if proc.returncode != 0:
+                raise RuntimeError(f"kernel build failed ({' '.join(cmd)}):\n{text}")
+        res = subprocess.run(link, capture_output=True, text=True)
         seconds = time.perf_counter() - t0
-        log = res.stdout + res.stderr
+        log += res.stdout + res.stderr
         if res.returncode != 0:
-            raise RuntimeError(f"kernel build failed ({' '.join(cmd)}):\n{log}")
+            raise RuntimeError(f"kernel link failed ({' '.join(link)}):\n{log}")
         os.replace(tmp, out)
+        for obj in objs:
+            obj.unlink()
     lib = ctypes.CDLL(str(out))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.hipad_interp_sample_camsum.argtypes = [p, i, p, p, p, p] + [i] * 7 + [p]
@@ -92,6 +108,8 @@ def library() -> Library:
     lib.hipad_interp_sample_camsum_bwd.restype = i
     lib.hipad_patch_sample_bwd.argtypes = [p] * 8 + [i] * 10 + [p] * 8 + [i] * 6 + [p]
     lib.hipad_patch_sample_bwd.restype = i
+    lib.hipad_row_gather.argtypes = [p] * 3 + [i] * 3 + [p]
+    lib.hipad_row_gather.restype = i
     return Library(lib=lib, path=out, build_seconds=seconds, log=log)
 
 
@@ -318,8 +336,49 @@ class PatchSampleBwd:
         return dmaps, dx, dy, dw
 
 
+class RowGather:
+    """P2-P4 (``csrc/row_gather.cu``): ``out[i] = table[idx[stride * i]]``
+    over whole rows; replaces one of the Pallas gather probes of
+    ``tools/probe_pallas_gather.py``. One instance per probe, each with its
+    table dtype, its stride and its own launch count. Plain version:
+    ``ops/gather.py:gather_rows_plain``."""
+
+    def __init__(self, name: str, probe: str, dtype: torch.dtype, stride: int):
+        self.name, self.probe, self.dtype, self.stride = name, probe, dtype, stride
+        self.launches = 0
+
+    def __call__(self, table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        """table ``[N, row]`` of ``self.dtype`` (rows of a multiple of 16
+        bytes); idx ``[M]`` int32 in ``[0, N)`` (not checked: that would need
+        a sync) -> ``[ceil(M / stride), row]`` of the table's dtype."""
+        k = f"{self.probe} {self.name}"
+        _check(table.is_cuda, f"{k}: takes CUDA tensors, got {table.device}")
+        dev = table.device
+        _check_tensor("table", table, dev, (self.dtype,), k)
+        _check_tensor("idx", idx, dev, (torch.int32,), k)
+        _check(table.dim() == 2 and idx.dim() == 1,
+               f"{k}: table must be [N, row] and idx [M], got {tuple(table.shape)}, "
+               f"{tuple(idx.shape)}")
+        row = table.shape[1]
+        row_bytes = row * table.element_size()
+        _check(row_bytes % 16 == 0, f"{k}: rows of {row_bytes} bytes, need a multiple of 16")
+        n_out = -(-idx.shape[0] // self.stride)
+        out = torch.empty(n_out, row, dtype=table.dtype, device=dev)
+        lib = library().lib
+        with torch.cuda.device(dev):
+            err = lib.hipad_row_gather(table.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                                       n_out, self.stride, row_bytes, _stream(dev))
+        _launched(k, err)
+        self.launches += 1
+        return out
+
+
 interp_sample_camsum = InterpSampleCamsum()
 interp_sample_camsum_bwd = InterpSampleCamsumBwd()
 patch_sample = PatchSample()
 patch_sample_bwd = PatchSampleBwd()
-KERNELS = (interp_sample_camsum, patch_sample, interp_sample_camsum_bwd, patch_sample_bwd)
+gather_rows_f32 = RowGather("gather_rows_f32", "P2", torch.float32, 1)
+gather_rows_bf16 = RowGather("gather_rows_bf16", "P3", torch.bfloat16, 1)
+gather_rows_f32_every8 = RowGather("gather_rows_f32_every8", "P4", torch.float32, 8)
+KERNELS = (interp_sample_camsum, patch_sample, interp_sample_camsum_bwd, patch_sample_bwd,
+           gather_rows_f32, gather_rows_bf16, gather_rows_f32_every8)

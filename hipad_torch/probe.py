@@ -1,12 +1,13 @@
-"""Device-side profile of the stage-2 training step or serving frame on one
+"""Device-side profile of the training step or the serving frame on one
 CUDA card: wall time, device busy time, idle share, kernel launches and the
 kernels that take the time.
 
     python -m hipad_torch.probe [--mode train|frame] [--dtype fp32|bf16]
+                                [--config stage2|stage2_serving_det|...]
 
-``stage2()`` at bs=1 with seeded random weights, the training step with
-dropout and GridMask on, the frames and steps chained as ``chip_smoke.py``
-chains them. After 2 warm-up iterations it times 6 on the host clock (a
+The config (``stage2()`` unless named) at bs=1 with seeded random
+weights, the training step with dropout and GridMask on, the frames and
+steps chained as ``chip_smoke.py`` chains them. After 2 warm-up iterations it times 6 on the host clock (a
 sync each, profiler off), then profiles 3 more with ``torch.profiler``
 (CPU and CUDA activities) and merges the kernels' intervals on the device
 timeline. ``idle share`` is ``1 - device busy / unprofiled wall``; the
@@ -30,6 +31,7 @@ FAMILIES = (  # first match wins, on the lower-cased kernel name
     ("K1-bwd interp_sample_camsum_bwd", ("interp_sample_camsum_bwd",)),
     ("K2 patch_sample", ("patch_sample_kernel",)),
     ("K2-bwd patch_sample_bwd", ("patch_sample_bwd",)),
+    ("P2-P4 row_gather", ("row_gather",)),
     ("convolution", ("conv", "cudnn", "implicit", "winograd", "dgrad", "wgrad", "fprop")),
     ("GEMM", ("gemm", "cutlass", "xmma", "sm90", "cublas")),
     ("attention", ("attention", "fmha", "flash")),
@@ -40,6 +42,10 @@ FAMILIES = (  # first match wins, on the lower-cased kernel name
     ("index / scatter / gather", ("index", "scatter", "gather")),
     ("elementwise and copies", ("elementwise", "copy", "fill", "cat")),
 )
+
+
+CONFIGS = ("stage2", "stage2_serving", "stage2_serving_det", "stage2_serving_topk",
+           "stage2_serving_prune")
 
 
 def _family(name: str) -> str:
@@ -69,12 +75,13 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--mode", choices=("train", "frame"), default="train")
     ap.add_argument("--dtype", choices=("fp32", "bf16"), default="fp32")
+    ap.add_argument("--config", choices=CONFIGS, default="stage2")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("the probe measures a CUDA card; torch.cuda.is_available() is false")
     from torch.profiler import ProfilerActivity, profile
 
-    from .configs.model import stage2
+    from .configs import model as configs
     from .data import synthetic
     from .models.detector import META_KEYS, HiPAD
     from .train.optim import AdamW
@@ -87,7 +94,7 @@ def main(argv=None):
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
-    cfg = stage2()
+    cfg = getattr(configs, args.config)()
     model = init_random(HiPAD(cfg, device=dev), 0)
     batch = {k: torch.as_tensor(v, device=dev)
              for k, v in synthetic.make_batch(cfg, 1, seed=0).items()}
@@ -143,7 +150,7 @@ def main(argv=None):
         fam_n[f] += 1
     per = args.mode
     result = {
-        "card": card, "mode": per, "dtype": args.dtype, "wall_ms": wall,
+        "card": card, "config": args.config, "mode": per, "dtype": args.dtype, "wall_ms": wall,
         "wall_ms_all": walls, "device_busy_ms": busy,
         "idle_share": 1.0 - busy / wall,
         "idle_share_in_profiled_window": 1.0 - busy / prof_wall,
@@ -153,7 +160,7 @@ def main(argv=None):
         "launches_by_family": {k: fam_n[k] / n_prof for k, _ in fam.most_common()},
         "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
     }
-    print(f"[probe] {per} stage2 bs=1 {args.dtype} on {card}: wall {wall:.2f} ms (median of 6, "
+    print(f"[probe] {per} {args.config} bs=1 {args.dtype} on {card}: wall {wall:.2f} ms (median of 6, "
           f"profiler off), device busy {busy:.2f} ms, idle share {result['idle_share']:.3f} "
           f"({result['idle_share_in_profiled_window']:.3f} inside the profiled window of "
           f"{prof_wall:.2f} ms), {result['launches']:.0f} kernel launches per {per}")

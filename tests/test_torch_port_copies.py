@@ -1,9 +1,9 @@
-"""The port's own copies of the JAX package's configuration and synthetic
-data (``hipad_torch.configs.model``, ``hipad_torch.data.synthetic``) held to
-the originals bit for bit. This is the one port test that imports both
-packages' copies; the port itself imports nothing of ``hipad_tpu``."""
+"""The port's own copies of the JAX package's configuration, synthetic data
+and numpy-only agent and pipeline modules held to the originals bit for bit.
+The port itself imports nothing of ``hipad_tpu``."""
 
 import dataclasses
+import pathlib
 
 import numpy as np
 import pytest
@@ -12,6 +12,8 @@ from hipad_tpu.configs import model as jcfg
 from hipad_tpu.data import synthetic as jsyn
 from hipad_torch.configs import model as tcfg
 from hipad_torch.data import synthetic as tsyn
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 
 def _same(a, b, what):
@@ -53,3 +55,12 @@ def test_make_batch_copy_equals_the_original(seed):
     assert t.keys() == j.keys()
     for k in j:
         _same(t[k], j[k], f"make_batch[{k}]")
+
+
+@pytest.mark.parametrize("path", ["data/pipelines.py", "agent/calib.py", "agent/pid.py",
+                                  "agent/planner.py", "agent/replay.py"])
+def test_verbatim_copies_equal_the_originals(path):
+    """Copied file for file: the training pipeline's geometry, the rig
+    calibration, the PID controller, the route planner and the fake
+    simulator (whose relative imports reach the port's own agent)."""
+    assert (ROOT / "hipad_torch" / path).read_bytes() == (ROOT / "hipad_tpu" / path).read_bytes()

@@ -39,6 +39,30 @@ step = make_train_step(cfg, model, AdamW(model.named_parameters()))
 banks, metrics = step(banks, {k: torch.as_tensor(v) for k, v in batch.items()},
                       torch.Generator().manual_seed(0))
 assert all(torch.isfinite(v) for v in metrics.values()), metrics
+# the serving path: pruning knobs, post-processing, the agent, the probes
+from hipad_torch import postprocess
+from hipad_torch.agent.core import AgentCore
+from hipad_torch.agent.replay import FakeSim, run_replay
+from hipad_torch.tools import probe_gather
+from hipad_torch.configs.model import SINGLE_FRAME_LAYER, TEMPORAL_FRAME_LAYER
+scfg = tiny(sampler_point_frac=0.5, with_topk_det=True, topk_det_list=(12, 6, 6),
+            with_topk_mode=True, topk_mode_list=(3, 2, 2), num_temp_plan_mode=2,
+            operation_order=SINGLE_FRAME_LAYER + TEMPORAL_FRAME_LAYER * 2)
+smodel = init_random(HiPAD(scfg, device="cpu"), 0)
+with torch.no_grad():
+    out, banks = smodel(images, metas)
+    out, banks = smodel(images, metas, banks)
+    dec = postprocess.post_process_arrays(scfg, out, metas["gt_ego_fut_cmd"])
+assert torch.isfinite(dec["plan_speed_5hz"]).all()
+acfg = tiny(num_cams=6, input_size=(64, 128))
+aug_conf = {"resize_lim": (0.4, 0.4), "final_dim": (64, 128), "bot_pct_lim": (0.0, 0.0),
+            "rot_lim": (0.0, 0.0), "H": 90, "W": 160, "rand_flip": False,
+            "rot3d_range": (0.0, 0.0)}
+agent = AgentCore(acfg, HiPAD(acfg, device="cpu").state_dict(), dtype=torch.float32,
+                  aug_conf=aug_conf, n_banks=2, device="cpu")
+log = run_replay(agent, max_steps=2, sim=FakeSim(img_hw=(90, 160)))
+assert len(log) == 2
+assert probe_gather.run("C", device="cpu")[2]
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax")
                 and sys.modules[m] is not None)
 assert not loaded, loaded

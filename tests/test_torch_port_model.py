@@ -140,8 +140,8 @@ def test_weights_cover_every_flax_leaf():
 
 
 @pytest.mark.parametrize("knob", [
-    {"with_topk_det": True, "topk_det_list": (12, 12)},
-    {"sampler_point_frac": 0.5},
+    {"with_topk_det": True, "topk_det_list": (6, 6)},  # prunes at the merge layer
+    {"with_velocity_attn_mask": True},
     {"sampler_level_k": 1},
     {"sampler_row_packed": True},
     {"fused_deformable": True},
@@ -151,3 +151,17 @@ def test_weights_cover_every_flax_leaf():
 def test_knobs_outside_stage2_are_refused(knob):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         HiPAD(tiny(**knob), device="cpu")
+
+
+def test_det_pruning_after_the_last_layer_is_refused():
+    """A prune at the end of the last refine layer reaches no later layer;
+    the JAX package then splices the new tails into that layer's unpruned
+    cls for the bank cache (ROADMAP queue 3). The port refuses it, and runs
+    the same schedule held one layer earlier."""
+    from hipad_torch.configs.model import SINGLE_FRAME_LAYER, TEMPORAL_FRAME_LAYER
+
+    order = SINGLE_FRAME_LAYER + TEMPORAL_FRAME_LAYER * 2
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
+        HiPAD(tiny(with_topk_det=True, topk_det_list=(12, 12, 6), operation_order=order),
+              device="cpu")
+    HiPAD(tiny(with_topk_det=True, topk_det_list=(12, 6, 6), operation_order=order), device="cpu")
