@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one CUDA card (an H100 for sm_90a).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --against DIR   # phases 1-2, then the comparison below
 
 Phases, one printed line (or a few) each; any failure exits non-zero:
 
@@ -12,11 +13,14 @@ Phases, one printed line (or a few) each; any failure exits non-zero:
   3. each forward kernel (K1, K2) against its plain PyTorch version on the
      card, at the stage-2 shapes the main path gives it, fp32 and bf16
      feature maps; timed against the plain version and against
-     ``F.grid_sample``, which computes a related but not the same function;
+     ``F.grid_sample``, which computes a related but not the same function:
+     device time (calls queued back to back behind a sleep kernel) and, beside
+     it, the time of one call with its Python launch path;
   3b. each backward kernel (K1-bwd, K2-bwd) against ``torch.autograd.grad``
      of the plain version at the same shapes, every gradient output, fp32
-     and bf16 maps, coordinates on the hat weights' kinks included; timed
-     the same way;
+     and bf16 maps, coordinates on the hat weights' kinks included; K1-bwd
+     also at bs=2 and on ``stage2_r101_2x()``'s 44x80 map; timed the same
+     way;
   4. the serving path: ``stage2()`` with seeded random weights, bs=1, 2
      warm-up and 8 timed frames with the banks chained and a new image per
      frame, in fp32 and then under bf16 autocast; finite outputs; every
@@ -49,11 +53,18 @@ Phases, one printed line (or a few) each; any failure exits non-zero:
      against the plain version's and ``torch.index_select``'s.
 
 The line before the last is a JSON object with one entry per kernel (its
-time, its plain version's, the bound the card's peaks set for the bytes and
-operations these inputs need, the nearest library call's, its launches on
-its own path and on every path that ran it); the last is ``{"ok": true,
+device time and its time per call, its plain version's, the bound the card's
+peaks set for the bytes and operations these inputs need, the nearest
+library call's, its launches on its own path and on every path that ran
+it); the last is ``{"ok": true,
 "device": {...}}``. There is no CPU fallback: without a CUDA device the
 script exits non-zero and prints no result.
+
+With ``--against DIR`` (a checkout of another commit, such as the parent
+unpacked by ``git archive``) it builds that checkout's kernels into its own
+``build/`` and times its four sampler kernels against this tree's in turns
+(theirs, ours, ours, theirs) at the shapes of phases 3 and 3b, fp32, device
+time, checking that the two agree.
 """
 
 from __future__ import annotations
@@ -159,6 +170,15 @@ def _timed(fns, iters=20):
     return [cuda_time_ms(f, iters) for f in fns]
 
 
+def _times(fns):
+    """(device ms, per-call ms) of each fn: ``_device_ms`` and ``_timed``."""
+    return _device_ms(fns), _timed(fns)
+
+
+QUEUED = "device time: 20 calls queued behind a sleep kernel, CUDA events, median of 5"
+TIMES = f"{QUEUED}, in turns plain/kernel/kernel/plain"
+
+
 def _device_ms(fns, iters=20, reps=5):
     """Device time per call of each fn, in the order given: ``iters`` calls
     queued behind a ``torch.cuda._sleep`` kernel, so that the card runs them
@@ -191,15 +211,26 @@ class _Rec:
 
     def __init__(self):
         self.err = self.ms = self.plain_ms = self.bound_ms = self.library_ms = 0.0
+        self.per_call_ms = 0.0  # CUDA events around one call, Python launch path included
         self.bound_by = ""
+
+    def add_times(self, dev_ms, call_ms):
+        """Add the times of [plain, kernel, kernel, plain, library] (device
+        times, then per-call times) -> (kernel, plain, library) device ms."""
+        t = (min(dev_ms[1], dev_ms[2]), min(dev_ms[0], dev_ms[3]), dev_ms[4])
+        self.ms += t[0]
+        self.plain_ms += t[1]
+        self.library_ms += t[2]
+        self.per_call_ms += min(call_ms[1], call_ms[2])
+        return t
 
     def add_bound(self, ms_by):
         self.bound_ms += ms_by[0]
         self.bound_by = ms_by[1]
 
 
-def _k1_inputs(cfg, g, dev, lvl, dtype):
-    bs, cams, C, G = 1, cfg.num_cams, cfg.embed_dims, cfg.num_groups
+def _k1_inputs(cfg, g, dev, lvl, dtype, bs=1):
+    cams, C, G = cfg.num_cams, cfg.embed_dims, cfg.num_groups
     H, W = cfg.input_size
     h, w = H // cfg.strides[lvl], W // cfg.strides[lvl]
     n_pts = len(cfg.det_kps.fix_scale) + cfg.det_kps.num_learnable
@@ -333,21 +364,20 @@ def phase_kernels(cfg, card: str):
             if dtype == torch.float32:
                 grid = torch.stack([(px + 0.5) / w * 2 - 1, (py + 0.5) / h * 2 - 1], -1)[:, None]
                 fm_nchw = fm.permute(0, 3, 1, 2)
-                t = _timed([lambda: sampling.interp_matmul_camsum(fm, px, py, wg, bs, cams),
-                            lambda: kernels.interp_sample_camsum(fm, px, py, wg, bs, cams),
-                            lambda: kernels.interp_sample_camsum(fm, px, py, wg, bs, cams),
-                            lambda: sampling.interp_matmul_camsum(fm, px, py, wg, bs, cams),
-                            lambda: F.grid_sample(fm_nchw, grid, align_corners=False)])
-                k1.ms += min(t[1], t[2])
-                k1.plain_ms += min(t[0], t[3])
-                k1.library_ms += t[4]
+                dev_ms, call = _times([
+                    lambda: sampling.interp_matmul_camsum(fm, px, py, wg, bs, cams),
+                    lambda: kernels.interp_sample_camsum(fm, px, py, wg, bs, cams),
+                    lambda: kernels.interp_sample_camsum(fm, px, py, wg, bs, cams),
+                    lambda: sampling.interp_matmul_camsum(fm, px, py, wg, bs, cams),
+                    lambda: F.grid_sample(fm_nchw, grid, align_corners=False)])
+                t = k1.add_times(dev_ms, call)
                 taps, rows = _k1_reads(px, py, wg, h, w, bwd=False)
                 b = bound(rows * C * fm.element_size() + _nbytes(px, py, wg, got), taps * C * 2)
                 k1.add_bound(b)
-                say(f"[kernels] K1 level {lvl} fp32 on {card}: kernel {min(t[1], t[2]):.4f} ms, "
-                    f"plain {min(t[0], t[3]):.4f} ms, F.grid_sample (per camera, no weights "
-                    f"or camera sum: not the same function) {t[4]:.4f} ms "
-                    f"(median of 20, plain/kernel/kernel/plain); bound {b[0]:.4f} ms "
+                say(f"[kernels] K1 level {lvl} fp32 on {card}: kernel {t[0]:.4f} ms, plain "
+                    f"{t[1]:.4f} ms, F.grid_sample (per camera, no weights or camera sum: not "
+                    f"the same function) {t[2]:.4f} ms ({TIMES}); per call "
+                    f"{min(call[1], call[2]):.4f} ms; bound {b[0]:.4f} ms "
                     f"({b[1]}: {taps} taps, {rows} of {B * h * w} map rows read)")
 
     # ---- K2 -------------------------------------------------------------
@@ -371,18 +401,18 @@ def phase_kernels(cfg, card: str):
             lib = [(m.reshape(bs * cams, *m.shape[2:]).permute(0, 3, 1, 2),
                     torch.stack([x, y], -1).reshape(bs * cams, 1, -1, 2) * 2 - 1)
                    for m in maps] if M % cams == 0 else []
-            t = _timed([lambda: sampling.patch_sample_plain(maps, cam, x, y, w, cam_k),
-                        lambda: kernels.patch_sample(maps, cam, x, y, w, cam_k),
-                        lambda: kernels.patch_sample(maps, cam, x, y, w, cam_k),
-                        lambda: sampling.patch_sample_plain(maps, cam, x, y, w, cam_k),
-                        lambda: [F.grid_sample(m, gr, align_corners=False) for m, gr in lib]])
-            k2.ms, k2.plain_ms, k2.library_ms = min(t[1], t[2]), min(t[0], t[3]), t[4]
+            k2.add_times(*_times([
+                lambda: sampling.patch_sample_plain(maps, cam, x, y, w, cam_k),
+                lambda: kernels.patch_sample(maps, cam, x, y, w, cam_k),
+                lambda: kernels.patch_sample(maps, cam, x, y, w, cam_k),
+                lambda: sampling.patch_sample_plain(maps, cam, x, y, w, cam_k),
+                lambda: [F.grid_sample(m, gr, align_corners=False) for m, gr in lib]]))
             taps, map_bytes = _k2_reads(maps, cam, x, y, w, bwd=False)
             k2.add_bound(bound(map_bytes + _nbytes(cam, x, y, w, got), taps * C * 2))
             say(f"[kernels] K2 fp32 on {card}: kernel {k2.ms:.4f} ms, plain "
                 f"{k2.plain_ms:.4f} ms, F.grid_sample (same sample count spread over the "
                 f"cameras, no weights: not the same function) {k2.library_ms:.4f} ms "
-                f"(median of 20, plain/kernel/kernel/plain); bound {k2.bound_ms:.4f} ms "
+                f"({TIMES}); per call {k2.per_call_ms:.4f} ms; bound {k2.bound_ms:.4f} ms "
                 f"({k2.bound_by}: {taps} taps, {map_bytes / 1e6:.2f} of "
                 f"{_nbytes(*maps) / 1e6:.2f} MB of maps read)")
     return {"interp_sample_camsum": k1, "patch_sample": k2}
@@ -419,58 +449,64 @@ def _check_grads(what, got, ref, bf16_first):
 
 def phase_kernels_bwd(cfg, card: str):
     """K1-bwd and K2-bwd at phase 3's shapes against torch.autograd.grad of
-    the plain versions, fp32 and bf16 maps; timed against the plain
-    backward (the graph built once, retained)."""
+    the plain versions, fp32 and bf16 maps; K1-bwd also at bs=2 and on the
+    44x80 map of ``stage2_r101_2x()`` (16-channel tiles), fp32. Timed at
+    bs=1 fp32 against the plain backward (the graph built once, retained)."""
     import torch
     import torch.nn.functional as F
 
+    from hipad_torch.configs.model import stage2_r101_2x
     from hipad_torch.ops import kernels, sampling
 
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
-    coarse = [l for l in cfg.sampler_matmul_levels if l < cfg.num_levels]
     k1, k2 = _Rec(), _Rec()
 
-    for dtype in (torch.float32, torch.bfloat16):
-        bf16 = dtype == torch.bfloat16
-        for lvl in coarse:
-            fm, px, py, wg, bs, cams = _k1_inputs(cfg, g, dev, lvl, dtype)
+    f32, bf16 = torch.float32, torch.bfloat16
+    r101 = stage2_r101_2x()
+    for c, dtype, bs, levels in ((cfg, f32, 1, None), (cfg, bf16, 1, None), (cfg, f32, 2, None),
+                                 (r101, f32, 1, (2,))):
+        timed = c is cfg and dtype == f32 and bs == 1
+        for lvl in levels or [l for l in c.sampler_matmul_levels if l < c.num_levels]:
+            fm, px, py, wg, bs, cams = _k1_inputs(c, g, dev, lvl, dtype, bs)
             B, h, w, C = fm.shape
+            ct, s, smem = kernels.k1_bwd_tiling(B, h, w, C, c.num_groups)
             gout = torch.randn(bs, px.shape[1], C, generator=g, device=dev)
             leaves = [t.detach().clone().requires_grad_() for t in (fm, px, py, wg)]
             out = sampling.interp_matmul_camsum(*leaves, bs, cams)
             ref = torch.autograd.grad(out, leaves, gout, retain_graph=True)
             got = kernels.interp_sample_camsum_bwd(fm, px, py, wg, gout, bs, cams)
-            got = (got[0].to(dtype),) + got[1:]
             torch.cuda.synchronize()
+            if got[0].dtype != dtype:
+                fail(f"K1-bwd returned d fm in {got[0].dtype} for a {dtype} map")
             k1.err = max(k1.err, _check_grads(
-                f"K1-bwd level {lvl} ({h}x{w}) {str(dtype)[6:]}", got, ref, bf16))
-            if not bf16:
+                f"K1-bwd level {lvl} ({h}x{w}) {str(dtype)[6:]} bs={bs} (tiles of {ct} "
+                f"channels, clusters of {s}, {smem} B)", got, ref, dtype == bf16))
+            if timed:
                 grid = torch.stack([(px + 0.5) / w * 2 - 1, (py + 0.5) / h * 2 - 1], -1)[:, None]
                 lib_in = [fm.permute(0, 3, 1, 2).detach().clone().requires_grad_(),
                           grid.detach().clone().requires_grad_()]
                 lib_out = F.grid_sample(*lib_in, align_corners=False)
                 lib_g = torch.randn_like(lib_out)
-                t = _timed([
+                dev_ms, call = _times([
                     lambda: torch.autograd.grad(out, leaves, gout, retain_graph=True),
                     lambda: kernels.interp_sample_camsum_bwd(fm, px, py, wg, gout, bs, cams),
                     lambda: kernels.interp_sample_camsum_bwd(fm, px, py, wg, gout, bs, cams),
                     lambda: torch.autograd.grad(out, leaves, gout, retain_graph=True),
                     lambda: torch.autograd.grad(lib_out, lib_in, lib_g, retain_graph=True)])
-                k1.ms += min(t[1], t[2])
-                k1.plain_ms += min(t[0], t[3])
-                k1.library_ms += t[4]
+                t = k1.add_times(dev_ms, call)
                 # reads: the rows it samples and every small input; writes:
-                # all of d fm (fp32) and the coordinate and weight gradients
+                # all of d fm and the coordinate and weight gradients
                 taps, rows = _k1_reads(px, py, wg, h, w, bwd=True)
                 b = bound(rows * C * fm.element_size() + _nbytes(px, py, wg, gout)
                           + _nbytes(*got), taps * C * 4)
                 k1.add_bound(b)
-                say(f"[kernels-bwd] K1-bwd level {lvl} fp32 on {card}: kernel "
-                    f"{min(t[1], t[2]):.4f} ms, plain backward {min(t[0], t[3]):.4f} ms, "
-                    f"F.grid_sample backward (not the same function) {t[4]:.4f} ms "
-                    f"(median of 20, plain/kernel/kernel/plain); bound {b[0]:.4f} ms "
-                    f"({b[1]}: {taps} taps, {rows} of {B * h * w} map rows read)")
+                say(f"[kernels-bwd] K1-bwd level {lvl} fp32 on {card}: kernel {t[0]:.4f} ms, "
+                    f"plain backward {t[1]:.4f} ms, F.grid_sample backward (not the same "
+                    f"function) {t[2]:.4f} ms ({TIMES}); per call {min(call[1], call[2]):.4f} "
+                    f"ms; bound {b[0]:.4f} ms ({b[1]}: {taps} taps, {rows} of {B * h * w} map "
+                    f"rows read)")
+            del leaves, out, ref, got
 
     for dtype in (torch.float32, torch.bfloat16):
         bf16 = dtype == torch.bfloat16
@@ -498,20 +534,19 @@ def phase_kernels_bwd(cfg, card: str):
                        .requires_grad_()] for m in maps]
             lib_out = [F.grid_sample(*a, align_corners=False) for a in lib_in]
             lib_g = [torch.randn_like(o) for o in lib_out]
-            t = _timed([
+            k2.add_times(*_times([
                 lambda: torch.autograd.grad(out, lm + [lx, ly, lw], gout, retain_graph=True),
                 lambda: kernels.patch_sample_bwd(maps, cam, x, y, w, gout, cam_k),
                 lambda: kernels.patch_sample_bwd(maps, cam, x, y, w, gout, cam_k),
                 lambda: torch.autograd.grad(out, lm + [lx, ly, lw], gout, retain_graph=True),
                 lambda: [torch.autograd.grad(o, a, go, retain_graph=True)
-                         for o, a, go in zip(lib_out, lib_in, lib_g)]])
-            k2.ms, k2.plain_ms, k2.library_ms = min(t[1], t[2]), min(t[0], t[3]), t[4]
+                         for o, a, go in zip(lib_out, lib_in, lib_g)]]))
             taps, map_bytes = _k2_reads(maps, cam, x, y, w, bwd=True)
             k2.add_bound(bound(map_bytes + _nbytes(cam, x, y, w, gout, *dmaps, dx, dy, dw),
                                taps * C * 4))
             say(f"[kernels-bwd] K2-bwd fp32 on {card}: kernel {k2.ms:.4f} ms, plain backward "
                 f"{k2.plain_ms:.4f} ms, F.grid_sample backward (not the same function) "
-                f"{k2.library_ms:.4f} ms (median of 20, plain/kernel/kernel/plain); bound "
+                f"{k2.library_ms:.4f} ms ({TIMES}); per call {k2.per_call_ms:.4f} ms; bound "
                 f"{k2.bound_ms:.4f} ms ({k2.bound_by}: {taps} taps, {map_bytes / 1e6:.2f} of "
                 f"{_nbytes(*maps) / 1e6:.2f} MB of maps read)")
     return {"interp_sample_camsum_bwd": k1, "patch_sample_bwd": k2}
@@ -1100,11 +1135,10 @@ def phase_gather(card: str):
                lambda: fn(idx, table), lambda: fn(idx, table),
                lambda: gather.gather_rows_plain(table, idx, stride),
                lambda: torch.index_select(flat, 0, sel)]
-        t = _device_ms(fns)
-        call = _timed(fns)
+        dev_ms, call = _times(fns)
         rec = _Rec()
         rec.err = float((got.float() - ref.float()).abs().max())
-        rec.ms, rec.plain_ms, rec.library_ms = min(t[1], t[2]), min(t[0], t[3]), t[4]
+        rec.add_times(dev_ms, call)
         uniq = int(torch.unique(sel).numel())
         row_bytes = gather.ROW * table.element_size()
         rec.add_bound(bound(uniq * row_bytes + _nbytes(got) + _nbytes(sel), 0.0))
@@ -1123,9 +1157,65 @@ def phase_gather(card: str):
     return recs, launches
 
 
-def main():
+def _tensors(out):
+    """The tensors of a wrapper's output: a tensor, or a tuple of tensors and
+    lists of tensors."""
+    return [t for v in (out if isinstance(out, tuple) else (out,))
+            for t in (v if isinstance(v, list) else [v])]
+
+
+def compare_against(other: str, cfg, card: str):
+    """The four sampler kernels of the checkout at ``other`` against this
+    tree's, at phase 3 and 3b's shapes (bs=1, fp32): device time in turns
+    theirs/ours/ours/theirs, and the largest difference of their outputs."""
+    import importlib.util
+
     import torch
 
+    from hipad_torch.ops import kernels
+
+    spec = importlib.util.spec_from_file_location(
+        "other_kernels", os.path.join(os.path.abspath(other), "hipad_torch", "ops", "kernels.py"))
+    theirs = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = theirs  # its dataclasses look their module up there
+    spec.loader.exec_module(theirs)
+    lib = theirs.library()
+    say(f"[compare] {other}: built {lib.path} in {lib.build_seconds:.1f} s")
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    cases = []
+    for lvl in [l for l in cfg.sampler_matmul_levels if l < cfg.num_levels]:
+        fm, px, py, wg, bs, cams = _k1_inputs(cfg, g, dev, lvl, torch.float32)
+        gout = torch.randn(bs, px.shape[1], fm.shape[-1], generator=g, device=dev)
+        name = f"level {lvl} ({fm.shape[1]}x{fm.shape[2]})"
+        cases.append((f"K1-bwd {name}", "interp_sample_camsum_bwd", (fm, px, py, wg, gout, bs, cams)))
+        cases.append((f"K1 {name}", "interp_sample_camsum", (fm, px, py, wg, bs, cams)))
+    maps, cam, x, y, w, cam_k = _k2_inputs(cfg, g, dev, torch.float32)
+    W0 = maps[0].shape[3]
+    x[:, ::50] = ((x[:, ::50] * W0 - 0.5).round() + 0.5) / W0
+    gout = torch.randn(x.shape[0], x.shape[1] // cam_k, maps[0].shape[-1], generator=g, device=dev)
+    cases.append(("K2-bwd", "patch_sample_bwd", (maps, cam, x, y, w, gout, cam_k)))
+    cases.append(("K2", "patch_sample", (maps, cam, x, y, w, cam_k)))
+    for what, fn, args in cases:
+        a, b = getattr(theirs, fn)(*args), getattr(kernels, fn)(*args)
+        diff = max(_max_err(u, v)[0] for u, v in zip(_tensors(a), _tensors(b)))
+        t = _device_ms([lambda: getattr(theirs, fn)(*args), lambda: getattr(kernels, fn)(*args),
+                        lambda: getattr(kernels, fn)(*args), lambda: getattr(theirs, fn)(*args)])
+        old, new = min(t[0], t[3]), min(t[1], t[2])
+        say(f"[compare] {what} fp32 on {card}: theirs {old:.4f} ms, ours {new:.4f} ms "
+            f"({new / old:.3f}x; {QUEUED}, in turns theirs/ours/ours/theirs); "
+            f"outputs differ by {diff:.3e}")
+
+
+def main():
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--against", metavar="DIR",
+                    help="time another checkout's sampler kernels against this tree's")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke runs on a CUDA card only")
     if not os.path.isdir(os.path.join(ROOT, "hipad_torch")):
@@ -1137,6 +1227,9 @@ def main():
     card = phase_env()
     phase_build()
     cfg = stage2()
+    if args.against:
+        compare_against(args.against, cfg, card)
+        return
     k = phase_kernels(cfg, card)
     k.update(phase_kernels_bwd(cfg, card))
     frame_launches = phase_slice(cfg, card)
@@ -1183,7 +1276,8 @@ def main():
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                      "launches": by_path[own], "launches_of": paths[own][1],
                      "launches_by_path": by_path, "max_abs_err": k[name].err,
-                     "ms": k[name].ms, "plain_ms": k[name].plain_ms,
+                     "ms": k[name].ms, "per_call_ms": k[name].per_call_ms,
+                     "plain_ms": k[name].plain_ms,
                      "bound_ms": k[name].bound_ms, "bound_by": k[name].bound_by,
                      "library_ms": k[name].library_ms})
     say(json.dumps({"kernels": rows}))

@@ -19,14 +19,16 @@
 // clamp gets none either (hat' is zero there but at the kink, where the JAX
 // convention of sample_common.cuh gives 1/2, as JAX does).
 //
-// What bounds it on this card: the fp32 atomics into d fm and the gathered
-// rows (<= 4 rows of C channels per slot and level, from maps of 88x160 and
-// 44x80 cells). Design: one warp per (b, m0) output row as in the forward,
-// the upstream row held in registers for every slot and level; d w, d x,
-// d y reduced inside the warp and stored once; d fm by fp32 atomicAdd into
-// zeroed fp32 buffers (cast to the maps' dtype by the caller). p, q are
-// rounded as the forward and the plain version round them (__fmul_rn), so
-// the patch origin is the same.
+// What bounds it on this card: the atomic reductions into d fm, which the
+// L2 executes, and the gathered rows (<= 4 rows of C channels per slot and
+// level, from maps of 88x160 and 44x80 cells, where few samples share a
+// cell). Design: one warp per (b, m0) output row as in the forward, the
+// upstream row held in registers for every slot and level; d w, d x, d y
+// reduced inside the warp and stored once; d fm by two 16-byte fp32
+// reductions per lane and tap (atomicAdd on float4, a quarter of the
+// operations scalar atomics take) into zeroed fp32 buffers (cast to the
+// maps' dtype by the caller). p, q are rounded as the forward and the plain
+// version round them (__fmul_rn), so the patch origin is the same.
 #include "sample_common.cuh"
 
 namespace {
@@ -106,9 +108,10 @@ patch_sample_bwd_kernel(FineLevels<T> lv, const int* __restrict__ cam,
             const float ddy = dwy * wx;
             if (wxy == 0.f && ddx == 0.f && ddy == 0.f) continue;
             const long long off = base + (static_cast<long long>(sy + i) * W + sx + j) * C;
+            float v[kMaxChunks][kVec];
+            hipad::load_row(lv.fm[l] + off, v, C, lane);
             float d = 0.f;
-            hipad::tap_backward(lv.fm[l] + off, lv.dfm[l] + off, go, wrow, wxy,
-                                part, d, C, gd, lane);
+            hipad::tap_backward(v, go, wrow, wxy, part, d, C, gd, lane, lv.dfm[l] + off);
             lx = fmaf(ddx, d, lx);
             ly = fmaf(ddy, d, ly);
           }

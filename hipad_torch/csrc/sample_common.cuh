@@ -100,10 +100,12 @@ __device__ __forceinline__ float hat_grad(float t) {
   return t >= 0.f ? -s : s;
 }
 
-__device__ __forceinline__ void load_row(const float* p, float (&g)[kMaxChunks][kVec],
-                                         int C, int lane) {
+// One NHWC row into registers: this lane's 8-channel chunks, NCH of them
+// (C <= 256 * NCH).
+template <typename T, int NCH>
+__device__ __forceinline__ void load_row(const T* p, float (&g)[NCH][kVec], int C, int lane) {
 #pragma unroll
-  for (int ch = 0; ch < kMaxChunks; ++ch) {
+  for (int ch = 0; ch < NCH; ++ch) {
     const int c0 = (ch * 32 + lane) * kVec;
     if (c0 < C) load8(p + c0, g[ch]);
   }
@@ -115,35 +117,37 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// One tap of the backward: row is one NHWC feature row, go the upstream
-// gradient of the output row, wg the sample's G group weights.
+// One tap of the backward: v is one NHWC feature row in registers, go the
+// upstream gradient of the output row, wg the sample's G group weights.
 //   dot_c   = sum over this lane's 8 channels of row * go   (per chunk)
 //   part[ch] += wxy * dot_c                (-> d wg of the chunk's group)
 //   dsum    += wg[group] * dot_c           (-> d x, d y through the hats)
-//   drow    += wxy * wg[group] * go        by fp32 atomics, when wxy != 0
-template <typename T>
-__device__ __forceinline__ void tap_backward(const T* row, float* drow,
-                                             const float (&go)[kMaxChunks][kVec],
+//   drow    += wxy * wg[group] * go        when drow is given and that is not
+//              zero: two 16-byte fp32 reductions per chunk (atomicAdd on
+//              float4, compute capability 9.x), the lane's 8 channels being
+//              contiguous and 32-byte aligned
+template <int NCH>
+__device__ __forceinline__ void tap_backward(const float (&v)[NCH][kVec],
+                                             const float (&go)[NCH][kVec],
                                              const float* wg, float wxy,
-                                             float (&part)[kMaxChunks],
-                                             float& dsum, int C, int gd,
-                                             int lane) {
+                                             float (&part)[NCH], float& dsum,
+                                             int C, int gd, int lane,
+                                             float* drow = nullptr) {
 #pragma unroll
-  for (int ch = 0; ch < kMaxChunks; ++ch) {
+  for (int ch = 0; ch < NCH; ++ch) {
     const int c0 = (ch * 32 + lane) * kVec;
     if (c0 < C) {
-      float v[kVec];
-      load8(row + c0, v);
       float dot = 0.f;
 #pragma unroll
-      for (int i = 0; i < kVec; ++i) dot = fmaf(v[i], go[ch][i], dot);
+      for (int i = 0; i < kVec; ++i) dot = fmaf(v[ch][i], go[ch][i], dot);
       const float g = wg[c0 / gd];
       part[ch] = fmaf(wxy, dot, part[ch]);
       dsum = fmaf(g, dot, dsum);
       const float s = wxy * g;
-      if (s != 0.f) {
-#pragma unroll
-        for (int i = 0; i < kVec; ++i) atomicAdd(drow + c0 + i, s * go[ch][i]);
+      if (drow != nullptr && s != 0.f) {
+        float4* d = reinterpret_cast<float4*>(drow + c0);
+        atomicAdd(d, make_float4(s * go[ch][0], s * go[ch][1], s * go[ch][2], s * go[ch][3]));
+        atomicAdd(d + 1, make_float4(s * go[ch][4], s * go[ch][5], s * go[ch][6], s * go[ch][7]));
       }
     }
   }
@@ -152,10 +156,11 @@ __device__ __forceinline__ void tap_backward(const T* row, float* drow,
 // Sum the per-chunk partials of one warp into the G group gradients:
 // chunk j = ch*32 + lane covers channels [8j, 8j + 8), all in group 8j/gd.
 // red is this warp's scratch of 32*kMaxChunks floats in shared memory.
-__device__ __forceinline__ void store_group_sums(float* red, const float (&part)[kMaxChunks],
+template <int NCH>
+__device__ __forceinline__ void store_group_sums(float* red, const float (&part)[NCH],
                                                  float* out, int C, int G, int lane) {
 #pragma unroll
-  for (int ch = 0; ch < kMaxChunks; ++ch) red[ch * 32 + lane] = part[ch];
+  for (int ch = 0; ch < NCH; ++ch) red[ch * 32 + lane] = part[ch];
   __syncwarp();
   const int per = C / G / kVec;  // chunks per group
   for (int g = lane; g < G; g += 32) {

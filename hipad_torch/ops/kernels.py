@@ -11,10 +11,10 @@ module on hosts without a card or a compiler.
 
 Each wrapper checks device, dtype, shape, contiguity and alignment, raises
 on anything its kernel does not take, allocates its outputs (``torch.empty``;
-``torch.zeros`` for the buffers the backward kernels add into), launches on PyTorch's current stream and raises if
-``cudaGetLastError()`` is not 0 after the launch. Each keeps ``launches``,
-the number of launches it made, so a run can show that the main path went
-through the kernel.
+``torch.zeros`` for the map gradients K2-bwd adds into), launches on
+PyTorch's current stream and raises if the launch reports a CUDA error.
+Each keeps ``launches``, the number of launches it made, so a run can show
+that the main path went through the kernel.
 """
 
 from __future__ import annotations
@@ -40,6 +40,41 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _VEC = 8  # channels per lane per load (csrc/sample_common.cuh: kVec)
 _MAX_C = 1024  # 32 lanes * kVec * kMaxChunks
 _MAX_FINE_LEVELS = 4
+
+# K1-bwd's tile blocks (csrc/interp_sample_bwd.cu) on an H100 SXM: 132 SMs,
+# 227 KB of shared memory a block can have, 228 KB an SM shares among its
+# blocks (each also holding 1 KB for the system). Registers allow two blocks
+# of 512 threads an SM (__launch_bounds__(kTileThreads, 2)).
+_SMS = 132
+_SMEM_PER_BLOCK = 232_448
+_SMEM_PER_SM = 233_472
+_SMEM_RESERVED = 1024
+_TILE_BLOCKS_PER_SM = 2
+_TILE_CHANNELS = (32, 16, 8)  # one lane each, the widest that fits first
+_MAX_CLUSTER = 8  # the portable cluster size
+
+
+def k1_bwd_tiling(B: int, H: int, W: int, C: int, G: int) -> tuple:
+    """The tiles of K1-bwd's map gradient for ``B = bs*cams`` maps of
+    ``H x W`` cells and ``C`` channels in ``G`` groups -> ``(Ct, S, smem)``:
+    ``Ct`` channels of one group per tile (32, 16 or 8, the widest whose
+    ``H*W*Ct`` fp32 copy fits one block's shared memory), ``S`` blocks per
+    tile in one cluster (the largest power of two, at most 8, for which the
+    clusters fill the SMs at most once: such clusters pack into the card's
+    GPCs without gaps, and on an H100 clusters of 4 beat those of 3, 5 and 8
+    at stage 2's coarse levels, PERF.md), ``smem`` the bytes of each block's
+    copy. Raises ``ValueError`` for a map of more
+    than 7,264 cells, which does not fit even at ``Ct = 8``."""
+    gd = C // G
+    fits = [ct for ct in _TILE_CHANNELS if gd % ct == 0 and H * W * ct * 4 <= _SMEM_PER_BLOCK]
+    _check(bool(fits), f"K1-bwd: a {H}x{W} map ({H * W} cells) does not fit a block's "
+                       f"{_SMEM_PER_BLOCK} B of shared memory at {_TILE_CHANNELS[-1]} channels "
+                       f"per tile (C/G = {gd})")
+    ct = fits[0]
+    smem = H * W * ct * 4
+    per_sm = min(_SMEM_PER_SM // (smem + _SMEM_RESERVED), _TILE_BLOCKS_PER_SM)
+    s = max(1, min(_MAX_CLUSTER, _SMS * per_sm // (B * (C // ct))))
+    return ct, 1 << (s.bit_length() - 1), smem
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,7 +139,7 @@ def library() -> Library:
     lib.hipad_interp_sample_camsum.restype = i
     lib.hipad_patch_sample.argtypes = [p] * 4 + [i] * 10 + [p] * 5 + [i] * 6 + [p]
     lib.hipad_patch_sample.restype = i
-    lib.hipad_interp_sample_camsum_bwd.argtypes = [p, i] + [p] * 8 + [i] * 7 + [p]
+    lib.hipad_interp_sample_camsum_bwd.argtypes = [p, i] + [p] * 8 + [i] * 10 + [p]
     lib.hipad_interp_sample_camsum_bwd.restype = i
     lib.hipad_patch_sample_bwd.argtypes = [p] * 8 + [i] * 10 + [p] * 8 + [i] * 6 + [p]
     lib.hipad_patch_sample_bwd.restype = i
@@ -230,7 +265,9 @@ class InterpSampleCamsum:
 class InterpSampleCamsumBwd:
     """K1-bwd (``csrc/interp_sample_bwd.cu``): the adjoint of K1; replaces
     ``hipad_tpu/ops/sampling.py:_interp_matmul_tpu_bwd``. Plain version:
-    autograd through ``ops/sampling.py:interp_matmul_camsum``."""
+    autograd through ``ops/sampling.py:interp_matmul_camsum``. One call makes
+    two launches: the sample blocks (d px, d py, d wg) and the tile blocks
+    (d fm, tiled by :func:`k1_bwd_tiling`)."""
 
     name = "interp_sample_camsum_bwd"
 
@@ -239,14 +276,16 @@ class InterpSampleCamsumBwd:
 
     def __call__(self, fm, px, py, wg, gout: torch.Tensor, bs: int, cams: int):
         """K1's inputs and ``gout [bs, M, C]`` fp32, the gradient of its
-        output -> (d fm ``[bs*cams, H, W, C]`` fp32, d px, d py
-        ``[bs*cams, M]``, d wg ``[bs*cams, M, G]``)."""
+        output -> (d fm ``[bs*cams, H, W, C]`` in ``fm``'s dtype, summed in
+        fp32 and rounded once; d px, d py ``[bs*cams, M]`` and d wg
+        ``[bs*cams, M, G]`` fp32)."""
         k = "K1-bwd interp_sample_camsum_bwd"
         B, H, W, C, M, G = _check_k1(k, fm, px, py, wg, bs, cams)
         _check(gout.shape == (bs, M, C), f"{k}: gout must be [bs, M, C], got {tuple(gout.shape)}")
         _check_tensor("gout", gout, fm.device, (torch.float32,), k)
+        ct, s, smem = k1_bwd_tiling(B, H, W, C, G)
         dev = fm.device
-        dfm = torch.zeros(B, H, W, C, dtype=torch.float32, device=dev)
+        dfm = torch.empty_like(fm)  # every element written by the tile blocks
         dpx = torch.empty(B, M, dtype=torch.float32, device=dev)
         dpy = torch.empty_like(dpx)
         dwg = torch.empty(B, M, G, dtype=torch.float32, device=dev)
@@ -256,7 +295,7 @@ class InterpSampleCamsumBwd:
                 fm.data_ptr(), int(fm.dtype == torch.bfloat16), px.data_ptr(),
                 py.data_ptr(), wg.data_ptr(), gout.data_ptr(), dfm.data_ptr(),
                 dpx.data_ptr(), dpy.data_ptr(), dwg.data_ptr(),
-                bs, cams, H, W, C, G, M, _stream(dev))
+                bs, cams, H, W, C, G, M, ct, s, smem, _stream(dev))
         _launched(k, err)
         self.launches += 1
         return dfm, dpx, dpy, dwg
@@ -318,6 +357,8 @@ class PatchSampleBwd:
         dev = x.device
         _check_tensor("gout", gout, dev, (torch.float32,), k)
         dmaps = [torch.zeros(fm.shape, dtype=torch.float32, device=dev) for fm in fine_maps]
+        for i, d in enumerate(dmaps):  # 16-byte reductions
+            _check_tensor(f"d level {i}", d, dev, (torch.float32,), k)
         dx = torch.empty_like(x)
         dy = torch.empty_like(y)
         dw = torch.empty_like(w)

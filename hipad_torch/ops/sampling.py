@@ -155,7 +155,7 @@ class _InterpSampleCamsum(torch.autograd.Function):
         fm, px, py, wg = ctx.saved_tensors
         dfm, dpx, dpy, dwg = kernels.interp_sample_camsum_bwd(
             fm, px, py, wg, gout.float().contiguous(), ctx.bs, ctx.cams)
-        return dfm.to(fm.dtype), dpx, dpy, dwg, None, None
+        return dfm, dpx, dpy, dwg, None, None  # dfm in fm's dtype
 
 
 def interp_sample_camsum(fm, px, py, wg, bs: int, cams: int) -> torch.Tensor:

@@ -28,7 +28,8 @@ import torch
 
 FAMILIES = (  # first match wins, on the lower-cased kernel name
     ("K1 interp_sample_camsum", ("interp_sample_camsum_kernel",)),
-    ("K1-bwd interp_sample_camsum_bwd", ("interp_sample_camsum_bwd",)),
+    ("K1-bwd sample blocks", ("interp_sample_camsum_bwd_samples",)),
+    ("K1-bwd tile blocks", ("interp_sample_camsum_bwd_tiles",)),
     ("K2 patch_sample", ("patch_sample_kernel",)),
     ("K2-bwd patch_sample_bwd", ("patch_sample_bwd",)),
     ("P2-P4 row_gather", ("row_gather",)),

@@ -109,13 +109,20 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     fm = torch.zeros(2, 4, 5, 32)
     px = torch.zeros(2, 7)
     wg = torch.ones(2, 7, 4)
+    fine = [torch.zeros(1, 2, 4, 5, 32)]
+    cam = torch.zeros(1, 6, dtype=torch.int32)
+    x, w = torch.zeros(1, 6), torch.ones(1, 6, 1, 4)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.interp_sample_camsum(fm, px, px, wg, 1, 2)
     with pytest.raises(ValueError, match="CUDA"):
-        kernels.patch_sample([torch.zeros(1, 2, 4, 5, 32)], torch.zeros(1, 6, dtype=torch.int32),
-                             torch.zeros(1, 6), torch.zeros(1, 6), torch.ones(1, 6, 1, 4), 2)
-    assert kernels.interp_sample_camsum.launches == 0
-    assert kernels.patch_sample.launches == 0
+        kernels.interp_sample_camsum_bwd(fm, px, px, wg, torch.zeros(1, 7, 32), 1, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.patch_sample(fine, cam, x, x, w, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.patch_sample_bwd(fine, cam, x, x, w, torch.zeros(1, 3, 32), 2)
+    for k in (kernels.interp_sample_camsum, kernels.interp_sample_camsum_bwd,
+              kernels.patch_sample, kernels.patch_sample_bwd):
+        assert k.launches == 0, k.name
 
 
 def test_model_is_built_on_the_card_by_default():

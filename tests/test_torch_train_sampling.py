@@ -221,3 +221,35 @@ def test_hat_takes_the_jax_kink_conventions():
     tt = torch.from_numpy(t).requires_grad_()
     (got,) = torch.autograd.grad(tsam.hat(tt).sum(), tt)
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("config", ["stage2", "stage2_serving_det", "stage2_r101_2x", "tiny"])
+def test_k1_bwd_tiles_fit_shared_memory(config):
+    """K1-bwd's tile blocks hold one fp32 tile of the map gradient in shared
+    memory: for every coarse level of the shipped configs the tiling fits a
+    block's 227 KB, takes channels of one group, and forms clusters the card
+    takes (1 to 8 blocks)."""
+    from hipad_torch.configs import model as configs
+    from hipad_torch.ops import kernels
+
+    cfg = getattr(configs, config)()
+    C, G = cfg.embed_dims, cfg.num_groups
+    for lvl in [l for l in cfg.sampler_matmul_levels if l < cfg.num_levels]:
+        h, w = cfg.input_size[0] // cfg.strides[lvl], cfg.input_size[1] // cfg.strides[lvl]
+        for bs in (1, 2):
+            ct, s, smem = kernels.k1_bwd_tiling(bs * cfg.num_cams, h, w, C, G)
+            assert ct in (8, 16, 32) and (C // G) % ct == 0, (lvl, ct)
+            assert 1 <= s <= 8, (lvl, s)
+            assert smem == h * w * ct * 4 <= 227 * 1024, (lvl, smem)
+
+
+def test_k1_bwd_tiling_refuses_maps_over_7264_cells():
+    """7,264 fp32 cells of 8 channels fill 227 KB; one cell more fits no tile."""
+    from hipad_torch.ops import kernels
+
+    ct, _, smem = kernels.k1_bwd_tiling(6, 8, 908, 256, 8)
+    assert (ct, smem) == (8, 232_448)
+    with pytest.raises(ValueError, match="7265 cells"):
+        kernels.k1_bwd_tiling(6, 5, 1453, 256, 8)
+    with pytest.raises(ValueError):
+        kernels.k1_bwd_tiling(1, 90, 160, 256, 8)

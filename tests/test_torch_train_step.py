@@ -23,8 +23,13 @@ within that ``2 lr``.
 """
 
 import dataclasses
+import fcntl
 import os
+import pickle
+import time
+import types
 from collections.abc import Mapping
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -104,10 +109,51 @@ def _bank_dict(banks):
             for n in ("det", "ego", "plan") for f in dataclasses.fields(getattr(banks, n))}
 
 
+# How long a pytest-xdist worker waits for the one that computes the runs
+# before it computes them itself (alone the computation takes about 2 min).
+SHARED_WAIT_S = 900
+
+
+def _once_per_session(tmp_path_factory, name, compute):
+    """``compute()`` once per test session: under pytest-xdist the first
+    worker to take a file lock computes and pickles the result into the
+    session's temporary directory, and the others wait for the lock and load
+    it. A worker that fails to compute leaves no file, so the next one tries
+    itself; one that waits longer than ``SHARED_WAIT_S`` computes its own.
+    Without xdist it just computes."""
+    uid = os.environ.get("PYTEST_XDIST_TESTRUNUID")
+    if uid is None:
+        return compute()
+    root = tmp_path_factory.getbasetemp().parent  # shared by the session's workers
+    path = root / f"{name}-{uid}.pkl"
+    with open(root / f"{name}-{uid}.lock", "w") as lock:
+        deadline = time.monotonic() + SHARED_WAIT_S
+        while True:
+            try:
+                fcntl.flock(lock, fcntl.LOCK_EX | fcntl.LOCK_NB)
+                break
+            except BlockingIOError:
+                if time.monotonic() > deadline:
+                    return compute()
+                time.sleep(0.5)
+        if path.exists():
+            return pickle.loads(path.read_bytes())
+        result = compute()
+        tmp = path.with_name(f"{path.name}.{os.getpid()}")
+        tmp.write_bytes(pickle.dumps(result))
+        os.replace(tmp, path)
+        return result  # closing the file releases the lock
+
+
 @pytest.fixture(scope="module")
-def runs():
-    """Both packages, two chained steps -> per step: port (metrics, grads,
-    batch_stats, banks, params), JAX the same."""
+def runs(tmp_path_factory):
+    """Both packages, two chained steps, computed once per session ->
+    per step: port (metrics, grads, batch_stats, banks, params), JAX the
+    same, all numpy."""
+    return _once_per_session(tmp_path_factory, "torch_train_step_runs", _two_steps)
+
+
+def _two_steps():
     mp = pytest.MonkeyPatch()
     mp.setattr(jdecoder, "DeformableAggregation", _NoDropDeformable)
     try:
@@ -252,3 +298,30 @@ def test_training_leaves_the_config_untouched():
     assert not torch.equal(model.decoder.det_anchor, torch.from_numpy(before["det_anchor"]))
     for n, v in before.items():
         np.testing.assert_array_equal(getattr(cfg, n), v, err_msg=n)
+
+
+def test_runs_are_computed_once_per_session(tmp_path, monkeypatch):
+    """Workers that ask for the shared runs at once: one computes, every one
+    gets its result; a computation that raises leaves the next to compute."""
+    monkeypatch.setenv("PYTEST_XDIST_TESTRUNUID", "stress")
+    factory = types.SimpleNamespace(getbasetemp=lambda: tmp_path / "popen-gw0")
+    calls = []
+
+    def compute():
+        calls.append(1)
+        time.sleep(0.3)
+        return {"x": np.arange(3)}
+
+    with ThreadPoolExecutor(16) as ex:
+        futures = [ex.submit(_once_per_session, factory, "stress", compute) for _ in range(16)]
+        results = [f.result(timeout=120) for f in futures]
+    assert len(calls) == 1
+    for r in results:
+        np.testing.assert_array_equal(r["x"], np.arange(3))
+
+    def failing():
+        raise RuntimeError("no runs")
+
+    with pytest.raises(RuntimeError, match="no runs"):
+        _once_per_session(factory, "failing", failing)
+    assert _once_per_session(factory, "failing", lambda: 7) == 7
