@@ -70,6 +70,7 @@ time, checking that the two agree.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -139,9 +140,34 @@ def phase_build():
     lib = kernels.library()
     say(f"[build] {lib.path.relative_to(ROOT)} from hipad_torch/csrc/*.cu for sm_90a: "
         f"nvcc {lib.build_seconds:.1f} s, load {time.perf_counter() - t0:.1f} s")
+    kernel = "?"
     for line in lib.log.splitlines():
-        if "registers" in line or "spill" in line:
-            say(f"[build] {line.strip()}")
+        if "Compiling entry function" in line:
+            kernel = _kernel_name(line)
+        elif "registers" in line or "spill" in line:
+            say(f"[build] {kernel}: {line.split(':', 1)[-1].strip()}")
+
+
+def _kernel_name(line: str) -> str:
+    """``name<type,NCH>`` of the kernel a ptxas line names by its mangled
+    symbol ``_ZN<len><namespace><len><name>I<args>E...``: the nested name
+    ending in ``_kernel`` and its template arguments (f: fp32,
+    13__nv_bfloat16: bf16, Li<n>E: an int)."""
+    import re
+
+    sym = line.split("'")[1] if "'" in line else line
+    pos = 3 if sym.startswith("_ZN") else len(sym)
+    while pos < len(sym) and sym[pos].isdigit():
+        digits = re.match(r"\d+", sym[pos:]).group()
+        start = pos + len(digits)
+        ident, pos = sym[start:start + int(digits)], start + int(digits)
+        if ident.endswith("_kernel"):
+            args = re.match(r"I(f|13__nv_bfloat16)(?:Li(\d+)E)?", sym[pos:])
+            if args:
+                ident += f"<{'fp32' if args.group(1) == 'f' else 'bf16'}"
+                ident += f",{args.group(2)}>" if args.group(2) else ">"
+            return ident
+    return sym
 
 
 def _max_err(got, ref):
@@ -207,7 +233,7 @@ def _device_ms(fns, iters=20, reps=5):
 
 class _Rec:
     """Per-kernel numbers for the JSON line; times and bounds summed over the
-    calls one main-path invocation makes (both coarse levels for K1)."""
+    calls one main-path invocation makes (both coarse levels for K1-bwd)."""
 
     def __init__(self):
         self.err = self.ms = self.plain_ms = self.bound_ms = self.library_ms = 0.0
@@ -229,18 +255,53 @@ class _Rec:
         self.bound_by = ms_by[1]
 
 
-def _k1_inputs(cfg, g, dev, lvl, dtype, bs=1):
+def _det_samples(cfg, point_frac=1.0):
+    """The det task's flat sample count M0: anchors x keypoints kept."""
+    n_pts = len(cfg.det_kps.fix_scale) + cfg.det_kps.num_learnable
+    return cfg.num_det_anchor * math.ceil(point_frac * n_pts)
+
+
+def _k1_inputs(cfg, g, dev, dtype, bs=1, m0=None, with_acc=True):
+    """K1's inputs in the sampler's layout at the det task's M0 (or ``m0``):
+    acc ``[bs, M0, C]`` fp32 (or None), the coarse maps, points ``[bs, M0,
+    cams, 2]`` fp32 and weights ``[bs, M0, cams, L, G]``, maps and weights in
+    ``dtype``, and the coarse level indices. x and y are uniform in (-0.4,
+    1.4): a point lies inside each camera with probability 0.31, inside 1.9
+    of 6 on average, as the rig's projected keypoints lie inside one or two;
+    every 50th sample sits on level 2's pixel centres in every camera
+    (integer pixel coordinates: the hat weights' kinks)."""
+    import torch
+
+    cams, C, G, L = cfg.num_cams, cfg.embed_dims, cfg.num_groups, cfg.num_levels
+    H, W = cfg.input_size
+    levels = [l for l in cfg.sampler_matmul_levels if l < L]
+    m0 = m0 or _det_samples(cfg)
+    maps = [torch.randn(bs, cams, H // cfg.strides[l], W // cfg.strides[l], C, generator=g,
+                        device=dev).to(dtype) for l in levels]
+    pts = torch.rand(bs, m0, cams, 2, generator=g, device=dev) * 1.8 - 0.4
+    h2, w2 = maps[0].shape[2:4]
+    n = pts[:, ::50].shape[1]
+    pts[:, ::50, :, 0] = (torch.randint(0, w2, (bs, n, cams), generator=g, device=dev) + 0.5) / w2
+    pts[:, ::50, :, 1] = (torch.randint(0, h2, (bs, n, cams), generator=g, device=dev) + 0.5) / h2
+    weights = torch.rand(bs, m0, cams, L, G, generator=g, device=dev).to(dtype)
+    acc = torch.randn(bs, m0, C, generator=g, device=dev) if with_acc else None
+    return acc, maps, pts, weights, levels
+
+
+def _k1_bwd_inputs(cfg, g, dev, lvl, dtype, bs=1):
+    """K1-bwd's inputs for coarse level ``lvl``: the camera-major fm
+    ``[bs*cams, H, W, C]``, pixel coordinates px, py ``[bs*cams, M0]`` past
+    every border (every 50th on an integer: the kinks) and group weights
+    ``wg [bs*cams, M0, G]``, 40% of the (sample, camera) pairs non-zero."""
     cams, C, G = cfg.num_cams, cfg.embed_dims, cfg.num_groups
     H, W = cfg.input_size
     h, w = H // cfg.strides[lvl], W // cfg.strides[lvl]
-    n_pts = len(cfg.det_kps.fix_scale) + cfg.det_kps.num_learnable
-    M0 = cfg.num_det_anchor * n_pts
+    M0 = _det_samples(cfg)
     import torch
 
     fm = torch.randn(bs * cams, h, w, C, generator=g, device=dev).to(dtype)
     px = torch.rand(bs * cams, M0, generator=g, device=dev) * (w + 2) - 1.5
     py = torch.rand(bs * cams, M0, generator=g, device=dev) * (h + 2) - 1.5
-    # every 50th coordinate on an integer: the kinks of the hat weights
     px[:, ::50] = px[:, ::50].round()
     py[:, ::50] = py[:, ::50].round()
     wg = torch.rand(bs * cams, M0, G, generator=g, device=dev)
@@ -248,15 +309,14 @@ def _k1_inputs(cfg, g, dev, lvl, dtype, bs=1):
     return fm, px, py, wg, bs, cams
 
 
-def _k2_inputs(cfg, g, dev, dtype):
+def _k2_inputs(cfg, g, dev, dtype, bs=1):
     import torch
 
-    bs, cams, C, G = 1, cfg.num_cams, cfg.embed_dims, cfg.num_groups
+    cams, C, G = cfg.num_cams, cfg.embed_dims, cfg.num_groups
     H, W = cfg.input_size
     fine = [l for l in range(cfg.num_levels) if l not in cfg.sampler_matmul_levels]
-    n_pts = len(cfg.det_kps.fix_scale) + cfg.det_kps.num_learnable
     cam_k = cfg.sampler_cam_k
-    M = cfg.num_det_anchor * n_pts * cam_k
+    M = _det_samples(cfg) * cam_k
     maps = [torch.randn(bs, cams, H // cfg.strides[l], W // cfg.strides[l], C, generator=g,
                         device=dev).to(dtype) for l in fine]
     cam = torch.randint(0, cams, (bs, M), generator=g, device=dev, dtype=torch.int32)
@@ -331,59 +391,92 @@ def _k2_reads(maps, cam, x, y, w, bwd):
     return taps, nbytes
 
 
+def _k1_reads_coarse(acc, maps, pts, weights, levels):
+    """(taps read, bytes K1 must move) for these inputs: the distinct map
+    rows its live taps read over every coarse level, the acc row read and
+    the out row written, the points and the coarse levels' weights."""
+    from hipad_torch.ops import sampling
+
+    xf, yf, _, wf = sampling._coarse_inputs(pts, weights)
+    taps, nbytes = 0, 0
+    for lvl, fm in zip(levels, maps):
+        h, w, C = fm.shape[2:]
+        t, rows = _k1_reads(xf * w - 0.5, yf * h - 0.5, wf[:, :, lvl], h, w, bwd=False)
+        taps += t
+        nbytes += rows * C * fm.element_size()
+    bs, M0, cams, _ = pts.shape
+    G = weights.shape[-1]
+    rows_io = (2 if acc is not None else 1) * bs * M0 * maps[0].shape[-1] * 4
+    return taps, nbytes + rows_io + _nbytes(pts) + bs * M0 * cams * len(levels) * G * \
+        weights.element_size()
+
+
+def _grid_sample_args(maps, pts):
+    """F.grid_sample's inputs for each map of ``[bs, cams, H, W, C]``: the
+    NCHW maps of each camera and the camera-major sample grid in [-1, 1]."""
+    bs, M0, cams, _ = pts.shape
+    grid = pts.permute(0, 2, 1, 3).reshape(bs * cams, 1, M0, 2) * 2 - 1
+    return [(m.reshape(bs * cams, *m.shape[2:]).permute(0, 3, 1, 2), grid) for m in maps]
+
+
 def phase_kernels(cfg, card: str):
-    """K1 on levels 2-3 (all 6 cameras), K2 on levels 0-1 (cam_k slots), at
-    the det task's sample count, against the plain versions."""
+    """K1 (every coarse level in one launch, all 6 cameras, added to an acc)
+    and K2 (levels 0-1, cam_k slots) against their plain versions at the det
+    task's sample count, fp32 and bf16, bs 1 and 2, K1 also without acc and
+    at the serving config's keypoint top-k; timed at bs=1 fp32."""
     import torch
     import torch.nn.functional as F
 
+    from hipad_torch.configs.model import stage2_serving_det
     from hipad_torch.ops import kernels, sampling
 
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(SEED)
-    coarse = [l for l in cfg.sampler_matmul_levels if l < cfg.num_levels]
     k1, k2 = _Rec(), _Rec()
+    f32, bf16 = torch.float32, torch.bfloat16
+    m0_serve = _det_samples(cfg, stage2_serving_det().sampler_point_frac)
 
     # ---- K1 -------------------------------------------------------------
-    for dtype in (torch.float32, torch.bfloat16):
-        for lvl in coarse:
-            fm, px, py, wg, bs, cams = _k1_inputs(cfg, g, dev, lvl, dtype)
-            B, h, w, C = fm.shape
-            M = px.shape[1]
-            got = kernels.interp_sample_camsum(fm, px, py, wg, bs, cams)
-            ref = sampling.interp_matmul_camsum(fm, px, py, wg, bs, cams)
-            torch.cuda.synchronize()
-            err, scale = _max_err(got, ref)
-            ok = err <= KERNEL_RTOL * scale
-            say(f"[kernels] K1 interp_sample_camsum level {lvl} ({h}x{w}) {str(dtype)[6:]} "
-                f"B={B} M={M} C={C}: max_abs_err {err:.3e} (tol {KERNEL_RTOL:g} x "
-                f"{scale:.3e}) {'ok' if ok else 'FAIL'}")
-            if not ok:
-                fail(f"K1 disagrees with its plain version at level {lvl}, {dtype}")
-            k1.err = max(k1.err, err)
-            if dtype == torch.float32:
-                grid = torch.stack([(px + 0.5) / w * 2 - 1, (py + 0.5) / h * 2 - 1], -1)[:, None]
-                fm_nchw = fm.permute(0, 3, 1, 2)
-                dev_ms, call = _times([
-                    lambda: sampling.interp_matmul_camsum(fm, px, py, wg, bs, cams),
-                    lambda: kernels.interp_sample_camsum(fm, px, py, wg, bs, cams),
-                    lambda: kernels.interp_sample_camsum(fm, px, py, wg, bs, cams),
-                    lambda: sampling.interp_matmul_camsum(fm, px, py, wg, bs, cams),
-                    lambda: F.grid_sample(fm_nchw, grid, align_corners=False)])
-                t = k1.add_times(dev_ms, call)
-                taps, rows = _k1_reads(px, py, wg, h, w, bwd=False)
-                b = bound(rows * C * fm.element_size() + _nbytes(px, py, wg, got), taps * C * 2)
-                k1.add_bound(b)
-                say(f"[kernels] K1 level {lvl} fp32 on {card}: kernel {t[0]:.4f} ms, plain "
-                    f"{t[1]:.4f} ms, F.grid_sample (per camera, no weights or camera sum: not "
-                    f"the same function) {t[2]:.4f} ms ({TIMES}); per call "
-                    f"{min(call[1], call[2]):.4f} ms; bound {b[0]:.4f} ms "
-                    f"({b[1]}: {taps} taps, {rows} of {B * h * w} map rows read)")
+    for dtype, bs, m0, with_acc in ((f32, 1, None, True), (f32, 1, None, False),
+                                    (bf16, 1, None, True), (bf16, 1, None, False),
+                                    (f32, 2, None, True), (bf16, 2, None, True),
+                                    (f32, 1, m0_serve, True)):
+        acc, maps, pts, wts, levels = _k1_inputs(cfg, g, dev, dtype, bs, m0, with_acc)
+        M0, C = pts.shape[1], maps[0].shape[-1]
+        got = kernels.coarse_sample(acc, maps, pts, wts, levels)
+        ref = sampling.coarse_sample_plain(acc, maps, pts, wts, levels)
+        torch.cuda.synchronize()
+        err, scale = _max_err(got, ref)
+        ok = err <= KERNEL_RTOL * scale
+        say(f"[kernels] K1 coarse_sample levels {levels} "
+            f"{[tuple(m.shape[2:4]) for m in maps]} {str(dtype)[6:]} bs={bs} M0={M0} C={C} "
+            f"acc={'yes' if with_acc else 'None'}: max_abs_err {err:.3e} (tol {KERNEL_RTOL:g} x "
+            f"{scale:.3e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"K1 disagrees with its plain version ({dtype}, bs={bs}, M0={M0}, "
+                 f"acc={with_acc})")
+        k1.err = max(k1.err, err)
+        if dtype == f32 and bs == 1 and m0 is None and with_acc:
+            lib = _grid_sample_args(maps, pts)
+            t = k1.add_times(*_times([
+                lambda: sampling.coarse_sample_plain(acc, maps, pts, wts, levels),
+                lambda: kernels.coarse_sample(acc, maps, pts, wts, levels),
+                lambda: kernels.coarse_sample(acc, maps, pts, wts, levels),
+                lambda: sampling.coarse_sample_plain(acc, maps, pts, wts, levels),
+                lambda: [F.grid_sample(m, gr, align_corners=False) for m, gr in lib]]))
+            taps, nbytes = _k1_reads_coarse(acc, maps, pts, wts, levels)
+            b = bound(nbytes, taps * C * 2)
+            k1.add_bound(b)
+            say(f"[kernels] K1 fp32 on {card}: kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, "
+                f"F.grid_sample (per camera and level, no weights or sums: not the same "
+                f"function) {t[2]:.4f} ms ({TIMES}); per call {k1.per_call_ms:.4f} ms; bound "
+                f"{b[0]:.4f} ms ({b[1]}: {taps} taps, {nbytes / 1e6:.2f} MB: map rows read, "
+                f"acc and out rows, points, coarse weights)")
 
     # ---- K2 -------------------------------------------------------------
-    for dtype in (torch.float32, torch.bfloat16):
-        maps, cam, x, y, w, cam_k = _k2_inputs(cfg, g, dev, dtype)
-        bs, M = x.shape
+    for dtype, bs in ((f32, 1), (bf16, 1), (f32, 2)):
+        maps, cam, x, y, w, cam_k = _k2_inputs(cfg, g, dev, dtype, bs)
+        M = x.shape[1]
         C = maps[0].shape[-1]
         got = kernels.patch_sample(maps, cam, x, y, w, cam_k)
         ref = sampling.patch_sample_plain(maps, cam, x, y, w, cam_k)
@@ -394,9 +487,9 @@ def phase_kernels(cfg, card: str):
             f"{str(dtype)[6:]} bs={bs} M={M} cam_k={cam_k} C={C}: max_abs_err {err:.3e} "
             f"(tol {KERNEL_RTOL:g} x {scale:.3e}) {'ok' if ok else 'FAIL'}")
         if not ok:
-            fail(f"K2 disagrees with its plain version, {dtype}")
+            fail(f"K2 disagrees with its plain version, {dtype}, bs={bs}")
         k2.err = max(k2.err, err)
-        if dtype == torch.float32:
+        if dtype == f32 and bs == 1:
             cams = maps[0].shape[1]
             lib = [(m.reshape(bs * cams, *m.shape[2:]).permute(0, 3, 1, 2),
                     torch.stack([x, y], -1).reshape(bs * cams, 1, -1, 2) * 2 - 1)
@@ -415,7 +508,7 @@ def phase_kernels(cfg, card: str):
                 f"({TIMES}); per call {k2.per_call_ms:.4f} ms; bound {k2.bound_ms:.4f} ms "
                 f"({k2.bound_by}: {taps} taps, {map_bytes / 1e6:.2f} of "
                 f"{_nbytes(*maps) / 1e6:.2f} MB of maps read)")
-    return {"interp_sample_camsum": k1, "patch_sample": k2}
+    return {"coarse_sample": k1, "patch_sample": k2}
 
 
 # Backward kernel vs autograd of the plain version, fp32 gradients: both sum
@@ -468,7 +561,7 @@ def phase_kernels_bwd(cfg, card: str):
                                  (r101, f32, 1, (2,))):
         timed = c is cfg and dtype == f32 and bs == 1
         for lvl in levels or [l for l in c.sampler_matmul_levels if l < c.num_levels]:
-            fm, px, py, wg, bs, cams = _k1_inputs(c, g, dev, lvl, dtype, bs)
+            fm, px, py, wg, bs, cams = _k1_bwd_inputs(c, g, dev, lvl, dtype, bs)
             B, h, w, C = fm.shape
             ct, s, smem = kernels.k1_bwd_tiling(B, h, w, C, c.num_groups)
             gout = torch.randn(bs, px.shape[1], C, generator=g, device=dev)
@@ -659,13 +752,13 @@ def phase_slice(cfg, card: str):
 
 def _launch_plan(cfg):
     """(deformable calls per forward, launches of each kernel per call): K1
-    once per coarse level, K2 once for all fine levels, and each backward
-    kernel once per launch of its forward kernel."""
+    once for all coarse levels, K2 once for all fine levels, K1-bwd once per
+    coarse level and K2-bwd once."""
     n_deform = cfg.operation_order.count("deformable") * len(cfg.query_select)
-    k1 = len([l for l in cfg.sampler_matmul_levels if l < cfg.num_levels])
+    coarse = len([l for l in cfg.sampler_matmul_levels if l < cfg.num_levels])
     k2 = int(any(l not in cfg.sampler_matmul_levels for l in range(cfg.num_levels)))
-    return n_deform, {"interp_sample_camsum": k1, "patch_sample": k2,
-                      "interp_sample_camsum_bwd": k1, "patch_sample_bwd": k2}
+    return n_deform, {"coarse_sample": int(coarse > 0), "patch_sample": k2,
+                      "interp_sample_camsum_bwd": coarse, "patch_sample_bwd": k2}
 
 
 # Card step vs CPU step (plain path), stage 2 at drop_out 0 without GridMask:
@@ -1085,9 +1178,9 @@ def phase_agent(card: str, weights):
         f"{med['upload_infer']:.2f} ms [{min(p['upload_infer'] for p in timed):.2f}, "
         f"{max(p['upload_infer'] for p in timed):.2f}], run_step "
         f"{statistics.median(ticks[AGENT_WARMUP:]):.2f} ms (host clock); "
-        f"K1 {counts['interp_sample_camsum']} and K2 {counts['patch_sample']} launches over "
+        f"K1 {counts['coarse_sample']} and K2 {counts['patch_sample']} launches over "
         f"{len(ticks)} ticks")
-    if not counts["interp_sample_camsum"] or not counts["patch_sample"]:
+    if not counts["coarse_sample"] or not counts["patch_sample"]:
         fail("agent: the sampler kernels were not launched")
     del agent
     torch.cuda.empty_cache()
@@ -1164,47 +1257,266 @@ def _tensors(out):
             for t in (v if isinstance(v, list) else [v])]
 
 
-def compare_against(other: str, cfg, card: str):
-    """The four sampler kernels of the checkout at ``other`` against this
-    tree's, at phase 3 and 3b's shapes (bs=1, fp32): device time in turns
-    theirs/ours/ours/theirs, and the largest difference of their outputs."""
+def _other_tree(other: str):
+    """The ``hipad_torch`` package of the checkout at ``other``, imported as
+    ``other_hipad_torch`` beside this tree's: its modules import each other
+    relatively, and its kernels build into that checkout's ``build/``."""
+    import importlib
     import importlib.util
 
+    root = os.path.join(os.path.abspath(other), "hipad_torch")
+    spec = importlib.util.spec_from_file_location(
+        "other_hipad_torch", os.path.join(root, "__init__.py"), submodule_search_locations=[root])
+    pkg = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = pkg  # its dataclasses look their module up there
+    spec.loader.exec_module(pkg)
+    return {m: importlib.import_module(f"other_hipad_torch.{m}") for m in (
+        "ops.kernels", "ops.sampling", "configs.model", "models.detector", "postprocess",
+        "train.optim", "train.train_step", "agent.core")}
+
+
+def _their_coarse(kernels, acc, maps, pts, wts, levels):
+    """The coarse levels as the other tree runs them: its K1 in one call
+    where it has ``coarse_sample``; else (the per-level K1 of PRs 1-4) its
+    glue, ``ops/sampling.py:298-313`` there: camera-major coordinates and
+    masked weights, one K1 launch per level, each added to acc."""
+    if hasattr(kernels, "coarse_sample"):
+        return kernels.coarse_sample(acc, maps, pts, wts, levels)
+    bs, M0, cams, _ = pts.shape
+    L, G = wts.shape[-2:]
+    B = bs * cams
+    inside = ((pts > 0.0) & (pts < 1.0)).all(dim=-1)
+    xf = pts[..., 0].permute(0, 2, 1).reshape(B, M0).float()
+    yf = pts[..., 1].permute(0, 2, 1).reshape(B, M0).float()
+    insf = inside.permute(0, 2, 1).reshape(B, M0)
+    wf = wts.permute(0, 2, 1, 3, 4).reshape(B, M0, L, G).float() * insf[..., None, None]
+    out = acc
+    for lvl, feat in zip(levels, maps):
+        h, w, C = feat.shape[2:]
+        out = out + kernels.interp_sample_camsum(
+            feat.reshape(B, h, w, C), (xf * w - 0.5).contiguous(), (yf * h - 0.5).contiguous(),
+            wf[:, :, lvl].contiguous(), bs, cams)
+    return out
+
+
+def compare_against(other: str, cfg, card: str):
+    """The sampler kernels of the checkout at ``other`` against this tree's,
+    at phase 3 and 3b's shapes (bs=1, fp32): device time in turns
+    theirs/ours/ours/theirs, and the largest difference of their outputs.
+    K1 is held as the coarse levels of one deformable call (the other
+    tree's launches and glue), and the whole sampler call as well."""
     import torch
 
-    from hipad_torch.ops import kernels
+    from hipad_torch.ops import kernels, sampling
 
-    spec = importlib.util.spec_from_file_location(
-        "other_kernels", os.path.join(os.path.abspath(other), "hipad_torch", "ops", "kernels.py"))
-    theirs = importlib.util.module_from_spec(spec)
-    sys.modules[spec.name] = theirs  # its dataclasses look their module up there
-    spec.loader.exec_module(theirs)
+    tree = _other_tree(other)
+    theirs = tree["ops.kernels"]
     lib = theirs.library()
     say(f"[compare] {other}: built {lib.path} in {lib.build_seconds:.1f} s")
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     cases = []
-    for lvl in [l for l in cfg.sampler_matmul_levels if l < cfg.num_levels]:
-        fm, px, py, wg, bs, cams = _k1_inputs(cfg, g, dev, lvl, torch.float32)
-        gout = torch.randn(bs, px.shape[1], fm.shape[-1], generator=g, device=dev)
-        name = f"level {lvl} ({fm.shape[1]}x{fm.shape[2]})"
-        cases.append((f"K1-bwd {name}", "interp_sample_camsum_bwd", (fm, px, py, wg, gout, bs, cams)))
-        cases.append((f"K1 {name}", "interp_sample_camsum", (fm, px, py, wg, bs, cams)))
-    maps, cam, x, y, w, cam_k = _k2_inputs(cfg, g, dev, torch.float32)
-    W0 = maps[0].shape[3]
+    acc, maps, pts, wts, levels = _k1_inputs(cfg, g, dev, torch.float32)
+    their_k1 = "1 launch" if hasattr(theirs, "coarse_sample") else f"{len(levels)} launches, glue"
+    cases.append((f"K1 levels {levels} (theirs: {their_k1})",
+                  lambda: _their_coarse(theirs, acc, maps, pts, wts, levels),
+                  lambda: kernels.coarse_sample(acc, maps, pts, wts, levels)))
+    for lvl in levels:
+        args = _k1_bwd_inputs(cfg, g, dev, lvl, torch.float32)
+        gout = torch.randn(1, args[1].shape[1], args[0].shape[-1], generator=g, device=dev)
+        bwd_args = args[:4] + (gout,) + args[4:]
+        cases.append((f"K1-bwd level {lvl} ({args[0].shape[1]}x{args[0].shape[2]})",
+                      lambda a=bwd_args: theirs.interp_sample_camsum_bwd(*a),
+                      lambda a=bwd_args: kernels.interp_sample_camsum_bwd(*a)))
+    k2_args = _k2_inputs(cfg, g, dev, torch.float32)
+    maps2, cam, x, y, w, cam_k = k2_args
+    W0 = maps2[0].shape[3]
     x[:, ::50] = ((x[:, ::50] * W0 - 0.5).round() + 0.5) / W0
-    gout = torch.randn(x.shape[0], x.shape[1] // cam_k, maps[0].shape[-1], generator=g, device=dev)
-    cases.append(("K2-bwd", "patch_sample_bwd", (maps, cam, x, y, w, gout, cam_k)))
-    cases.append(("K2", "patch_sample", (maps, cam, x, y, w, cam_k)))
-    for what, fn, args in cases:
-        a, b = getattr(theirs, fn)(*args), getattr(kernels, fn)(*args)
+    gout = torch.randn(x.shape[0], x.shape[1] // cam_k, maps2[0].shape[-1], generator=g,
+                       device=dev)
+    cases.append(("K2", lambda: theirs.patch_sample(*k2_args),
+                  lambda: kernels.patch_sample(*k2_args)))
+    bwd2 = (maps2, cam, x, y, w, gout, cam_k)
+    cases.append(("K2-bwd", lambda: theirs.patch_sample_bwd(*bwd2),
+                  lambda: kernels.patch_sample_bwd(*bwd2)))
+    fmaps = list(maps2) + maps  # levels 0-3 of one pyramid
+    topk = dict(cam_k=cfg.sampler_cam_k, matmul_levels=cfg.sampler_matmul_levels,
+                cam_renorm=cfg.sampler_cam_renorm)
+    their_sampler = tree["ops.sampling"].deformable_samples_topk_flat
+    cases.append(("sampler call (deformable_samples_topk_flat: K2, K1 and their glue)",
+                  lambda: their_sampler(fmaps, pts, wts, **topk),
+                  lambda: sampling.deformable_samples_topk_flat(fmaps, pts, wts, **topk)))
+    for what, old_fn, new_fn in cases:
+        a, b = old_fn(), new_fn()
         diff = max(_max_err(u, v)[0] for u, v in zip(_tensors(a), _tensors(b)))
-        t = _device_ms([lambda: getattr(theirs, fn)(*args), lambda: getattr(kernels, fn)(*args),
-                        lambda: getattr(kernels, fn)(*args), lambda: getattr(theirs, fn)(*args)])
+        scale = max(_max_err(u, u)[1] for u in _tensors(a))
+        t = _device_ms([old_fn, new_fn, new_fn, old_fn])
         old, new = min(t[0], t[3]), min(t[1], t[2])
         say(f"[compare] {what} fp32 on {card}: theirs {old:.4f} ms, ours {new:.4f} ms "
-            f"({new / old:.3f}x; {QUEUED}, in turns theirs/ours/ours/theirs); "
-            f"outputs differ by {diff:.3e}")
+            f"({new / old:.3f}x; {QUEUED}, in turns theirs/ours/ours/theirs); outputs differ by "
+            f"{diff:.3e} (scale {scale:.3e}, {diff / scale:.1e} of it)")
+        if not diff <= KERNEL_RTOL * scale:
+            fail(f"{what}: the two trees disagree by more than {KERNEL_RTOL:g} of scale")
+    return tree
+
+
+def _launch_counts(kernels_module):
+    return {k.name: k.launches for k in kernels_module.KERNELS if k.launches}
+
+
+def _profiled(fn):
+    """(CUDA kernels launched, device busy ms) of one call of fn, by
+    torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hipad_torch.probe import _merged_busy
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ks = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(ks), _merged_busy([(e.time_range.start, e.time_range.end) for e in ks]) / 1e3
+
+
+def _in_turns(what, runs, card, warmup=WARMUP_FRAMES, rounds=SERVE_ROUNDS):
+    """Each tree's iteration of one path in turns (theirs, ours; then ours,
+    theirs; and so on), host clock with a sync around each, after
+    ``warmup`` rounds; then each tree's sampler-kernel launches per
+    iteration over the timed rounds, and one more iteration of each under
+    torch.profiler (all its kernel launches, its device busy time)."""
+    import torch
+
+    ms = {name: [] for name in runs}
+    order = list(runs)
+    for i in range(warmup + rounds):
+        if i == warmup:
+            for _, kmod in runs.values():
+                for k in kmod.KERNELS:
+                    k.launches = 0
+        for name in (order if i % 2 == 0 else order[::-1]):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            runs[name][0]()
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t) * 1e3)
+    a, b = (ms[n][warmup:] for n in order)
+    diff = [y - x for x, y in zip(a, b)]
+    say(f"[compare] {what} on {card}, {rounds} rounds after {warmup} (host clock, sync around "
+        f"each, order alternating): theirs median {statistics.median(a):.2f} ms "
+        f"[{min(a):.2f}, {max(a):.2f}], ours {statistics.median(b):.2f} ms "
+        f"[{min(b):.2f}, {max(b):.2f}], ours - theirs per round median "
+        f"{statistics.median(diff):.2f} ms [{min(diff):.2f}, {max(diff):.2f}]")
+    for name, (fn, kmod) in runs.items():
+        per = {k: v / rounds for k, v in _launch_counts(kmod).items()}
+        n, busy = _profiled(fn)
+        say(f"[compare] {what} {name}: sampler kernel launches per iteration {per}; one more "
+            f"iteration profiled: {n} kernel launches, device busy {busy:.2f} ms")
+
+
+def compare_paths(tree, card: str):
+    """Phases 4-7's paths in both trees, fp32, bs=1, in turns: the stage-2
+    frame, the training step, the serving frame with post-processing and
+    the agent's tick; the two models of each path share their weights."""
+    import numpy as np
+    import torch
+
+    from hipad_torch import postprocess
+    from hipad_torch.agent.core import AgentCore
+    from hipad_torch.agent.replay import FakeSim
+    from hipad_torch.configs import model as configs
+    from hipad_torch.data import synthetic
+    from hipad_torch.models.detector import HiPAD, batch_to_torch
+    from hipad_torch.ops import kernels
+    from hipad_torch.train.optim import AdamW
+    from hipad_torch.train.train_step import make_train_step
+    from hipad_torch.weights import init_random
+
+    dev = torch.device(DEVICE)
+    theirs_k = tree["ops.kernels"]
+
+    def pair(name):
+        cfgs = (getattr(tree["configs.model"], name)(), getattr(configs, name)())
+        ours = init_random(HiPAD(cfgs[1], device=dev), SEED)
+        theirs = tree["models.detector"].HiPAD(cfgs[0], device=dev)
+        theirs.load_state_dict(ours.state_dict())
+        return cfgs, theirs, ours
+
+    for name in ("stage2", "stage2_serving_det"):
+        cfgs, theirs, ours = pair(name)
+        images, metas = batch_to_torch(synthetic.make_batch(cfgs[1], 1, seed=SEED), dev)
+        post = (tree["postprocess"].post_process_arrays, postprocess.post_process_arrays)
+        decode = name != "stage2"
+
+        def frame_fn(m, c, pp, state):
+            def run():
+                i = state["i"]
+                mt = dict(metas, timestamp=metas["timestamp"] + 0.5 * i)
+                with torch.no_grad():
+                    out, state["banks"] = m(images + 1e-3 * i, mt, state["banks"])
+                    if decode:
+                        pp(c, out, mt["gt_ego_fut_cmd"])
+                state["i"] += 1
+            return run
+
+        runs = {"theirs": (frame_fn(theirs, cfgs[0], post[0], {"i": 0, "banks": None}), theirs_k),
+                "ours": (frame_fn(ours, cfgs[1], post[1], {"i": 0, "banks": None}), kernels)}
+        _in_turns(f"{name} frame fp32{' with post_process_arrays' if decode else ''}", runs, card)
+        if decode:
+            weights = {k: v.detach().clone() for k, v in ours.state_dict().items()}
+        del theirs, ours, runs
+        torch.cuda.empty_cache()
+
+    cfgs, theirs, ours = pair("stage2")
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in synthetic.make_batch(cfgs[1], 1, seed=SEED).items()}
+    steps = (tree["train.train_step"].make_train_step(
+                 cfgs[0], theirs, tree["train.optim"].AdamW(theirs.named_parameters())),
+             make_train_step(cfgs[1], ours, AdamW(ours.named_parameters())))
+
+    def step_fn(step, state):
+        def run():
+            i = state["i"]
+            b = dict(batch, timestamp=batch["timestamp"] + 0.5 * i,
+                     images=batch["images"] + 1e-3 * i)
+            state["banks"], _ = step(state["banks"], b, state["gen"])
+            state["i"] += 1
+        return run
+
+    runs = {n: (step_fn(st, {"i": 0, "banks": None,
+                              "gen": torch.Generator(device=dev).manual_seed(SEED)}), km)
+            for n, st, km in (("theirs", steps[0], theirs_k), ("ours", steps[1], kernels))}
+    _in_turns("stage2 training step fp32", runs, card, WARMUP_STEPS, PAIRED_ROUNDS)
+    del theirs, ours, steps, runs
+    torch.cuda.empty_cache()
+
+    cfg = configs.stage2_serving_det()
+    agents = {"theirs": (tree["agent.core"].AgentCore(
+                  tree["configs.model"].stage2_serving_det(), weights, dtype=torch.float32,
+                  device=DEVICE), theirs_k),
+              "ours": (AgentCore(cfg, weights, dtype=torch.float32, device=DEVICE), kernels)}
+    sim = FakeSim(seed=SEED)
+    upload = {n: [] for n in agents}
+    for k in list(theirs_k.KERNELS) + list(kernels.KERNELS):
+        k.launches = 0
+    for t in range(AGENT_WARMUP + AGENT_TICKS):
+        obs = sim.observe()
+        for n in (list(agents) if t % 2 == 0 else list(agents)[::-1]):
+            control = agents[n][0].run_step(obs)
+            upload[n].append(agents[n][0].last_phase_ms["upload_infer"])
+            if not np.isfinite([control["steer"], control["throttle"], control["brake"]]).all():
+                fail(f"agent ({n}) tick {t}: control not finite")
+        sim.apply(control)
+    a, b = (upload[n][AGENT_WARMUP:] for n in agents)
+    diff = [y - x for x, y in zip(a, b)]
+    say(f"[compare] AgentCore(stage2_serving_det) fp32 tick on {card}, {AGENT_TICKS} ticks after "
+        f"{AGENT_WARMUP}, both agents on each observation, order alternating: upload_infer theirs "
+        f"median {statistics.median(a):.2f} ms [{min(a):.2f}, {max(a):.2f}], ours "
+        f"{statistics.median(b):.2f} ms [{min(b):.2f}, {max(b):.2f}], ours - theirs per tick "
+        f"median {statistics.median(diff):.2f} ms [{min(diff):.2f}, {max(diff):.2f}]; sampler "
+        f"kernel launches theirs {_launch_counts(theirs_k)}, ours {_launch_counts(kernels)} "
+        f"over {len(a) + AGENT_WARMUP} ticks each")
 
 
 def main():
@@ -1228,7 +1540,7 @@ def main():
     phase_build()
     cfg = stage2()
     if args.against:
-        compare_against(args.against, cfg, card)
+        compare_paths(compare_against(args.against, cfg, card), card)
         return
     k = phase_kernels(cfg, card)
     k.update(phase_kernels_bwd(cfg, card))
@@ -1245,8 +1557,8 @@ def main():
         fail("a module of the JAX package was imported")
     gather_src = "hipad_torch/csrc/row_gather.cu"
     sources = {
-        "interp_sample_camsum": ("hipad_torch/csrc/interp_sample.cu",
-                                 "hipad_tpu/ops/pallas_interp.py:68", "serving_frame"),
+        "coarse_sample": ("hipad_torch/csrc/interp_sample.cu",
+                          "hipad_tpu/ops/pallas_interp.py:68", "serving_frame"),
         "patch_sample": ("hipad_torch/csrc/patch_sample.cu", "hipad_tpu/ops/sampling.py:494",
                          "serving_frame"),
         "interp_sample_camsum_bwd": ("hipad_torch/csrc/interp_sample_bwd.cu",

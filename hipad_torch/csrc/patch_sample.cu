@@ -14,22 +14,28 @@
 //
 // The hat weights taken against the clamped origin give corners outside the
 // map weight zero, exactly as the JAX gather with its clamped origin does.
+// The sum runs over (slot, level, i, j) in that order.
 //
-// What bounds it on this card: gathered bytes. Each (sample, kept camera,
-// fine level) reads up to 4 rows of C*sizeof(T) bytes from maps of 88x160
-// and 44x80 cells (27 MB fp32 for 6 cameras at C=256); the plain version
-// writes a [bs, M, 4, C] patch tensor to device memory and reads it back.
-// Design: one warp per output row, 16-byte coalesced loads, fp32 register
-// accumulation over slots, levels and corners, one write per row; samples
-// with all-zero group weights and zero-weight corners skip their loads.
+// What bounds it on this card: gathered bytes, and the latency of each. Each
+// (sample, kept camera, fine level) reads up to 4 rows of C*sizeof(T) bytes
+// from maps of 88x160 and 44x80 cells (108 MB fp32 for 6 cameras at C=256,
+// more than the 50 MB L2), so a tap is a round trip to device memory; the
+// plain version writes a [bs, M, 4, C] patch tensor to device memory and
+// reads it back. Design: one warp per (b, m0) row. Its lanes load the
+// cam_k slots' camera and (x, y) and the cam_k x levels x G group weights
+// together (32 values at stage 2, one a lane), one lane per (slot, level)
+// pair computes the pair's patch origin, taps and hat weights; the live taps
+// are listed in shared memory in sum order, then read in batches of 4 (C =
+// 256) with every load of a batch in flight before its first FMA; fp32
+// registers, one write per row, 16-byte accesses.
 #include "sample_common.cuh"
 
 namespace {
 
-using hipad::kMaxChunks;
-using hipad::kThreads;
+using hipad::kFwdThreads;
+using hipad::kFwdWarps;
 using hipad::kVec;
-using hipad::kWarps;
+using hipad::Tap;
 
 constexpr int kMaxLevels = 4;
 
@@ -41,66 +47,112 @@ struct FineLevels {
   int n;
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int NCH>
+__global__ void __launch_bounds__(kFwdThreads)
 patch_sample_kernel(FineLevels<T> lv, const int* __restrict__ cam,
                     const float* __restrict__ x, const float* __restrict__ y,
                     const float* __restrict__ w, float* __restrict__ out,
                     int bs, int cams, int C, int G, int M0, int cam_k) {
-  const long long row =
-      static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  const int pairs = cam_k * lv.n;  // pair p = (slot p / n, level p % n)
+  unsigned char* mine = smem + warp * hipad::warp_smem_bytes(pairs, G);
+  Tap<T>* list = reinterpret_cast<Tap<T>*>(mine);
+  float* wg = reinterpret_cast<float*>(mine + pairs * 4 * sizeof(Tap<T>));
+  const int k = lane / lv.n;
+  const int l = lane - k * lv.n;
+  const long long row = static_cast<long long>(blockIdx.x) * kFwdWarps + warp;
   if (row >= static_cast<long long>(bs) * M0) return;
   const int b = static_cast<int>(row / M0);
-  const int m0 = static_cast<int>(row - static_cast<long long>(b) * M0);
-  const int gd = C / G;
-  const long long M = static_cast<long long>(M0) * cam_k;
 
-  float acc[kMaxChunks][kVec];
-  hipad::zero_acc(acc);
-  for (int k = 0; k < cam_k; ++k) {
-    const long long s = b * M + static_cast<long long>(m0) * cam_k + k;
-    const int c = cam[s];
-    if (c < 0 || c >= cams) continue;
-    const float xs = x[s];
-    const float ys = y[s];
-    for (int l = 0; l < lv.n; ++l) {
-      const float* wrow = w + (s * lv.n + l) * G;
-      if (!hipad::any_nonzero(wrow, G)) continue;
-      const int H = lv.H[l];
-      const int W = lv.W[l];
+  // this pair's camera and location and the row's group weights (w's
+  // [cam_k, n, G] block of the row is contiguous), all loads issued together
+  const long long s = row * cam_k + k;  // = b * M + m0 * cam_k + k
+  int c = -1;
+  float xs = 0.f, ys = 0.f;
+  if (lane < pairs) {
+    c = __ldg(cam + s);
+    xs = __ldg(x + s);
+    ys = __ldg(y + s);
+  }
+  for (int i = lane; i < pairs * G; i += 32) wg[i] = __ldg(w + row * pairs * G + i);
+  __syncwarp();
+
+  Tap<T> tap[4];
+  unsigned mask = 0;
+  if (lane < pairs && c >= 0 && c < cams) {
+    bool any = false;
+    for (int g = 0; g < G; ++g) any |= wg[lane * G + g] != 0.f;
+    if (any) {
+      // the pair's level by constant indices: a dynamic index into the
+      // kernel's parameters would copy them to local memory
+      const T* fm = lv.fm[0];
+      int H = lv.H[0], W = lv.W[0];
+#pragma unroll
+      for (int j = 1; j < kMaxLevels; ++j) {
+        if (j == l) {
+          fm = lv.fm[j];
+          H = lv.H[j];
+          W = lv.W[j];
+        }
+      }
       // no fused multiply-add: keep p, q rounded as the plain version does
       const float p = __fmul_rn(xs, static_cast<float>(W)) - 0.5f;
       const float q = __fmul_rn(ys, static_cast<float>(H)) - 0.5f;
       const float sxf = fminf(fmaxf(floorf(p), 0.f), static_cast<float>(W - 2));
       const float syf = fminf(fmaxf(floorf(q), 0.f), static_cast<float>(H - 2));
-      const int sx = static_cast<int>(sxf);
-      const int sy = static_cast<int>(syf);
-      const T* img =
-          lv.fm[l] + (static_cast<long long>(b) * cams + c) * H * W * C;
+      const T* img = fm + ((static_cast<long long>(b) * cams + c) * H * W +
+                                 static_cast<long long>(syf) * W + static_cast<int>(sxf)) * C;
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const float wy = fmaxf(0.f, 1.f - fabsf(q - (syf + i)));
-        if (wy == 0.f) continue;
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const float wx = fmaxf(0.f, 1.f - fabsf(p - (sxf + j)));
-          if (wx == 0.f) continue;
-          hipad::accumulate_row(
-              acc, img + (static_cast<long long>(sy + i) * W + sx + j) * C,
-              wrow, wy * wx, C, gd, lane);
-        }
+      for (int t = 0; t < 4; ++t) {
+        const int i = t >> 1;
+        const int j = t & 1;
+        const float wy = hipad::hat(q - (syf + i));
+        const float wx = hipad::hat(p - (sxf + j));
+        tap[t] = Tap<T>{img + (static_cast<long long>(i) * W + j) * C, wy * wx, lane};
+        if (wy != 0.f && wx != 0.f) mask |= 1u << t;
       }
     }
   }
-  hipad::store_row(out + row * C, acc, C, lane);
+  const int n = hipad::list_taps(list, tap, mask, lane);
+
+  float tot[NCH][kVec];
+#pragma unroll
+  for (int ch = 0; ch < NCH; ++ch) {
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) tot[ch][i] = 0.f;
+  }
+  hipad::sum_taps<T, NCH, hipad::batch_taps<NCH>()>(list, n, wg, pairs, C, G, lane, tot);
+#pragma unroll
+  for (int ch = 0; ch < NCH; ++ch) {
+    const int c0 = (ch * 32 + lane) * kVec;
+    if (c0 < C) {
+      float4* o = reinterpret_cast<float4*>(out + row * C + c0);
+      o[0] = make_float4(tot[ch][0], tot[ch][1], tot[ch][2], tot[ch][3]);
+      o[1] = make_float4(tot[ch][4], tot[ch][5], tot[ch][6], tot[ch][7]);
+    }
+  }
+}
+
+template <typename T, int NCH>
+void launch_nch(const FineLevels<T>& lv, const void* cam, const void* x, const void* y,
+                const void* w, void* out, int bs, int cams, int C, int G, int M0, int cam_k,
+                cudaStream_t st) {
+  const int smem = kFwdWarps * hipad::warp_smem_bytes(cam_k * lv.n, G);
+  const unsigned blocks =
+      static_cast<unsigned>((static_cast<long long>(bs) * M0 + kFwdWarps - 1) / kFwdWarps);
+  patch_sample_kernel<T, NCH><<<blocks, kFwdThreads, smem, st>>>(
+      lv, static_cast<const int*>(cam), static_cast<const float*>(x),
+      static_cast<const float*>(y), static_cast<const float*>(w),
+      static_cast<float*>(out), bs, cams, C, G, M0, cam_k);
 }
 
 template <typename T>
-void launch(const void* const* fms, const int* Hs, const int* Ws, int nlev,
-            const void* cam, const void* x, const void* y, const void* w,
-            void* out, int bs, int cams, int C, int G, int M0, int cam_k,
-            cudaStream_t st) {
+int launch(const void* const* fms, const int* Hs, const int* Ws, int nlev,
+           const void* cam, const void* x, const void* y, const void* w,
+           void* out, int bs, int cams, int C, int G, int M0, int cam_k,
+           cudaStream_t st) {
   FineLevels<T> lv{};
   for (int l = 0; l < nlev; ++l) {
     lv.fm[l] = static_cast<const T*>(fms[l]);
@@ -108,12 +160,14 @@ void launch(const void* const* fms, const int* Hs, const int* Ws, int nlev,
     lv.W[l] = Ws[l];
   }
   lv.n = nlev;
-  const long long rows = static_cast<long long>(bs) * M0;
-  const unsigned blocks = static_cast<unsigned>((rows + kWarps - 1) / kWarps);
-  patch_sample_kernel<T><<<blocks, kThreads, 0, st>>>(
-      lv, static_cast<const int*>(cam), static_cast<const float*>(x),
-      static_cast<const float*>(y), static_cast<const float*>(w),
-      static_cast<float*>(out), bs, cams, C, G, M0, cam_k);
+  switch ((C + 255) / 256) {
+    case 1: launch_nch<T, 1>(lv, cam, x, y, w, out, bs, cams, C, G, M0, cam_k, st); break;
+    case 2: launch_nch<T, 2>(lv, cam, x, y, w, out, bs, cams, C, G, M0, cam_k, st); break;
+    case 3: launch_nch<T, 3>(lv, cam, x, y, w, out, bs, cams, C, G, M0, cam_k, st); break;
+    case 4: launch_nch<T, 4>(lv, cam, x, y, w, out, bs, cams, C, G, M0, cam_k, st); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -121,6 +175,8 @@ void launch(const void* const* fms, const int* Hs, const int* Ws, int nlev,
 // fm0..fm3: fine-level maps [bs, cams, H_l, W_l, C] (fp32, or bf16 when
 // fm_bf16 != 0), the first nlev used; cam [bs, M] int32; x, y [bs, M] fp32
 // normalised; w [bs, M, nlev, G] fp32; out [bs, M0, C] fp32, M = M0*cam_k.
+// Needs cam_k * nlev <= 32, C <= 1024, (C / G) % 8 == 0 and
+// kFwdWarps * warp_smem_bytes(cam_k * nlev, G) <= 48 KB (the wrapper checks).
 // Returns cudaGetLastError() after the launch.
 extern "C" int hipad_patch_sample(const void* fm0, const void* fm1,
                                   const void* fm2, const void* fm3, int H0,
@@ -130,17 +186,14 @@ extern "C" int hipad_patch_sample(const void* fm0, const void* fm1,
                                   const void* y, const void* w, void* out,
                                   int bs, int cams, int C, int G, int M0,
                                   int cam_k, void* stream) {
-  if (nlev < 1 || nlev > kMaxLevels) return static_cast<int>(cudaErrorInvalidValue);
+  if (nlev < 1 || nlev > kMaxLevels || cam_k * nlev > 32)
+    return static_cast<int>(cudaErrorInvalidValue);
   const void* fms[kMaxLevels] = {fm0, fm1, fm2, fm3};
   const int Hs[kMaxLevels] = {H0, H1, H2, H3};
   const int Ws[kMaxLevels] = {W0, W1, W2, W3};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (fm_bf16) {
-    launch<__nv_bfloat16>(fms, Hs, Ws, nlev, cam, x, y, w, out, bs, cams, C,
-                          G, M0, cam_k, st);
-  } else {
-    launch<float>(fms, Hs, Ws, nlev, cam, x, y, w, out, bs, cams, C, G, M0,
-                  cam_k, st);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (fm_bf16)
+    return launch<__nv_bfloat16>(fms, Hs, Ws, nlev, cam, x, y, w, out, bs, cams, C, G, M0,
+                                 cam_k, st);
+  return launch<float>(fms, Hs, Ws, nlev, cam, x, y, w, out, bs, cams, C, G, M0, cam_k, st);
 }

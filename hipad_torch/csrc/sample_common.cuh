@@ -36,55 +36,173 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float v[kVec]) {
   }
 }
 
-// True when any of the G group weights is non-zero: samples the caller
-// masked out (out of bounds, or a camera not kept) skip their loads.
-__device__ __forceinline__ bool any_nonzero(const float* w, int G) {
-  for (int g = 0; g < G; ++g) {
-    if (w[g] != 0.f) return true;
-  }
-  return false;
-}
+// ---- pieces of the two forward kernels ---------------------------------
+//
+// A warp first lists the taps of its row (each feature row it will read,
+// with its bilinear weight) in shared memory, lanes computing them in
+// parallel, then reads the list in batches: every 16-byte load of a batch
+// is issued before the batch's first FMA, so a warp keeps a batch of rows in
+// flight where one row at a time left it waiting on each load's latency.
+//
+// Blocks hold 4 warps (kFwdWarps), one row each: a block's registers and
+// shared memory return to the SM only when its slowest row is done, and
+// rows differ in their number of taps (0 to 48 in K1). Measured on an H100,
+// 4-warp blocks and batches of 4 taps beat 8-warp blocks and batches of 8
+// (the registers of a batch of 8 cost warps); a ring of rows fetched into
+// shared memory by cp.async, which holds no registers, lost to them.
 
-__device__ __forceinline__ void zero_acc(float (&acc)[kMaxChunks][kVec]) {
-#pragma unroll
-  for (int ch = 0; ch < kMaxChunks; ++ch) {
-#pragma unroll
-    for (int i = 0; i < kVec; ++i) acc[ch][i] = 0.f;
-  }
-}
+constexpr int kFwdWarps = 4;
+constexpr int kFwdThreads = 32 * kFwdWarps;
 
-// acc += wxy * wg[group(c)] * row[c] over this lane's channels.
-// Requires (C / G) % kVec == 0, so that each 8-channel chunk lies in one group.
+// One lane's kVec channels of one feature row as loaded: two 16-byte words
+// (fp32) or one (bf16, widened to fp32 where it is used).
 template <typename T>
-__device__ __forceinline__ void accumulate_row(float (&acc)[kMaxChunks][kVec],
-                                               const T* row, const float* wg,
-                                               float wxy, int C, int gd,
-                                               int lane) {
+struct Raw;
+template <>
+struct Raw<float> {
+  float4 a, b;
+};
+template <>
+struct Raw<__nv_bfloat16> {
+  uint4 a;
+};
+
+__device__ __forceinline__ void load_raw(const float* p, Raw<float>& r) {
+  r.a = __ldg(reinterpret_cast<const float4*>(p));
+  r.b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+}
+
+__device__ __forceinline__ void load_raw(const __nv_bfloat16* p, Raw<__nv_bfloat16>& r) {
+  r.a = __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+// acc += s * row over the lane's kVec channels
+__device__ __forceinline__ void fma_raw(float (&acc)[kVec], float s, const Raw<float>& r) {
+  acc[0] = fmaf(s, r.a.x, acc[0]);
+  acc[1] = fmaf(s, r.a.y, acc[1]);
+  acc[2] = fmaf(s, r.a.z, acc[2]);
+  acc[3] = fmaf(s, r.a.w, acc[3]);
+  acc[4] = fmaf(s, r.b.x, acc[4]);
+  acc[5] = fmaf(s, r.b.y, acc[5]);
+  acc[6] = fmaf(s, r.b.z, acc[6]);
+  acc[7] = fmaf(s, r.b.w, acc[7]);
+}
+
+__device__ __forceinline__ void fma_raw(float (&acc)[kVec], float s,
+                                        const Raw<__nv_bfloat16>& r) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r.a);
 #pragma unroll
-  for (int ch = 0; ch < kMaxChunks; ++ch) {
-    const int c0 = (ch * 32 + lane) * kVec;
-    if (c0 < C) {
-      float v[kVec];
-      load8(row + c0, v);
-      const float s = wxy * wg[c0 / gd];
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) acc[ch][i] = fmaf(s, v[i], acc[ch][i]);
-    }
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    acc[2 * i] = fmaf(s, f.x, acc[2 * i]);
+    acc[2 * i + 1] = fmaf(s, f.y, acc[2 * i + 1]);
   }
 }
 
-__device__ __forceinline__ void store_row(float* out,
-                                          const float (&acc)[kMaxChunks][kVec],
-                                          int C, int lane) {
+// One tap of a warp's list: a feature row and its bilinear weight; pair
+// indexes the warp's [pairs, G] group weights in shared memory.
+template <typename T>
+struct Tap {
+  const T* row;
+  float w;
+  int pair;
+};
+
+// Append each lane's taps (tap[k] for the set bits k of mask, in order) to
+// the warp's list, lane after lane -> the list's length. Every lane of the
+// warp calls it.
+template <typename T>
+__device__ __forceinline__ int list_taps(Tap<T>* list, const Tap<T> (&tap)[4], unsigned mask,
+                                         int lane) {
+  const int n = __popc(mask);
+  int incl = n;
 #pragma unroll
-  for (int ch = 0; ch < kMaxChunks; ++ch) {
-    const int c0 = (ch * 32 + lane) * kVec;
-    if (c0 < C) {
-      float4* o = reinterpret_cast<float4*>(out + c0);
-      o[0] = make_float4(acc[ch][0], acc[ch][1], acc[ch][2], acc[ch][3]);
-      o[1] = make_float4(acc[ch][4], acc[ch][5], acc[ch][6], acc[ch][7]);
+  for (int o = 1; o < 32; o <<= 1) {
+    const int u = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += u;
+  }
+  int j = incl - n;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if (mask >> k & 1u) list[j++] = tap[k];
+  }
+  __syncwarp();
+  return __shfl_sync(0xffffffffu, incl, 31);
+}
+
+// tot += the warp's taps list[0, n), summed as runs: the consecutive taps
+// whose pair / per_run is equal form one run, summed in list order into
+// s = sum w * wg[pair, group(c)] * row[c] from zero, then tot += s. K1 makes
+// one run per coarse level (tot = (acc + s_2) + s_3, as adding each level's
+// camera sum in turn does), K2 one run of all its taps. The loads of B taps
+// are issued before the first FMA of the B. NCH chunks of kVec channels per
+// lane, C <= 256 * NCH.
+template <typename T, int NCH, int B>
+__device__ __forceinline__ void sum_taps(const Tap<T>* list, int n, const float* wg, int per_run,
+                                         int C, int G, int lane, float (&tot)[NCH][kVec]) {
+  const int gd = C / G;
+  float s[NCH][kVec];
+#pragma unroll
+  for (int ch = 0; ch < NCH; ++ch) {
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) s[ch][i] = 0.f;
+  }
+  int run = n > 0 ? list[0].pair / per_run : 0;
+  for (int t0 = 0; t0 < n; t0 += B) {
+    Raw<T> v[B][NCH];
+#pragma unroll
+    for (int j = 0; j < B; ++j) {
+      if (t0 + j < n) {
+        const T* row = list[t0 + j].row;
+#pragma unroll
+        for (int ch = 0; ch < NCH; ++ch) {
+          const int c0 = (ch * 32 + lane) * kVec;
+          if (c0 < C) load_raw(row + c0, v[j][ch]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < B; ++j) {
+      if (t0 + j < n) {
+        const float w = list[t0 + j].w;
+        const int pair = list[t0 + j].pair;
+        if (pair / per_run != run) {
+          run = pair / per_run;
+#pragma unroll
+          for (int ch = 0; ch < NCH; ++ch) {
+#pragma unroll
+            for (int i = 0; i < kVec; ++i) {
+              tot[ch][i] += s[ch][i];
+              s[ch][i] = 0.f;
+            }
+          }
+        }
+#pragma unroll
+        for (int ch = 0; ch < NCH; ++ch) {
+          const int c0 = (ch * 32 + lane) * kVec;
+          if (c0 < C) fma_raw(s[ch], w * wg[pair * G + c0 / gd], v[j][ch]);
+        }
+      }
     }
   }
+#pragma unroll
+  for (int ch = 0; ch < NCH; ++ch) {
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) tot[ch][i] += s[ch][i];
+  }
+}
+
+// Taps a lane of a forward kernel reads at once: 4 rows at C <= 256 (32
+// registers of fp32 values), fewer for wider rows.
+template <int NCH>
+__host__ __device__ constexpr int batch_taps() {
+  return NCH == 1 ? 4 : (NCH == 2 ? 2 : 1);
+}
+
+// Bytes of one warp's shared memory in a forward kernel: its tap list (at
+// most 4 taps a pair) and its [pairs, G] group weights, rounded to 16.
+__host__ __device__ __forceinline__ int warp_smem_bytes(int pairs, int G) {
+  return (pairs * 4 * 16 + pairs * G * 4 + 15) / 16 * 16;
 }
 
 // ---- pieces of the two backward kernels --------------------------------

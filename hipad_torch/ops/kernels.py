@@ -1,6 +1,7 @@
-"""Build, bind and launch the port's CUDA kernels: the sampler's K1 and K2
-forward, K1-bwd and K2-bwd for their gradients, and the row gather that
-stands in for the Pallas gather probes P2-P4.
+"""Build, bind and launch the port's CUDA kernels: the sampler's K1 (every
+coarse level in one launch) and K2 (the fine levels) forward, K1-bwd and
+K2-bwd for their gradients, and the row gather that stands in for the
+Pallas gather probes P2-P4.
 
 The sources ``hipad_torch/csrc/*.cu`` are compiled with plain ``nvcc`` for
 ``sm_90a``, one ``nvcc`` per source and all started together, then linked
@@ -39,7 +40,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _VEC = 8  # channels per lane per load (csrc/sample_common.cuh: kVec)
 _MAX_C = 1024  # 32 lanes * kVec * kMaxChunks
-_MAX_FINE_LEVELS = 4
+_MAX_LEVELS = 4  # fine levels of K2, coarse levels of K1
+_WARPS = 4  # warps per block of the forward kernels (kFwdWarps)
+_MAX_PAIRS = 32  # K1's (level, camera) or K2's (slot, level) pairs: one a lane
+_STATIC_SMEM = 48 * 1024  # shared memory a launch takes without opting in
+
+
+def _forward_smem_bytes(pairs: int, G: int) -> int:
+    """Shared memory of one block of K1 or K2 (``csrc/sample_common.cuh:
+    warp_smem_bytes``): per warp, a list of up to 4 taps of 16 bytes per
+    pair and the pairs' G group weights in fp32, rounded up to 16 bytes."""
+    return _WARPS * ((pairs * 4 * 16 + pairs * G * 4 + 15) // 16 * 16)
 
 # K1-bwd's tile blocks (csrc/interp_sample_bwd.cu) on an H100 SXM: 132 SMs,
 # 227 KB of shared memory a block can have, 228 KB an SM shares among its
@@ -135,8 +146,8 @@ def library() -> Library:
             obj.unlink()
     lib = ctypes.CDLL(str(out))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.hipad_interp_sample_camsum.argtypes = [p, i, p, p, p, p] + [i] * 7 + [p]
-    lib.hipad_interp_sample_camsum.restype = i
+    lib.hipad_coarse_sample.argtypes = [p] * 4 + [i] * 14 + [p] * 3 + [i, p] + [i] * 6 + [p]
+    lib.hipad_coarse_sample.restype = i
     lib.hipad_patch_sample.argtypes = [p] * 4 + [i] * 10 + [p] * 5 + [i] * 6 + [p]
     lib.hipad_patch_sample.restype = i
     lib.hipad_interp_sample_camsum_bwd.argtypes = [p, i] + [p] * 8 + [i] * 10 + [p]
@@ -170,8 +181,25 @@ def _stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def _check_k1(k: str, fm, px, py, wg, bs: int, cams: int):
-    """Validate K1's (or K1-bwd's) inputs -> (B, H, W, C, M, G)."""
+def _check_pairs(k: str, pairs: int, G: int):
+    _check(pairs <= _MAX_PAIRS, f"{k}: takes at most {_MAX_PAIRS} pairs, one a lane; got {pairs}")
+    _check(_forward_smem_bytes(pairs, G) <= _STATIC_SMEM,
+           f"{k}: {pairs} pairs of {G} groups need {_forward_smem_bytes(pairs, G)} B of shared "
+           f"memory a block, more than {_STATIC_SMEM}")
+
+
+def _check_maps(k: str, maps, bs: int, cams: int, C: int, dev):
+    """Each map ``[bs, cams, H, W, C]``, one dtype, fp32 or bf16."""
+    for i, fm in enumerate(maps):
+        _check(fm.dim() == 5 and fm.shape[0] == bs and fm.shape[1] == cams
+               and fm.shape[-1] == C,
+               f"{k}: level {i} must be [bs, cams, H, W, C], got {tuple(fm.shape)}")
+        _check(fm.dtype == maps[0].dtype, f"{k}: the levels must share one dtype")
+        _check_tensor(f"level {i}", fm, dev, (torch.float32, torch.bfloat16), k)
+
+
+def _check_k1_bwd(k: str, fm, px, py, wg, bs: int, cams: int):
+    """Validate K1-bwd's inputs -> (B, H, W, C, M, G)."""
     _check(fm.is_cuda, f"{k}: takes CUDA tensors, got {fm.device}")
     dev = fm.device
     _check(fm.dim() == 4 and fm.shape[0] == bs * cams,
@@ -195,8 +223,7 @@ def _check_k2(k: str, fine_maps, cam, x, y, w, cam_k: int):
     _check(x.is_cuda, f"{k}: takes CUDA tensors, got {x.device}")
     dev = x.device
     nlev = len(fine_maps)
-    _check(1 <= nlev <= _MAX_FINE_LEVELS,
-           f"{k}: takes 1..{_MAX_FINE_LEVELS} fine levels, got {nlev}")
+    _check(1 <= nlev <= _MAX_LEVELS, f"{k}: takes 1..{_MAX_LEVELS} fine levels, got {nlev}")
     _check(x.dim() == 2 and x.shape == y.shape == cam.shape,
            f"{k}: cam, x, y must be [bs, M], got {tuple(cam.shape)}, "
            f"{tuple(x.shape)}, {tuple(y.shape)}")
@@ -207,15 +234,10 @@ def _check_k2(k: str, fine_maps, cam, x, y, w, cam_k: int):
     G = w.shape[3]
     cams, C = fine_maps[0].shape[1], fine_maps[0].shape[-1]
     _check_channels(k, C, G)
-    fm_dtype = fine_maps[0].dtype
+    _check_maps(k, fine_maps, bs, cams, C, dev)
     for i, fm in enumerate(fine_maps):
-        _check(fm.dim() == 5 and fm.shape[0] == bs and fm.shape[1] == cams
-               and fm.shape[-1] == C,
-               f"{k}: level {i} must be [bs, cams, H, W, C], got {tuple(fm.shape)}")
         _check(fm.shape[2] >= 2 and fm.shape[3] >= 2,
                f"{k}: level {i} needs H, W >= 2, got {tuple(fm.shape)}")
-        _check(fm.dtype == fm_dtype, f"{k}: fine levels must share one dtype")
-        _check_tensor(f"level {i}", fm, dev, (torch.float32, torch.bfloat16), k)
     _check_tensor("cam", cam, dev, (torch.int32,), k)
     for name, t in (("x", x), ("y", y), ("w", w)):
         _check_tensor(name, t, dev, (torch.float32,), k)
@@ -223,7 +245,7 @@ def _check_k2(k: str, fine_maps, cam, x, y, w, cam_k: int):
 
 
 def _level_args(fine_maps):
-    pad = _MAX_FINE_LEVELS - len(fine_maps)
+    pad = _MAX_LEVELS - len(fine_maps)
     return ([fm.shape[2] for fm in fine_maps] + [0] * pad,
             [fm.shape[3] for fm in fine_maps] + [0] * pad)
 
@@ -233,41 +255,72 @@ def _launched(k: str, err: int):
         raise RuntimeError(f"{k}: launch failed with CUDA error {err}")
 
 
-class InterpSampleCamsum:
-    """K1 (``csrc/interp_sample.cu``): coarse-level bilinear sampling summed
-    over cameras; replaces ``hipad_tpu/ops/pallas_interp.py:
-    interp_matmul_pallas`` plus the camera sum of ``interp_matmul_camsum``.
-    Plain version: ``ops/sampling.py:interp_matmul_camsum``."""
+class CoarseSample:
+    """K1 (``csrc/interp_sample.cu``): every coarse level's bilinear samples
+    summed over cameras and levels and added to ``acc``, in one launch;
+    replaces ``hipad_tpu/ops/pallas_interp.py:interp_matmul_pallas`` with the
+    camera sum of ``interp_matmul_camsum`` and the coarse-level loop of
+    ``deformable_samples_topk_flat``. Plain version:
+    ``ops/sampling.py:coarse_sample_plain``."""
 
-    name = "interp_sample_camsum"
+    name = "coarse_sample"
 
     def __init__(self):
         self.launches = 0
 
-    def __call__(self, fm: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
-                 wg: torch.Tensor, bs: int, cams: int) -> torch.Tensor:
-        """fm ``[bs*cams, H, W, C]`` fp32|bf16; px, py ``[bs*cams, M]`` fp32
-        pixel coordinates; wg ``[bs*cams, M, G]`` fp32 -> ``[bs, M, C]`` fp32."""
-        k = "K1 interp_sample_camsum"
-        B, H, W, C, M, G = _check_k1(k, fm, px, py, wg, bs, cams)
-        out = torch.empty(bs, M, C, dtype=torch.float32, device=fm.device)
+    def __call__(self, acc, maps: Sequence[torch.Tensor], points: torch.Tensor,
+                 weights: torch.Tensor, levels: Sequence[int]) -> torch.Tensor:
+        """acc ``[bs, M0, C]`` fp32 or None; maps: ``[bs, cams, H_l, W_l, C]``
+        fp32|bf16 (one dtype), ``maps[i]`` at index ``levels[i]`` of the
+        weights' level axis; points ``[bs, M0, cams, 2]`` fp32 normalised;
+        weights ``[bs, M0, cams, L, G]`` fp32|bf16 -> ``[bs, M0, C]`` fp32."""
+        k = "K1 coarse_sample"
+        _check(points.is_cuda, f"{k}: takes CUDA tensors, got {points.device}")
+        dev = points.device
+        _check(points.dim() == 4 and points.shape[-1] == 2,
+               f"{k}: points must be [bs, M0, cams, 2], got {tuple(points.shape)}")
+        bs, M0, cams, _ = points.shape
+        _check(weights.dim() == 5 and weights.shape[:3] == (bs, M0, cams),
+               f"{k}: weights must be [bs, M0, cams, L, G], got {tuple(weights.shape)}")
+        L, G = weights.shape[3:]
+        nlev = len(maps)
+        _check(1 <= nlev <= _MAX_LEVELS and len(levels) == nlev
+               and all(0 <= l < L for l in levels),
+               f"{k}: takes 1..{_MAX_LEVELS} maps, each with its level index in [0, {L}); "
+               f"got {nlev} maps, levels {tuple(levels)}")
+        C = maps[0].shape[-1]
+        _check_channels(k, C, G)
+        _check_pairs(k, nlev * cams, G)
+        _check_maps(k, maps, bs, cams, C, dev)
+        _check_tensor("points", points, dev, (torch.float32,), k)
+        _check_tensor("weights", weights, dev, (torch.float32, torch.bfloat16), k)
+        if acc is not None:
+            _check(acc.shape == (bs, M0, C),
+                   f"{k}: acc must be [bs, M0, C], got {tuple(acc.shape)}")
+            _check_tensor("acc", acc, dev, (torch.float32,), k)
+        out = torch.empty(bs, M0, C, dtype=torch.float32, device=dev)
+        pad = [0] * (_MAX_LEVELS - nlev)
+        hs, ws = _level_args(maps)
         lib = library().lib
-        with torch.cuda.device(fm.device):
-            err = lib.hipad_interp_sample_camsum(
-                fm.data_ptr(), int(fm.dtype == torch.bfloat16), px.data_ptr(),
-                py.data_ptr(), wg.data_ptr(), out.data_ptr(),
-                bs, cams, H, W, C, G, M, _stream(fm.device))
+        with torch.cuda.device(dev):
+            err = lib.hipad_coarse_sample(
+                *[fm.data_ptr() for fm in maps], *pad, *hs, *ws, *levels, *pad, nlev,
+                int(maps[0].dtype == torch.bfloat16), None if acc is None else acc.data_ptr(),
+                points.data_ptr(), weights.data_ptr(), int(weights.dtype == torch.bfloat16),
+                out.data_ptr(), bs, M0, cams, L, C, G, _stream(dev))
         _launched(k, err)
         self.launches += 1
         return out
 
 
 class InterpSampleCamsumBwd:
-    """K1-bwd (``csrc/interp_sample_bwd.cu``): the adjoint of K1; replaces
+    """K1-bwd (``csrc/interp_sample_bwd.cu``): the adjoint of one coarse
+    level of K1 (``ops/sampling.py:interp_matmul_camsum``), called once per
+    level by K1's autograd Function; replaces
     ``hipad_tpu/ops/sampling.py:_interp_matmul_tpu_bwd``. Plain version:
-    autograd through ``ops/sampling.py:interp_matmul_camsum``. One call makes
-    two launches: the sample blocks (d px, d py, d wg) and the tile blocks
-    (d fm, tiled by :func:`k1_bwd_tiling`)."""
+    autograd through ``interp_matmul_camsum``. One call makes two launches:
+    the sample blocks (d px, d py, d wg) and the tile blocks (d fm, tiled by
+    :func:`k1_bwd_tiling`)."""
 
     name = "interp_sample_camsum_bwd"
 
@@ -275,12 +328,14 @@ class InterpSampleCamsumBwd:
         self.launches = 0
 
     def __call__(self, fm, px, py, wg, gout: torch.Tensor, bs: int, cams: int):
-        """K1's inputs and ``gout [bs, M, C]`` fp32, the gradient of its
-        output -> (d fm ``[bs*cams, H, W, C]`` in ``fm``'s dtype, summed in
+        """One level's camera-major inputs (fm ``[bs*cams, H, W, C]`` fp32|bf16;
+        px, py ``[bs*cams, M]`` fp32 pixel coordinates; wg ``[bs*cams, M, G]``
+        fp32) and ``gout [bs, M, C]`` fp32, the gradient of the level's
+        camera sum -> (d fm ``[bs*cams, H, W, C]`` in ``fm``'s dtype, summed in
         fp32 and rounded once; d px, d py ``[bs*cams, M]`` and d wg
         ``[bs*cams, M, G]`` fp32)."""
         k = "K1-bwd interp_sample_camsum_bwd"
-        B, H, W, C, M, G = _check_k1(k, fm, px, py, wg, bs, cams)
+        B, H, W, C, M, G = _check_k1_bwd(k, fm, px, py, wg, bs, cams)
         _check(gout.shape == (bs, M, C), f"{k}: gout must be [bs, M, C], got {tuple(gout.shape)}")
         _check_tensor("gout", gout, fm.device, (torch.float32,), k)
         ct, s, smem = k1_bwd_tiling(B, H, W, C, G)
@@ -321,8 +376,9 @@ class PatchSample:
         fp32; ``M = M0*cam_k`` -> ``[bs, M0, C]`` fp32."""
         k = "K2 patch_sample"
         bs, M0, cams, C, G = _check_k2(k, fine_maps, cam, x, y, w, cam_k)
+        _check_pairs(k, cam_k * len(fine_maps), G)
         out = torch.empty(bs, M0, C, dtype=torch.float32, device=x.device)
-        ptrs = [fm.data_ptr() for fm in fine_maps] + [0] * (_MAX_FINE_LEVELS - len(fine_maps))
+        ptrs = [fm.data_ptr() for fm in fine_maps] + [0] * (_MAX_LEVELS - len(fine_maps))
         hs, ws = _level_args(fine_maps)
         lib = library().lib
         with torch.cuda.device(x.device):
@@ -362,7 +418,7 @@ class PatchSampleBwd:
         dx = torch.empty_like(x)
         dy = torch.empty_like(y)
         dw = torch.empty_like(w)
-        pad = [0] * (_MAX_FINE_LEVELS - len(fine_maps))
+        pad = [0] * (_MAX_LEVELS - len(fine_maps))
         hs, ws = _level_args(fine_maps)
         lib = library().lib
         with torch.cuda.device(dev):
@@ -414,12 +470,12 @@ class RowGather:
         return out
 
 
-interp_sample_camsum = InterpSampleCamsum()
+coarse_sample = CoarseSample()
 interp_sample_camsum_bwd = InterpSampleCamsumBwd()
 patch_sample = PatchSample()
 patch_sample_bwd = PatchSampleBwd()
 gather_rows_f32 = RowGather("gather_rows_f32", "P2", torch.float32, 1)
 gather_rows_bf16 = RowGather("gather_rows_bf16", "P3", torch.bfloat16, 1)
 gather_rows_f32_every8 = RowGather("gather_rows_f32_every8", "P4", torch.float32, 8)
-KERNELS = (interp_sample_camsum, patch_sample, interp_sample_camsum_bwd, patch_sample_bwd,
+KERNELS = (coarse_sample, patch_sample, interp_sample_camsum_bwd, patch_sample_bwd,
            gather_rows_f32, gather_rows_bf16, gather_rows_f32_every8)

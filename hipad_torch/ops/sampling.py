@@ -12,9 +12,10 @@ with channels split into ``G`` contiguous groups.
 
 Two functions dispatch by device and by nothing else:
 
-  * :func:`interp_sample_camsum` (coarse levels, counterpart of the Pallas
-    kernel ``interp_matmul_pallas`` plus the camera sum) -> kernel K1, with
-    K1-bwd as its gradient;
+  * :func:`coarse_sample` (every coarse level, counterpart of the Pallas
+    kernel ``interp_matmul_pallas`` plus the camera sum and the coarse-level
+    loop of ``deformable_samples_topk_flat``) -> kernel K1, one launch for
+    all coarse levels, with K1-bwd (one launch per level) as its gradient;
   * :func:`patch_sample` (fine levels, counterpart of ``patch_bilinear_w`` as
     driven by ``deformable_samples_topk_flat``) -> kernel K2, with K2-bwd as
     its gradient.
@@ -132,40 +133,14 @@ def interp_matmul_level(
 
 
 def interp_matmul_camsum(fm, px, py, wg, bs: int, cams: int) -> torch.Tensor:
-    """Plain version of K1: :func:`interp_matmul_level` summed over the
+    """One coarse level of K1's plain version (:func:`coarse_sample_plain`
+    sums it over the levels): :func:`interp_matmul_level` summed over the
     camera axis -> ``[bs, M, C]`` float32. ``fm`` is ``[bs*cams, H, W, C]``,
     ``px, py`` are ``[bs*cams, M]`` pixel coordinates, ``wg [bs*cams, M, G]``."""
     B, M = px.shape
     C = fm.shape[-1]
     c = interp_matmul_level(fm, px, py, wg, wg.shape[-1])
     return c.reshape(bs, cams, M, C).sum(dim=1)
-
-
-class _InterpSampleCamsum(torch.autograd.Function):
-    """K1 forward, K1-bwd backward."""
-
-    @staticmethod
-    def forward(ctx, fm, px, py, wg, bs: int, cams: int):
-        ctx.save_for_backward(fm, px, py, wg)
-        ctx.bs, ctx.cams = bs, cams
-        return kernels.interp_sample_camsum(fm, px, py, wg, bs, cams)
-
-    @staticmethod
-    def backward(ctx, gout):
-        fm, px, py, wg = ctx.saved_tensors
-        dfm, dpx, dpy, dwg = kernels.interp_sample_camsum_bwd(
-            fm, px, py, wg, gout.float().contiguous(), ctx.bs, ctx.cams)
-        return dfm, dpx, dpy, dwg, None, None  # dfm in fm's dtype
-
-
-def interp_sample_camsum(fm, px, py, wg, bs: int, cams: int) -> torch.Tensor:
-    """Coarse-level sampling summed over cameras -> ``[bs, M, C]`` float32.
-    A CPU tensor takes :func:`interp_matmul_camsum`; anything else takes
-    kernel K1 (``kernels.interp_sample_camsum``) and, for its gradient,
-    K1-bwd; both raise off the card."""
-    if fm.device.type == "cpu":
-        return interp_matmul_camsum(fm, px, py, wg, bs, cams)
-    return _InterpSampleCamsum.apply(fm, px, py, wg, bs, cams)
 
 
 def patch_sample_plain(
@@ -245,6 +220,122 @@ def patch_sample(fine_maps, cam, x, y, w, cam_k: int) -> torch.Tensor:
     return _PatchSample.apply(cam, x, y, w, cam_k, *fine_maps)
 
 
+def _coarse_inputs(points_2d: torch.Tensor, weights: torch.Tensor):
+    """The camera-major inputs of :func:`interp_matmul_camsum` for every
+    level: ``xf, yf [bs*cams, M0]`` normalised coordinates (fp32), ``insf
+    [bs*cams, M0]`` the inside mask and ``wf [bs*cams, M0, L, G]`` the
+    weights in fp32 times the mask."""
+    bs, M0, num_cams, _ = points_2d.shape
+    num_levels, groups = weights.shape[-2:]
+    B = bs * num_cams
+    xf = points_2d[..., 0].permute(0, 2, 1).reshape(B, M0).float()
+    yf = points_2d[..., 1].permute(0, 2, 1).reshape(B, M0).float()
+    insf = _inside(points_2d).permute(0, 2, 1).reshape(B, M0)
+    wf = weights.permute(0, 2, 1, 3, 4).reshape(B, M0, num_levels, groups)
+    return xf, yf, insf, wf.float() * insf[..., None, None]
+
+
+def coarse_sample_plain(acc, coarse_maps: Sequence[torch.Tensor], points_2d: torch.Tensor,
+                        weights: torch.Tensor, levels: Sequence[int]) -> torch.Tensor:
+    """Plain version of K1: ``acc`` (``[bs, M0, C]`` float32, or ``None`` for
+    zero) plus :func:`interp_matmul_camsum` of each coarse level, added in
+    the order given -> ``[bs, M0, C]`` float32.
+
+    Args:
+      coarse_maps: per-level ``[bs, cams, H, W, C]`` maps, ``coarse_maps[i]``
+        at index ``levels[i]`` of the weights' level axis.
+      points_2d: ``[bs, M0, cams, 2]`` normalised (x, y).
+      weights: ``[bs, M0, cams, L, G]``.
+
+    Each level samples at pixel coordinates ``x * W - 0.5``, ``y * H - 0.5``
+    with the group weights ``weights[..., l, :]`` in fp32 times the inside
+    mask (:func:`_inside`), on all cameras.
+    """
+    bs, M0, num_cams, _ = points_2d.shape
+    B = bs * num_cams
+    xf, yf, _, wf = _coarse_inputs(points_2d, weights)
+    out = acc
+    for lvl, feat in zip(levels, coarse_maps):
+        h_l, w_l = feat.shape[2], feat.shape[3]
+        term = interp_matmul_camsum(
+            feat.reshape(B, h_l, w_l, feat.shape[-1]),
+            (xf * w_l - 0.5).contiguous(), (yf * h_l - 0.5).contiguous(),
+            wf[:, :, lvl].contiguous(), bs, num_cams)
+        out = term if out is None else out + term
+    return out
+
+
+def coarse_sample_backward(gout: torch.Tensor, coarse_maps: Sequence[torch.Tensor],
+                           points_2d: torch.Tensor, weights: torch.Tensor,
+                           levels: Sequence[int], level_adjoint):
+    """The adjoint of :func:`coarse_sample_plain` for the maps, the points and
+    the weights (that of ``acc`` is ``gout`` itself).
+
+    ``level_adjoint(fm, px, py, wg, gout, bs, cams) -> (d fm, d px, d py,
+    d wg)`` is the adjoint of :func:`interp_matmul_camsum` on one level's
+    camera-major inputs: K1-bwd (``kernels.interp_sample_camsum_bwd``) on the
+    card; a test passes autograd of the plain version. The chain maps
+    ``d px * W`` and ``d py * H`` back to the points and ``d wg * inside`` to
+    the weights, zero on the levels not sampled -> (per-level d maps, d
+    points in the points' dtype, d weights in the weights' dtype).
+    """
+    bs, M0, num_cams, _ = points_2d.shape
+    num_levels, groups = weights.shape[-2:]
+    B = bs * num_cams
+    xf, yf, insf, wf = _coarse_inputs(points_2d, weights)
+    gout = gout.float().contiguous()
+    dxy = None
+    dw = torch.zeros_like(wf)
+    dmaps = []
+    for lvl, feat in zip(levels, coarse_maps):
+        h_l, w_l = feat.shape[2], feat.shape[3]
+        dfm, dpx, dpy, dwg = level_adjoint(
+            feat.reshape(B, h_l, w_l, feat.shape[-1]),
+            (xf * w_l - 0.5).contiguous(), (yf * h_l - 0.5).contiguous(),
+            wf[:, :, lvl].contiguous(), gout, bs, num_cams)
+        dmaps.append(dfm.reshape(feat.shape))
+        d = torch.stack([dpx * w_l, dpy * h_l], dim=-1)
+        dxy = d if dxy is None else dxy + d
+        dw[:, :, lvl] += dwg
+    dpoints = dxy.reshape(bs, num_cams, M0, 2).permute(0, 2, 1, 3)
+    dweights = (dw * insf[..., None, None]).reshape(bs, num_cams, M0, num_levels, groups)
+    return (dmaps, dpoints.to(points_2d.dtype),
+            dweights.permute(0, 2, 1, 3, 4).to(weights.dtype))
+
+
+class _CoarseSample(torch.autograd.Function):
+    """K1 forward (one launch); backward through K1-bwd, one call per coarse
+    level, and the chain of :func:`coarse_sample_backward`. The maps ride
+    last in ``*maps``."""
+
+    @staticmethod
+    def forward(ctx, acc, points_2d, weights, levels, *maps):
+        ctx.save_for_backward(points_2d, weights, *maps)
+        ctx.levels = levels
+        return kernels.coarse_sample(acc, list(maps), points_2d, weights, levels)
+
+    @staticmethod
+    def backward(ctx, gout):
+        points_2d, weights, *maps = ctx.saved_tensors
+        dmaps, dpoints, dweights = coarse_sample_backward(
+            gout, maps, points_2d, weights, ctx.levels, kernels.interp_sample_camsum_bwd)
+        dacc = gout if ctx.needs_input_grad[0] else None
+        return (dacc, dpoints, dweights, None, *dmaps)
+
+
+def coarse_sample(acc, coarse_maps: Sequence[torch.Tensor], points_2d: torch.Tensor,
+                  weights: torch.Tensor, levels: Sequence[int]) -> torch.Tensor:
+    """``acc`` plus every coarse level's camera-summed sample ->
+    ``[bs, M0, C]`` float32 (:func:`coarse_sample_plain` says what). A CPU
+    tensor takes the plain version; anything else takes kernel K1
+    (``kernels.coarse_sample``) and, for its gradient, K1-bwd; both raise
+    off the card."""
+    if points_2d.device.type == "cpu":
+        return coarse_sample_plain(acc, coarse_maps, points_2d, weights, levels)
+    return _CoarseSample.apply(acc, points_2d.float().contiguous(), weights.contiguous(),
+                               tuple(levels), *coarse_maps)
+
+
 def deformable_samples_topk_flat(
     feature_maps: Sequence[torch.Tensor],
     points_2d: torch.Tensor,  # [bs, M0, cams, 2]
@@ -258,14 +349,14 @@ def deformable_samples_topk_flat(
     Each sample keeps the ``cam_k`` cameras ranked by in-bounds-ness (ties to
     the lowest camera index, as the JAX package's ``topk_by_argmax``). With
     ``cam_renorm`` the kept cameras' (level, group) weights are rescaled to
-    the full in-bounds mass (floor ``1e-9``). The levels in ``matmul_levels``
-    are sampled on all cameras by :func:`interp_sample_camsum` (one launch of
-    K1 each on the card); the other levels by :func:`patch_sample` on the
-    compacted samples (one launch of K2).
+    the full in-bounds mass (floor ``1e-9``). The levels not in
+    ``matmul_levels`` are sampled by :func:`patch_sample` on the compacted
+    samples (one launch of K2 on the card), then the levels in it by
+    :func:`coarse_sample` on all cameras, added to K2's sum (one launch of
+    K1 for all of them).
     """
     bs, M0, num_cams, _ = points_2d.shape
     num_levels = len(feature_maps)
-    channels = feature_maps[0].shape[-1]
     groups = weights.shape[-1]
     cam_k = min(cam_k, num_cams)
 
@@ -284,11 +375,11 @@ def deformable_samples_topk_flat(
         w = w * (full / torch.clamp(kept, min=1e-9))[:, :, None]
 
     M = M0 * cam_k
-    out = torch.zeros(bs, M0, channels, dtype=torch.float32, device=points_2d.device)
+    out = None
     fine = [l for l in range(num_levels) if l not in matmul_levels]
     if fine:
         w_fine = w.reshape(bs, M, num_levels, groups)[:, :, fine].float().contiguous()
-        out = out + patch_sample(
+        out = patch_sample(
             [feature_maps[l] for l in fine],
             cam_idx.reshape(bs, M).to(torch.int32),
             pts[..., 0].reshape(bs, M).float().contiguous(),
@@ -297,19 +388,7 @@ def deformable_samples_topk_flat(
 
     coarse = [l for l in matmul_levels if l < num_levels]
     if coarse:
-        B = bs * num_cams
-        xf = points_2d[..., 0].permute(0, 2, 1).reshape(B, M0).float()
-        yf = points_2d[..., 1].permute(0, 2, 1).reshape(B, M0).float()
-        insf = inside.permute(0, 2, 1).reshape(B, M0)
-        wf = weights.permute(0, 2, 1, 3, 4).reshape(B, M0, num_levels, groups)
-        wf = wf.float() * insf[..., None, None]
-        for lvl in coarse:
-            feat = feature_maps[lvl]
-            h_l, w_l = feat.shape[2], feat.shape[3]
-            out = out + interp_sample_camsum(
-                feat.reshape(B, h_l, w_l, channels),
-                (xf * w_l - 0.5).contiguous(), (yf * h_l - 0.5).contiguous(),
-                wf[:, :, lvl].contiguous(), bs, num_cams)
+        out = coarse_sample(out, [feature_maps[l] for l in coarse], points_2d, weights, coarse)
     return out.to(weights.dtype)
 
 

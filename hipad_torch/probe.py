@@ -27,7 +27,7 @@ import time
 import torch
 
 FAMILIES = (  # first match wins, on the lower-cased kernel name
-    ("K1 interp_sample_camsum", ("interp_sample_camsum_kernel",)),
+    ("K1 coarse_sample", ("coarse_sample_kernel",)),
     ("K1-bwd sample blocks", ("interp_sample_camsum_bwd_samples",)),
     ("K1-bwd tile blocks", ("interp_sample_camsum_bwd_tiles",)),
     ("K2 patch_sample", ("patch_sample_kernel",)),

@@ -112,17 +112,38 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     fine = [torch.zeros(1, 2, 4, 5, 32)]
     cam = torch.zeros(1, 6, dtype=torch.int32)
     x, w = torch.zeros(1, 6), torch.ones(1, 6, 1, 4)
+    pts, wts = torch.full((1, 3, 2, 2), 0.5), torch.ones(1, 3, 2, 4, 4)
     with pytest.raises(ValueError, match="CUDA"):
-        kernels.interp_sample_camsum(fm, px, px, wg, 1, 2)
+        kernels.coarse_sample(torch.zeros(1, 3, 32), fine, pts, wts, [2])
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.coarse_sample(None, fine, pts, wts, [2])
     with pytest.raises(ValueError, match="CUDA"):
         kernels.interp_sample_camsum_bwd(fm, px, px, wg, torch.zeros(1, 7, 32), 1, 2)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.patch_sample(fine, cam, x, x, w, 2)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.patch_sample_bwd(fine, cam, x, x, w, torch.zeros(1, 3, 32), 2)
-    for k in (kernels.interp_sample_camsum, kernels.interp_sample_camsum_bwd,
+    for k in (kernels.coarse_sample, kernels.interp_sample_camsum_bwd,
               kernels.patch_sample, kernels.patch_sample_bwd):
         assert k.launches == 0, k.name
+
+
+@pytest.mark.parametrize("config", ["stage2", "stage2_serving_det", "tiny"])
+def test_launch_plan_counts_one_k1_launch_per_call(config):
+    """``chip_smoke.py`` holds each path's launches to its op program: per
+    deformable call one K1 for all coarse levels, one K2 for all fine
+    levels, one K1-bwd per coarse level and one K2-bwd."""
+    import chip_smoke
+    from hipad_torch.configs import model as configs
+
+    cfg = getattr(configs, config)()
+    n_deform, per_call = chip_smoke._launch_plan(cfg)
+    assert n_deform == cfg.operation_order.count("deformable") * len(cfg.query_select)
+    coarse = [l for l in cfg.sampler_matmul_levels if l < cfg.num_levels]
+    assert per_call == {"coarse_sample": 1, "patch_sample": 1,
+                        "interp_sample_camsum_bwd": len(coarse), "patch_sample_bwd": 1}
+    if config != "tiny":
+        assert (n_deform, len(coarse)) == (24, 2)
 
 
 def test_model_is_built_on_the_card_by_default():

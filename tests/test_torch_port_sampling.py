@@ -73,7 +73,8 @@ def _interp_inputs(rng, dtype):
 
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 def test_interp_sample_camsum_plain_matches_jax(dtype):
-    """K1's plain version (the CPU path of ``interp_sample_camsum``) against
+    """One coarse level of K1's plain version (``interp_matmul_camsum``, which
+    ``coarse_sample_plain`` sums over the levels) against the JAX package's
     ``interp_matmul_camsum``. bf16: JAX rounds the interpolation weights to
     bf16 before its product (relative error <= 2^-8 per weight), the port
     keeps them fp32, so 1e-2 of the largest value."""
@@ -83,7 +84,7 @@ def test_interp_sample_camsum_plain_matches_jax(dtype):
     ref = jsam.interp_matmul_camsum(jfm, jnp.asarray(px), jnp.asarray(py),
                                     jnp.asarray(wg), G, BS, CAMS)
     tfm = torch.from_numpy(fm).to(torch.bfloat16 if dtype == "bf16" else torch.float32)
-    got = tsam.interp_sample_camsum(tfm, torch.from_numpy(px), torch.from_numpy(py),
+    got = tsam.interp_matmul_camsum(tfm, torch.from_numpy(px), torch.from_numpy(py),
                                     torch.from_numpy(wg), BS, CAMS)
     _assert_close(got, ref, FP32_RTOL if dtype == "fp32" else 1e-2, "interp_sample_camsum")
 
@@ -117,7 +118,7 @@ def test_pallas_kernel_interpret_matches_port(monkeypatch):
     out = np.asarray(out, np.float32)
     assert out.shape[1] % pallas_interp.TILE == 0 and out.shape[1] >= m
     ref = out[:, :m].reshape(BS, CAMS, m, C).sum(axis=1)
-    got = tsam.interp_sample_camsum(torch.from_numpy(fm).to(torch.bfloat16),
+    got = tsam.interp_matmul_camsum(torch.from_numpy(fm).to(torch.bfloat16),
                                     torch.from_numpy(px), torch.from_numpy(py),
                                     torch.from_numpy(wg), BS, CAMS)
     _assert_close(got, ref, 1e-2, "interp_matmul_pallas (interpret)")
@@ -152,6 +153,90 @@ def test_patch_sample_plain_matches_jax():
                             torch.from_numpy(x), torch.from_numpy(y), torch.from_numpy(w),
                             cam_k)
     _assert_close(got, ref, FP32_RTOL, "patch_sample")
+
+
+def _coarse_inputs(rng, m0=120):
+    """Coarse maps of levels 2-3, ``[BS, m0, CAMS, 2]`` points reaching past
+    the unit square (outside: masked), a few exactly on its borders 0 and 1
+    (outside too), and every 7th on level 2's pixel centres (integer pixel
+    coordinates: the hat weights' kinks), the weights of all 4 levels and an
+    acc."""
+    maps = _maps(rng)[2:]
+    pts = rng.uniform(-0.3, 1.3, (BS, m0, CAMS, 2)).astype(np.float32)
+    h2, w2 = LEVEL_HW[2]
+    pts[:, ::7, :, 0] = (rng.integers(0, w2, (BS, len(range(0, m0, 7)), CAMS)) + 0.5) / w2
+    pts[:, ::7, :, 1] = (rng.integers(0, h2, (BS, len(range(0, m0, 7)), CAMS)) + 0.5) / h2
+    pts[0, 1, :, 0] = (0.0, 1.0, 0.5, 0.5)[:CAMS]
+    w = rng.uniform(0, 1, (BS, m0, CAMS, len(LEVEL_HW), G)).astype(np.float32)
+    acc = rng.standard_normal((BS, m0, C)).astype(np.float32)
+    return maps, pts.astype(np.float32), w, acc
+
+
+def _jax_coarse_loop(acc, maps, pts, w, levels):
+    """The JAX package's coarse-level loop of ``deformable_samples_topk_flat``
+    (``hipad_tpu/ops/sampling.py:849-870``) on its own: camera-major
+    coordinates, weights times the inside mask, then ``interp_matmul_camsum``
+    of each level added to ``acc`` in turn."""
+    bs, m0, cams, _ = pts.shape
+    num_levels, groups = w.shape[-2:]
+    inside = jnp.all((pts > 0.0) & (pts < 1.0), axis=-1)
+    bfull = bs * cams
+    xf = jnp.transpose(pts[..., 0], (0, 2, 1)).reshape(bfull, m0)
+    yf = jnp.transpose(pts[..., 1], (0, 2, 1)).reshape(bfull, m0)
+    insf = jnp.transpose(inside, (0, 2, 1)).reshape(bfull, m0)
+    wf = jnp.transpose(w, (0, 2, 1, 3, 4)).reshape(
+        bfull, m0, num_levels, groups) * insf[..., None, None]
+    out = jnp.zeros((bs, m0, C), jnp.float32) if acc is None else acc
+    for lvl, feat in zip(levels, maps):
+        h_l, w_l = feat.shape[2], feat.shape[3]
+        contrib = jsam.interp_matmul_camsum(feat.reshape(bfull, h_l, w_l, C), xf * w_l - 0.5,
+                                            yf * h_l - 0.5, wf[:, :, lvl], groups, bs, cams)
+        out = out + contrib.astype(out.dtype)
+    return out
+
+
+@pytest.mark.parametrize("with_acc", [True, False])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_coarse_sample_plain_matches_jax(dtype, with_acc):
+    """K1's plain version (``coarse_sample_plain``, the CPU path of
+    ``coarse_sample``) against the JAX package's coarse loop, with and
+    without acc. bf16: the port takes bf16 maps and weights and reads them
+    into fp32; JAX gets the same values as fp32 maps (its bf16 path rounds
+    the interpolation weights to bf16) and the bf16 weights, which it
+    multiplies in fp32 too."""
+    rng = np.random.default_rng(9)
+    maps, pts, w, acc = _coarse_inputs(rng)
+    levels = (2, 3)
+    if dtype == "bf16":
+        maps = [np.array(jnp.asarray(f, jnp.bfloat16).astype(jnp.float32)) for f in maps]
+        jw = jnp.asarray(w, jnp.bfloat16)
+        tmaps = [torch.from_numpy(f).to(torch.bfloat16) for f in maps]
+        tw = torch.from_numpy(w).to(torch.bfloat16)
+    else:
+        jw, tmaps, tw = jnp.asarray(w), [torch.from_numpy(f) for f in maps], torch.from_numpy(w)
+    ref = _jax_coarse_loop(jnp.asarray(acc) if with_acc else None,
+                           [jnp.asarray(f) for f in maps], jnp.asarray(pts), jw, levels)
+    got = tsam.coarse_sample(torch.from_numpy(acc) if with_acc else None, tmaps,
+                             torch.from_numpy(pts), tw, levels)
+    assert got.dtype == torch.float32
+    _assert_close(got, ref, FP32_RTOL, f"coarse_sample {dtype} acc={with_acc}")
+
+
+def test_coarse_loop_copy_is_the_packages():
+    """The test's copy of the JAX coarse loop is the package's: with zero
+    fine maps, ``deformable_samples_topk_flat`` returns the coarse levels'
+    sum alone, which ``coarse_sample_plain`` (no acc) matches too."""
+    rng = np.random.default_rng(10)
+    maps, pts, w, _ = _coarse_inputs(rng)
+    full = [np.zeros((BS, CAMS, h, wd, C), np.float32) for h, wd in LEVEL_HW[:2]] + maps
+    ref = jsam.deformable_samples_topk_flat([jnp.asarray(f) for f in full], jnp.asarray(pts),
+                                            jnp.asarray(w), cam_k=2, matmul_levels=(2, 3))
+    copy = _jax_coarse_loop(None, [jnp.asarray(f) for f in maps], jnp.asarray(pts),
+                            jnp.asarray(w), (2, 3))
+    _assert_close(torch.from_numpy(np.array(copy)), ref, FP32_RTOL, "coarse loop copy")
+    got = tsam.coarse_sample_plain(None, [torch.from_numpy(f) for f in maps],
+                                   torch.from_numpy(pts), torch.from_numpy(w), (2, 3))
+    _assert_close(got, ref, FP32_RTOL, "coarse_sample_plain vs topk_flat")
 
 
 @pytest.mark.parametrize("cam_renorm", [True, False])

@@ -88,10 +88,10 @@ def test_interp_camsum_grads_match_jax():
                      *map(jnp.asarray, (fm, px, py, wg)))
     ref = vjp(jnp.asarray(g))
     leaves = _leaves(fm, px, py, wg)
-    got = torch.autograd.grad(tsam.interp_sample_camsum(*leaves, BS, CAMS), leaves,
+    got = torch.autograd.grad(tsam.interp_matmul_camsum(*leaves, BS, CAMS), leaves,
                               torch.from_numpy(g))
     for name, a, b in zip(("fm", "px", "py", "wg"), got, ref):
-        _close(a, b, GRAD_RTOL, f"interp_sample_camsum d{name}")
+        _close(a, b, GRAD_RTOL, f"interp_matmul_camsum d{name}")
 
 
 class _InterpretPallas:
@@ -211,6 +211,106 @@ def test_topk_flat_grads_match_jax(cam_renorm):
         _close(a, b, GRAD_RTOL, f"topk_flat d level {lvl}")
     _close(got[4], ref_pts, GRAD_RTOL, "topk_flat d points")
     _close(got[5], ref_w, GRAD_RTOL, "topk_flat d weights")
+
+
+def _coarse_inputs(seed, dtype):
+    """Levels 2-3 of a 4-level pyramid, ``[BS, m0, CAMS, 2]`` points reaching
+    past the unit square, every 5th on level 2's pixel centres (integer pixel
+    coordinates: kinks), the weights of all 4 levels, an acc and the output's
+    gradient; maps and weights in ``dtype``."""
+    rng = np.random.default_rng(seed)
+    hw, m0 = ((6, 10), (3, 5)), 150
+    maps = [rng.standard_normal((BS, CAMS, h, w, C)).astype(np.float32) for h, w in hw]
+    pts = rng.uniform(-0.3, 1.3, (BS, m0, CAMS, 2)).astype(np.float32)
+    n = len(range(0, m0, 5))
+    pts[:, ::5, :, 0] = (rng.integers(0, hw[0][1], (BS, n, CAMS)) + 0.5) / hw[0][1]
+    pts[:, ::5, :, 1] = (rng.integers(0, hw[0][0], (BS, n, CAMS)) + 0.5) / hw[0][0]
+    w = rng.uniform(0, 1, (BS, m0, CAMS, 4, G)).astype(np.float32)
+    acc = rng.standard_normal((BS, m0, C)).astype(np.float32)
+    g = rng.standard_normal((BS, m0, C)).astype(np.float32)
+    tmaps = [torch.from_numpy(f).to(dtype) for f in maps]
+    return tmaps, torch.from_numpy(pts), torch.from_numpy(w).to(dtype), torch.from_numpy(acc), \
+        torch.from_numpy(g)
+
+
+def _plain_level_adjoint(fm, px, py, wg, gout, bs, cams):
+    """Autograd of ``interp_matmul_camsum``: what K1-bwd computes on the card
+    (also inside a backward, where grad mode is off)."""
+    leaves = [t.detach().requires_grad_() for t in (fm, px, py, wg)]
+    with torch.enable_grad():
+        return torch.autograd.grad(tsam.interp_matmul_camsum(*leaves, bs, cams), leaves, gout)
+
+
+def _coarse_plain_grads(maps, pts, w, acc, g, levels):
+    """Autograd through ``coarse_sample_plain`` -> (d acc, d maps, d points,
+    d weights)."""
+    lacc, lp, lw = (t.detach().clone().requires_grad_() for t in (acc, pts, w))
+    lm = [m.detach().clone().requires_grad_() for m in maps]
+    out = tsam.coarse_sample_plain(lacc, lm, lp, lw, levels)
+    got = torch.autograd.grad(out, [lacc, *lm, lp, lw], g)
+    return got[0], list(got[1:-2]), got[-2], got[-1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_coarse_sample_backward_chain_matches_autograd(dtype):
+    """The chain of K1's autograd Function (``coarse_sample_backward``: one
+    adjoint call per coarse level, then ``d px * W``, ``d py * H`` and
+    ``d wg * inside`` mapped back to the points and weights), run with
+    autograd of ``interp_matmul_camsum`` in K1-bwd's place, against autograd
+    through ``coarse_sample_plain``. Both take the same fp32 operations: the
+    gradients agree to GRAD_RTOL, and in bf16 (maps, weights) each is
+    rounded once from those fp32 values."""
+    maps, pts, w, acc, g = _coarse_inputs(41, dtype)
+    levels = (2, 3)
+    ref_acc, ref_maps, ref_pts, ref_w = _coarse_plain_grads(maps, pts, w, acc, g, levels)
+    dmaps, dpts, dw = tsam.coarse_sample_backward(g, maps, pts, w, levels, _plain_level_adjoint)
+    assert torch.equal(ref_acc, g)
+    assert [d.dtype for d in dmaps] == [dtype, dtype] and dw.dtype == dtype
+    for lvl, (a, b) in enumerate(zip(dmaps, ref_maps)):
+        _close(a, b.float(), GRAD_RTOL, f"coarse chain d level {levels[lvl]}")
+    _close(dpts, ref_pts, GRAD_RTOL, "coarse chain d points")
+    _close(dw, ref_w.float(), GRAD_RTOL, "coarse chain d weights")
+
+
+@pytest.mark.parametrize("with_acc", [True, False])
+def test_coarse_sample_function_wires_its_kernels(monkeypatch, with_acc):
+    """K1's autograd Function on the CPU, with the plain version standing in
+    for K1 and autograd of ``interp_matmul_camsum`` for K1-bwd: its forward
+    is ``coarse_sample_plain``, its gradients (acc passed through, or none
+    for ``acc=None``; maps, points, weights) are autograd's through it, and
+    it calls K1 once and K1-bwd once per coarse level."""
+    from hipad_torch.ops import kernels
+
+    calls = {"k1": 0, "k1_bwd": 0}
+
+    def k1(acc, maps, points, weights, levels):
+        calls["k1"] += 1
+        return tsam.coarse_sample_plain(acc, maps, points, weights, levels)
+
+    def k1_bwd(*args):
+        calls["k1_bwd"] += 1
+        return _plain_level_adjoint(*args)
+
+    monkeypatch.setattr(kernels, "coarse_sample", k1)
+    monkeypatch.setattr(kernels, "interp_sample_camsum_bwd", k1_bwd)
+    maps, pts, w, acc, g = _coarse_inputs(42, torch.float32)
+    levels = (2, 3)
+    ref_acc, ref_maps, ref_pts, ref_w = _coarse_plain_grads(maps, pts, w, acc, g, levels)
+    lacc = acc.clone().requires_grad_() if with_acc else None
+    lm = [m.clone().requires_grad_() for m in maps]
+    lp, lw = pts.clone().requires_grad_(), w.clone().requires_grad_()
+    out = tsam._CoarseSample.apply(lacc, lp, lw, levels, *lm)
+    ref_out = tsam.coarse_sample_plain(lacc, maps, pts, w, levels)
+    assert torch.equal(out, ref_out)
+    got = torch.autograd.grad(out, ([lacc] if with_acc else []) + lm + [lp, lw], g)
+    assert calls == {"k1": 1, "k1_bwd": len(levels)}
+    if with_acc:
+        assert torch.equal(got[0], g)
+        got = got[1:]
+    for lvl, (a, b) in enumerate(zip(got[:2], ref_maps)):
+        _close(a, b, GRAD_RTOL, f"K1 Function d level {levels[lvl]}")
+    _close(got[2], ref_pts, GRAD_RTOL, "K1 Function d points")
+    _close(got[3], ref_w, GRAD_RTOL, "K1 Function d weights")
 
 
 def test_hat_takes_the_jax_kink_conventions():
