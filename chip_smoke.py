@@ -14,26 +14,38 @@ Phases, one printed line (or a few) each; any failure exits non-zero:
      card, at the stage-2 shapes the main path gives it, fp32 and bf16
      feature maps; timed against the plain version and against
      ``F.grid_sample``, which computes a related but not the same function:
-     device time (calls queued back to back behind a sleep kernel) and, beside
+     device time (calls queued back to back behind a sleep kernel that
+     outlasts their queueing) and, beside
      it, the time of one call with its Python launch path;
   3b. each backward kernel (K1-bwd, K2-bwd) against ``torch.autograd.grad``
      of the plain version at the same shapes, every gradient output, fp32
      and bf16 maps, coordinates on the hat weights' kinks included; K1-bwd
-     also at bs=2 and on ``stage2_r101_2x()``'s 44x80 map; timed the same
-     way;
+     also at bs=2 and on ``stage2_r101_2x()``'s 44x80 and 88x160 maps (the
+     latter, 14,080 cells, in bands of rows); timed the same way;
   4. the serving path: ``stage2()`` with seeded random weights, bs=1, 2
      warm-up and 8 timed frames with the banks chained and a new image per
      frame, in fp32 and then under bf16 autocast; finite outputs; every
-     kernel's launch count over those frames; then frame 1 once more on the
-     CPU (plain path, fp32) against the card's fp32 frame 1;
+     kernel's launch count over those frames; the bf16 frames 0 and 1's
+     waypoints within the bf16/fp32 spread the CPU test allows on each of
+     the fp32 frames'; then frame 0 once more on the CPU (plain path, fp32)
+     against the card's fp32 frame 0;
   5. the training path: the stage-2 training step at bs=1 with seeded
-     random weights, dropout 0.1 and GridMask on, 2 warm-up and 6 timed
+     random weights, dropout 0.1 and GridMask on, 2 warm-up and 4 timed
      steps with the banks chained, fp32 and then bf16 autocast; finite
      losses and gradient norm, step time, peak memory, every kernel's launch
-     count against the op program's; then 6 rounds of one fp32 and one bf16
+     count against the op program's; then 3 rounds of one fp32 and one bf16
      step in turn, which compare the two on the host clock; then step 0
      without dropout and GridMask on the card and on the CPU plain path,
      loss by loss;
+  5b. the training CLI, ``python -m hipad_torch.tools.train`` (its
+     ``main``), at stage 2 in bf16: 4 optimizer steps of 2 micro-batches
+     unbroken (launches per step, step time, peak memory), then ``--resume``
+     from its step-2 checkpoint: the restored state bit for bit, step 3's
+     metrics and update against the unbroken run's;
+  5c. one ``stage1()`` training step, its kernel launches;
+  5d. two processes over gloo on the one card, each a stage-2 step at bs=1,
+     against one process at bs=2: step-0 metrics, and the parameters after
+     the update equal on both ranks;
   6. the serving frame: ``stage2_serving_det()`` (keypoint top-k, det-query
      pruning), bs=1, 2 warm-up and 8 timed chained frames with
      ``post_process_arrays``, fp32 then bf16 autocast; finite outputs; K1/K2
@@ -45,7 +57,7 @@ Phases, one printed line (or a few) each; any failure exits non-zero:
      (informational);
   7. the agent: ``AgentCore(stage2_serving_det())`` in fp32 over the fake
      simulator's 6 x 1600x900 uint8 cameras, JPEG q20 and the native
-     resize/crop, 2 warm-up and 20 ticks; every control finite and clipped;
+     resize/crop, 2 warm-up and 10 ticks; every control finite and clipped;
      the median host preprocessing and upload+inference per tick;
   8. the gather probes P2-P4 at the probe tool's shapes: the tool's own
      timed run (its launches), then each kernel against its plain version
@@ -90,6 +102,13 @@ KERNEL_RTOL = 1e-5
 # layers (each layer's anchors move its next keypoints, so differences grow
 # from layer to layer): |diff| <= E2E_RTOL * max|cpu| + E2E_ATOL.
 E2E_RTOL, E2E_ATOL = 1e-3, 1e-4
+# bf16 frame vs fp32 frame on the card, plan.final_waypoints, frame 0 (cold
+# banks) and frame 1 (on frame 0's banks): twice the relative bf16/fp32
+# spread of the JAX package's own frames on the same frame, as
+# tests/test_torch_bf16.py allows it at tiny() (which checks these bounds
+# against JAX's spread: 3.331e-4 of scale on the first frame, 1.249e-3 on
+# the second): |diff| <= BF16_FRAME_RTOL[i] * max|fp32|.
+BF16_FRAME_RTOL = (6.7e-4, 2.5e-3)
 
 
 def fail(msg: str):
@@ -201,8 +220,25 @@ def _times(fns):
     return _device_ms(fns), _timed(fns)
 
 
-QUEUED = "device time: 20 calls queued behind a sleep kernel, CUDA events, median of 5"
+QUEUED = ("device time: 20 calls (fewer where they fill the launch queue) queued behind a "
+          "sleep kernel that outlasts their queueing (checked), CUDA events, median of 5")
 TIMES = f"{QUEUED}, in turns plain/kernel/kernel/plain"
+# the longest sleep _device_ms puts before its calls; a function whose one call
+# takes longer than this to queue syncs with the host and cannot be timed so
+MAX_SLEEP_MS = 4000.0
+
+
+def _sleep_cycles_per_ms() -> float:
+    """Clock cycles of ``torch.cuda._sleep`` per millisecond on this card."""
+    import torch
+
+    torch.cuda._sleep(1_000_000)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(20_000_000)
+    end.record()
+    end.synchronize()
+    return 20_000_000 / start.elapsed_time(end)
 
 
 def _device_ms(fns, iters=20, reps=5):
@@ -210,23 +246,48 @@ def _device_ms(fns, iters=20, reps=5):
     queued behind a ``torch.cuda._sleep`` kernel, so that the card runs them
     back to back, timed by CUDA events around them; the median of ``reps``
     -> list of ms. Unlike events around one call, it leaves out the host's
-    time to launch, which dominates a copy of a few microseconds."""
+    time to launch, which dominates a copy of a few microseconds.
+
+    The sleep lasts twice the host's time to queue the ``iters`` calls, taken
+    just before, plus 1 ms. A repeat in which the event after the sleep has
+    already passed when the last call is queued (the card waited for the
+    host) is dropped, and the function is timed again with half as many
+    calls: the card's queue of pending launches (about a thousand) blocks
+    the host once a function's calls fill it. With one call left, the sleep
+    is doubled instead."""
     import torch
 
+    cycles_per_ms = _sleep_cycles_per_ms()
     out = []
     for fn in fns:
         fn()
-        times = []
-        for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        sleep_ms = 2 * (time.perf_counter() - t) * 1e3 + 1.0
+        n, times = iters, []
+        while len(times) < reps:
             torch.cuda.synchronize()
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(20_000_000)  # ~10 ms: longer than queueing the calls takes
+            torch.cuda._sleep(int(sleep_ms * cycles_per_ms))
             start.record()
-            for _ in range(iters):
+            for _ in range(n):
                 fn()
             end.record()
+            host_bound = start.query()
             end.synchronize()
-            times.append(start.elapsed_time(end) / iters)
+            if host_bound:
+                times = []
+                if n > 1:
+                    n //= 2
+                    continue
+                sleep_ms *= 2
+                if sleep_ms > MAX_SLEEP_MS:
+                    fail(f"one call outlasts a {MAX_SLEEP_MS:g} ms sleep kernel while being "
+                         "queued: the function syncs with the host")
+                continue
+            times.append(start.elapsed_time(end) / n)
         out.append(statistics.median(times))
     return out
 
@@ -543,8 +604,10 @@ def _check_grads(what, got, ref, bf16_first):
 def phase_kernels_bwd(cfg, card: str):
     """K1-bwd and K2-bwd at phase 3's shapes against torch.autograd.grad of
     the plain versions, fp32 and bf16 maps; K1-bwd also at bs=2 and on the
-    44x80 map of ``stage2_r101_2x()`` (16-channel tiles), fp32. Timed at
-    bs=1 fp32 against the plain backward (the graph built once, retained)."""
+    44x80 (16-channel tiles) and 88x160 maps (levels 2 and 1) of
+    ``stage2_r101_2x()``, the latter in bands of rows, fp32. Timed at
+    bs=1 fp32 against the plain backward (the graph built once, retained),
+    and on the 88x160 map."""
     import torch
     import torch.nn.functional as F
 
@@ -558,7 +621,7 @@ def phase_kernels_bwd(cfg, card: str):
     f32, bf16 = torch.float32, torch.bfloat16
     r101 = stage2_r101_2x()
     for c, dtype, bs, levels in ((cfg, f32, 1, None), (cfg, bf16, 1, None), (cfg, f32, 2, None),
-                                 (r101, f32, 1, (2,))):
+                                 (r101, f32, 1, (2, 1))):
         timed = c is cfg and dtype == f32 and bs == 1
         for lvl in levels or [l for l in c.sampler_matmul_levels if l < c.num_levels]:
             fm, px, py, wg, bs, cams = _k1_bwd_inputs(c, g, dev, lvl, dtype, bs)
@@ -572,10 +635,12 @@ def phase_kernels_bwd(cfg, card: str):
             torch.cuda.synchronize()
             if got[0].dtype != dtype:
                 fail(f"K1-bwd returned d fm in {got[0].dtype} for a {dtype} map")
+            band = smem // (w * ct * 4)
             k1.err = max(k1.err, _check_grads(
                 f"K1-bwd level {lvl} ({h}x{w}) {str(dtype)[6:]} bs={bs} (tiles of {ct} "
-                f"channels, clusters of {s}, {smem} B)", got, ref, dtype == bf16))
-            if timed:
+                f"channels in {-(-h // band)} band(s) of {band} rows, clusters of {s}, "
+                f"{smem} B)", got, ref, dtype == bf16))
+            if timed or (c is r101 and lvl == 1):
                 grid = torch.stack([(px + 0.5) / w * 2 - 1, (py + 0.5) / h * 2 - 1], -1)[:, None]
                 lib_in = [fm.permute(0, 3, 1, 2).detach().clone().requires_grad_(),
                           grid.detach().clone().requires_grad_()]
@@ -587,14 +652,16 @@ def phase_kernels_bwd(cfg, card: str):
                     lambda: kernels.interp_sample_camsum_bwd(fm, px, py, wg, gout, bs, cams),
                     lambda: torch.autograd.grad(out, leaves, gout, retain_graph=True),
                     lambda: torch.autograd.grad(lib_out, lib_in, lib_g, retain_graph=True)])
-                t = k1.add_times(dev_ms, call)
+                rec = k1 if timed else _Rec()  # the 88x160 map is not on the main path
+                t = rec.add_times(dev_ms, call)
                 # reads: the rows it samples and every small input; writes:
                 # all of d fm and the coordinate and weight gradients
                 taps, rows = _k1_reads(px, py, wg, h, w, bwd=True)
                 b = bound(rows * C * fm.element_size() + _nbytes(px, py, wg, gout)
                           + _nbytes(*got), taps * C * 4)
-                k1.add_bound(b)
-                say(f"[kernels-bwd] K1-bwd level {lvl} fp32 on {card}: kernel {t[0]:.4f} ms, "
+                rec.add_bound(b)
+                say(f"[kernels-bwd] K1-bwd level {lvl} ({h}x{w}) fp32 on {card}: kernel "
+                    f"{t[0]:.4f} ms, "
                     f"plain backward {t[1]:.4f} ms, F.grid_sample backward (not the same "
                     f"function) {t[2]:.4f} ms ({TIMES}); per call {min(call[1], call[2]):.4f} "
                     f"ms; bound {b[0]:.4f} ms ({b[1]}: {taps} taps, {rows} of {B * h * w} map "
@@ -686,7 +753,7 @@ def phase_slice(cfg, card: str):
         launches per kernel over the frames."""
         for k in kernels.KERNELS:
             k.launches = 0
-        banks, times, first = None, [], None
+        banks, times, kept = None, [], []
         with torch.no_grad(), torch.autocast("cuda", dtype=dtype,
                                              enabled=dtype != torch.float32):
             for i in range(n_frames):
@@ -702,8 +769,8 @@ def phase_slice(cfg, card: str):
                 bad = [k for k, v in leaves if v.is_floating_point() and not torch.isfinite(v).all()]
                 if bad:
                     fail(f"{dtype} frame {i}: non-finite outputs {bad[:5]}")
-                if i == 0:
-                    first = {k: v.detach().clone() for k, v in leaves}
+                if i < 2:
+                    kept.append({k: v.detach().clone() for k, v in leaves})
         launches = {k.name: k.launches for k in kernels.KERNELS}
         timed = sorted(times[WARMUP_FRAMES:])
         p90 = timed[min(len(timed) - 1, int(round(0.9 * (len(timed) - 1))))]
@@ -718,16 +785,23 @@ def phase_slice(cfg, card: str):
                 f"{per_call.get(name, 0)} = {n_deform * per_call.get(name, 0)}/frame)")
             if n != want or (n == 0 and name in per_call):
                 fail(f"{name} launched {n} times, expected {want}")
-        return first, launches
+        return kept, launches
 
-    first, launches = run_frames(torch.float32)
-    first_bf16, _ = run_frames(torch.bfloat16)
+    frames, launches = run_frames(torch.float32)
+    frames_bf16, _ = run_frames(torch.bfloat16)
+    first = frames[0]
     wp = "plan.final_waypoints"
-    say(f"[slice] bf16 vs fp32 frame 0 {wp}: max_abs_diff "
-        f"{float((first_bf16[wp].float() - first[wp]).abs().max()):.3e} "
-        f"(scale {float(first[wp].abs().max()):.3e}; informational)")
+    for i, rtol in enumerate(BF16_FRAME_RTOL):
+        diff = float((frames_bf16[i][wp].float() - frames[i][wp]).abs().max())
+        scale = float(frames[i][wp].abs().max())
+        say(f"[slice] bf16 vs fp32 frame {i} {wp}: max_abs_diff {diff:.3e}, {diff / scale:.3e} "
+            f"of scale (tol {rtol:g} of scale, the spread tests/test_torch_bf16.py allows on "
+            f"that frame) {'ok' if diff <= rtol * scale else 'FAIL'}")
+        if not diff <= rtol * scale:
+            fail(f"the bf16 frame {i}'s {wp} is further from the fp32 frame than the CPU test "
+                 f"allows")
 
-    # frame 1 again on the CPU: the plain path
+    # frame 0 again on the CPU: the plain path
     t0 = time.perf_counter()
     cpu_model = HiPAD(cfg, device="cpu")
     cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
@@ -768,13 +842,13 @@ def _launch_plan(cfg):
 # |diff| <= TRAIN_RTOL * |cpu| + TRAIN_ATOL per loss, GRAD_NORM_RTOL for the
 # norm. Seen on an H100: <= 7e-7 of each loss, 2.5e-5 of the norm.
 TRAIN_RTOL, TRAIN_ATOL, GRAD_NORM_RTOL = 1e-4, 1e-5, 1e-3
-WARMUP_STEPS, TIMED_STEPS = 2, 6
+WARMUP_STEPS, TIMED_STEPS = 2, 4
 # rounds of one fp32 and one bf16 step in turn, after the warm-up steps
-PAIRED_ROUNDS = 6
+PAIRED_ROUNDS = 3
 
 
 def phase_train(card: str):
-    """The training step at stage 2, bs=1: 2 warm-up and 6 timed steps with
+    """The training step at stage 2, bs=1: 2 warm-up and 4 timed steps with
     the banks chained, fp32 then bf16 autocast, dropout 0.1 and GridMask on;
     then fp32 and bf16 steps in turns; then step 0 without dropout and
     GridMask on the card and on the CPU. -> launches of the fp32 run."""
@@ -926,6 +1000,375 @@ def phase_train(card: str):
     return launches
 
 
+CLI_STEPS, CLI_ACCUM, CLI_RESUME_AT = 4, 2, 2
+# parameters after the first step past --resume against the unbroken run's:
+# |update_resumed - update_unbroken| <= CLI_UPDATE_RTOL * |update_unbroken|,
+# norms over every parameter, update = parameters after the step - before.
+# Both start from bit-equal state; only the backward kernels' reduction
+# order differs. A moment or count that did not come back moves this step's
+# AdamW update by half its norm or more (zero moments: about 0.64 * sign(g)
+# per element; count 0 for 2: the bias corrections change m-hat by 2.7x and
+# v-hat by 3x), so the bound is ten times under the smallest such fault.
+CLI_UPDATE_RTOL = 5e-2
+
+
+def _kernel_counts():
+    from hipad_torch.ops import kernels
+
+    return {k.name: k.launches for k in kernels.KERNELS}
+
+
+def _reset_counts():
+    from hipad_torch.ops import kernels
+
+    for k in kernels.KERNELS:
+        k.launches = 0
+
+
+def _flat_params(model):
+    import torch
+
+    return torch.cat([p.detach().flatten() for p in model.parameters()])
+
+
+def _train_state(model, opt, banks, gen):
+    """A copy in host memory of what a checkpoint holds: parameters and
+    buffers, AdamW's moments and count, the banks (a list for accumulation)
+    and the generator's state; and the parameters flat, in the model's
+    order."""
+    import dataclasses
+
+    def host(t):
+        return t.detach().to("cpu", copy=True)
+
+    bank_list = banks if isinstance(banks, (list, tuple)) else [banks]
+    return {"model": {k: host(v) for k, v in model.state_dict().items()},
+            "mu": [host(t) for t in opt.mu], "nu": [host(t) for t in opt.nu],
+            "count": opt.count,
+            "banks": {f"{i}.{n}.{f.name}": host(getattr(getattr(b, n), f.name))
+                      for i, b in enumerate(bank_list) for n in ("det", "ego", "plan")
+                      for f in dataclasses.fields(getattr(b, n))},
+            "gen": gen.get_state(), "params": host(_flat_params(model))}
+
+
+def phase_train_cli(card: str):
+    """``python -m hipad_torch.tools.train`` (its ``main``, in this process)
+    at stage-2 width on the card, bf16 autocast (the CLI's compute dtype),
+    global batch 1 with 2 micro-batches per step. The unbroken run of 4
+    steps gives the launches per optimizer step, step time and peak memory;
+    then ``--resume`` from the unbroken run's own step-2 checkpoint runs
+    steps 3 and 4 in another work dir. Held, in this process: the state the
+    resume restored (parameters, buffers, AdamW's moments and count, banks,
+    generator) equals the unbroken run's state at step 2 bit for bit; step
+    3's metrics equal the unbroken run's within phase 5's card-against-CPU
+    step tolerance; the parameters after step 3 follow the unbroken run's
+    update within CLI_UPDATE_RTOL. Step 4's metrics are printed, not held:
+    the backward kernels' reductions change order from run to run, the
+    update turns that into parameter differences, and near-tied Hungarian
+    matches then flip. The CPU test ``tests/test_torch_train_cli.py`` holds
+    resume bit for bit. -> the unbroken run's launches."""
+    import shutil
+
+    import torch
+
+    from hipad_torch.configs.model import stage2
+    from hipad_torch.tools import train
+    from hipad_torch.train import checkpoint
+
+    work = os.path.join(ROOT, "work_dirs", "chip_smoke_train_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    args = ["--accum-steps", str(CLI_ACCUM), "--ckpt-interval", str(CLI_RESUME_AT),
+            "--batch-size", "1", "--log-interval", "1", "--seed", str(SEED),
+            "--synthetic", str(CLI_STEPS)]
+    save, restore, make_step = (checkpoint.save_checkpoint, checkpoint.restore_checkpoint,
+                                train.make_accum_train_step)
+    kept = {}  # what the hooks below copy out of the two runs
+
+    def save_hook(ckpt_dir, step, model, opt, banks=None, gen=None, **kw):
+        path = save(ckpt_dir, step, model, opt, banks, gen, **kw)
+        if step == CLI_RESUME_AT and "saved" not in kept:
+            # the CLI's peak before the copies below and in step_and_keep;
+            # steps 3-4 have the shapes of steps 1-2
+            kept["peak"] = torch.cuda.max_memory_allocated()
+            kept["saved"] = _train_state(model, opt, banks, gen)
+            # the CLI keeps only its newest checkpoint: link this one aside
+            shutil.copytree(os.path.dirname(path), f"{work}/resumed/{step}",
+                            copy_function=os.link)
+        return path
+
+    def restore_hook(ckpt_dir, model, opt, gen=None, step=None):
+        restored = restore(ckpt_dir, model, opt, gen, step)
+        kept["restored"] = _train_state(model, opt, restored["banks"], gen)
+        return restored
+
+    def make_step_hook(cfg, model, opt, *a, **kw):
+        step_fn = make_step(cfg, model, opt, *a, **kw)
+
+        def step_and_keep(banks, data, gen):
+            out = step_fn(banks, data, gen)
+            if opt.count == CLI_RESUME_AT + 1:  # one copy on the card, kept
+                kept.setdefault("after", []).append(_flat_params(model))
+            return out
+
+        return step_and_keep
+
+    checkpoint.save_checkpoint, checkpoint.restore_checkpoint = save_hook, restore_hook
+    train.make_accum_train_step = make_step_hook
+    try:
+        _reset_counts()
+        t0 = time.perf_counter()
+        whole = train.main(args + ["--work-dir", f"{work}/whole"])
+        launches = _kernel_counts()
+        whole_s = time.perf_counter() - t0
+        rest = train.main(args + ["--work-dir", f"{work}/resumed", "--resume"])
+    finally:
+        checkpoint.save_checkpoint, checkpoint.restore_checkpoint = save, restore
+        train.make_accum_train_step = make_step
+    say(f"[train-cli] python -m hipad_torch.tools.train {' '.join(args)} (stage 2, bf16 "
+        f"autocast) on {card}: {whole_s:.1f} s; step ms {[round(t, 2) for t in whole['step_ms']]} "
+        f"(host clock, the first includes warm-up); median of steps 2..{CLI_STEPS} "
+        f"{statistics.median(whole['step_ms'][1:]):.2f} ms; max_memory_allocated over steps "
+        f"1..{CLI_RESUME_AT} {kept['peak'] / 2 ** 30:.2f} GiB")
+    bad = [k for r in (whole, rest) for m in r["metrics"] for k, v in m.items()
+           if not math.isfinite(v)]
+    if bad:
+        fail(f"train-cli: non-finite {bad}")
+    n_deform, per_call = _launch_plan(stage2())
+    for name, per in per_call.items():
+        want = CLI_STEPS * CLI_ACCUM * n_deform * per
+        say(f"[train-cli] {name}: {launches[name]} launches over {CLI_STEPS} optimizer steps = "
+            f"{launches[name] / CLI_STEPS:g}/step (expected {CLI_ACCUM} micro-steps x "
+            f"{n_deform} deformable calls x {per})")
+        if launches[name] != want or want == 0:
+            fail(f"train-cli: {name} launched {launches[name]} times, expected {want}")
+    if rest["start"] != CLI_RESUME_AT or len(rest["metrics"]) != CLI_STEPS - CLI_RESUME_AT:
+        fail(f"train-cli: --resume started at step {rest['start']}, expected {CLI_RESUME_AT}")
+
+    # the restored state against the unbroken run's at step 2, bit for bit
+    saved, got = kept["saved"], kept["restored"]
+    for part in ("model", "banks"):
+        differ = [k for k in saved[part] if not torch.equal(saved[part][k], got[part][k])]
+        if differ or set(saved[part]) != set(got[part]):
+            fail(f"train-cli: --resume restored {part} tensors that differ from the unbroken "
+                 f"run's at step {CLI_RESUME_AT}: {differ[:5]}")
+    for part in ("mu", "nu"):
+        differ = [i for i, (a, b) in enumerate(zip(saved[part], got[part]))
+                  if not torch.equal(a, b)]
+        if differ or len(saved[part]) != len(got[part]):
+            fail(f"train-cli: --resume restored AdamW {part} tensors {differ[:5]} unlike the "
+                 f"unbroken run's")
+    if got["count"] != saved["count"] or not torch.equal(got["gen"], saved["gen"]):
+        fail(f"train-cli: --resume restored count {got['count']} (unbroken: {saved['count']}) "
+             f"or a generator state unlike the unbroken run's")
+    say(f"[train-cli] --resume restored step {CLI_RESUME_AT} bit for bit as the unbroken run "
+        f"held it: {len(got['model'])} parameter and buffer tensors, AdamW mu and nu "
+        f"({len(got['mu'])} tensors each), count {got['count']}, {len(got['banks'])} bank "
+        f"tensors ({CLI_ACCUM} bank slices), the generator's state")
+
+    def compare(what, got, ref, hold):
+        worst, at = 0.0, ""
+        for k, r in ref.items():
+            rtol, atol = (GRAD_NORM_RTOL, 0.0) if k == "grad_norm" else (TRAIN_RTOL, TRAIN_ATOL)
+            err, tol = abs(got[k] - r), rtol * abs(r) + atol
+            if err / tol >= worst:
+                worst, at = err / tol, k
+            if hold and not err <= tol:
+                fail(f"train-cli: {what} {k} {got[k]:.6f} against the unbroken run's {r:.6f} "
+                     f"(tol {tol:.3e})")
+        say(f"[train-cli] {what} against the unbroken run: largest error / phase 5's "
+            f"tolerance {worst:.3f} ({at}); total_loss {got['total_loss']:.6f} against "
+            f"{ref['total_loss']:.6f}{'' if hold else ' (after an update: not held)'}")
+
+    i = CLI_RESUME_AT
+    compare(f"step {i + 1}, the first after --resume", rest["metrics"][0], whole["metrics"][i],
+            True)
+    # the update of that step, from the bit-equal parameters of step 2
+    if len(kept.get("after", [])) != 2:
+        fail(f"train-cli: AdamW's count reached {CLI_RESUME_AT + 1} in "
+             f"{len(kept.get('after', []))} of the two runs")
+    if not torch.equal(got["params"], saved["params"]):
+        fail("train-cli: the restored parameters, flat, differ from the unbroken run's")
+    d_ref, d_res = (a.cpu() - saved["params"] for a in kept["after"])
+    rel = float((d_res - d_ref).norm() / d_ref.norm())
+    say(f"[train-cli] parameters after step {i + 1}: |update after --resume - unbroken update| "
+        f"= {rel:.3e} of |unbroken update| {float(d_ref.norm()):.4e} (tol {CLI_UPDATE_RTOL:g}); "
+        f"largest element difference {float((d_res - d_ref).abs().max()):.3e}, largest update "
+        f"element {float(d_ref.abs().max()):.3e} {'ok' if rel <= CLI_UPDATE_RTOL else 'FAIL'}")
+    if not rel <= CLI_UPDATE_RTOL:
+        fail(f"train-cli: the update of the first step after --resume differs from the unbroken "
+             f"run's by {rel:.3e} of its norm")
+    compare(f"step {i + 2} after --resume", rest["metrics"][1], whole["metrics"][i + 1], False)
+    kept.clear()
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_stage1(card: str):
+    """One stage-1 training step (``stage1()``: no motion task, one plan
+    anchor type) at full width, bs=1, fp32, on the card. -> launches."""
+    import torch
+
+    from hipad_torch.configs.model import stage1
+    from hipad_torch.data import synthetic
+    from hipad_torch.models.detector import HiPAD
+    from hipad_torch.train.optim import AdamW
+    from hipad_torch.train.train_step import make_train_step
+    from hipad_torch.weights import init_random
+
+    dev = torch.device(DEVICE)
+    cfg = stage1()
+    model = init_random(HiPAD(cfg, device=dev), SEED)
+    step = make_train_step(cfg, model, AdamW(model.named_parameters()))
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in synthetic.make_batch(cfg, 1, seed=SEED).items()}
+    _reset_counts()
+    t0 = time.perf_counter()
+    _, metrics = step(None, batch, torch.Generator(device=dev).manual_seed(SEED))
+    m = {k: float(v) for k, v in metrics.items()}
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = _kernel_counts()
+    bad = [k for k, v in m.items() if not math.isfinite(v)]
+    if bad or any(k.startswith("motion") for k in m):
+        fail(f"stage1: non-finite {bad} or a motion loss in {sorted(m)}")
+    n_deform, per_call = _launch_plan(cfg)
+    say(f"[stage1] stage1() step bs=1 fp32 on {card}: {ms:.1f} ms (first step), "
+        f"{len(cfg.plan_anchor_types)} plan anchor type, tasks {cfg.task_select}, every loss "
+        f"finite, total_loss {m['total_loss']:.4f} grad_norm {m['grad_norm']:.4f}; launches "
+        + ", ".join(f"{k} {launches[k]} (expected {n_deform * v})" for k, v in per_call.items()))
+    for name, per in per_call.items():
+        if launches[name] != n_deform * per or per == 0:
+            fail(f"stage1: {name} launched {launches[name]} times, expected {n_deform * per}")
+    del model, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+# two ranks at bs=1 against one process at bs=2: rtol of
+# tests/test_sharding_equivalence.py
+DDP_RTOL = 1e-2
+DDP_TIMEOUT_S = 600
+_DDP_CHILD = r"""
+import json, sys
+sys.path.insert(0, sys.argv[5])
+import torch
+from hipad_torch.configs.model import stage2
+from hipad_torch.models.deformable import DeformableAggregation
+from hipad_torch.models.detector import HiPAD
+from hipad_torch.ops import kernels
+from hipad_torch.parallel import mesh
+from hipad_torch.train.optim import AdamW
+from hipad_torch.train.train_step import make_train_step
+rank, port, job, out = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+dp = mesh.init("gloo", f"tcp://localhost:{port}", 2, rank)
+cfg = stage2(drop_out=0.0, use_grid_mask=False)
+payload = torch.load(job, weights_only=True)
+model = HiPAD(cfg, device="cuda")
+model.load_state_dict(payload["state_dict"])
+for m in model.modules():
+    if isinstance(m, DeformableAggregation):
+        m.attn_drop = 0.0
+batch = {k: v.cuda() for k, v in mesh.local_batch(payload["batch"], rank, 2).items()}
+step = make_train_step(cfg, model, AdamW(model.named_parameters()), group=dp.group)
+_, metrics = step(None, batch, torch.Generator(device="cuda").manual_seed(0))
+torch.save({k: v.cpu() for k, v in model.state_dict().items()}, f"{out}.pt")
+with open(f"{out}.json", "w") as f:
+    json.dump({"metrics": {k: float(v) for k, v in metrics.items()},
+               "launches": {k.name: k.launches for k in kernels.KERNELS}}, f)
+mesh.shutdown(dp)
+"""
+
+
+def phase_ddp(card: str):
+    """Data parallelism on the one card: two processes over gloo, each a
+    stage-2 step at bs=1 on its half of a global batch of 2 (drop_out 0, no
+    GridMask, fp32), against one process at bs=2 on the whole batch from the
+    same weights. -> the two ranks' launches, summed."""
+    import socket
+
+    import torch
+
+    from hipad_torch.configs.model import stage2
+    from hipad_torch.data import synthetic
+    from hipad_torch.models.deformable import DeformableAggregation
+    from hipad_torch.models.detector import HiPAD
+    from hipad_torch.train.optim import AdamW
+    from hipad_torch.train.train_step import make_train_step
+    from hipad_torch.weights import init_random
+
+    dev = torch.device(DEVICE)
+    cfg = stage2(drop_out=0.0, use_grid_mask=False)
+    work = os.path.join(ROOT, "work_dirs", "chip_smoke_ddp")
+    os.makedirs(work, exist_ok=True)
+    model = init_random(HiPAD(cfg, device=dev), SEED)
+    for m in model.modules():
+        if isinstance(m, DeformableAggregation):
+            m.attn_drop = 0.0
+    batch = {k: torch.as_tensor(v) for k, v in synthetic.make_batch(cfg, 2, seed=SEED).items()}
+    job = os.path.join(work, "job.pt")
+    torch.save({"state_dict": {k: v.cpu() for k, v in model.state_dict().items()},
+                "batch": batch}, job)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = str(sock.getsockname()[1])
+    env = dict(os.environ, PYTHONHASHSEED="0")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", _DDP_CHILD, str(r), port, job,
+                               os.path.join(work, f"rank{r}"), ROOT], cwd=ROOT, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    # meanwhile the one process at bs=2
+    _, metrics = make_train_step(cfg, model, AdamW(model.named_parameters()))(
+        None, {k: v.to(dev) for k, v in batch.items()}, torch.Generator(device=dev).manual_seed(0))
+    single = {k: float(v) for k, v in metrics.items()}
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=DDP_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            fail(f"ddp: rank {r} exited with {p.returncode}:\n{log[-3000:]}")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    say(f"[ddp] 2 processes x bs=1 over gloo on one {card} against 1 process x bs=2 (stage 2, "
+        f"fp32, drop_out 0, no GridMask): {time.perf_counter() - t0:.1f} s")
+    for k in sorted(single):
+        vals = [r["metrics"][k] for r in ranks]
+        err = max(abs(v - single[k]) for v in vals)
+        tol = DDP_RTOL * abs(single[k])
+        say(f"[ddp] step 0 {k}: ranks {vals[0]:.6f} {vals[1]:.6f}, one process "
+            f"{single[k]:.6f}, abs_err {err:.3e} (tol {tol:.3e}) {'ok' if err <= tol else 'FAIL'}")
+        if not err <= tol:
+            fail(f"ddp: {k} of the two ranks disagrees with the one process on the global batch")
+    sd = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=True) for r in range(2)]
+    differ = [k for k in sd[0] if not torch.equal(sd[0][k], sd[1][k])]
+    say(f"[ddp] parameters and buffers after the update: {len(sd[0]) - len(differ)} of "
+        f"{len(sd[0])} tensors equal bit for bit on both ranks")
+    if differ:
+        fail(f"ddp: the ranks' parameters differ after the update: {differ[:5]}")
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+    n_deform, per_call = _launch_plan(cfg)
+    for name, per in per_call.items():
+        if launches[name] != 2 * n_deform * per:
+            fail(f"ddp: {name} launched {launches[name]} times by the two ranks, expected "
+                 f"{2 * n_deform * per}")
+    import shutil
+
+    shutil.rmtree(work, ignore_errors=True)
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
 class _Selections:
     """Every ranking a forward and its post-processing make, all through
     ``hipad_torch.ops.ranking.topk``: the keypoint top-k, the first frame's
@@ -988,7 +1431,7 @@ class _Selections:
 
 
 # stage2_serving_det frames timed in turns with stage2 frames (informational)
-SERVE_ROUNDS = 6
+SERVE_ROUNDS = 3
 
 
 def phase_serving(card: str):
@@ -1132,7 +1575,7 @@ def phase_serving(card: str):
     return launches, weights
 
 
-AGENT_WARMUP, AGENT_TICKS = 2, 20
+AGENT_WARMUP, AGENT_TICKS = 2, 10
 
 
 def phase_agent(card: str, weights):
@@ -1238,8 +1681,7 @@ def phase_gather(card: str):
         recs[kernel.name] = rec
         say(f"[gather] {kernel.name} on {card}: device time kernel {rec.ms:.4f} ms, plain "
             f"{rec.plain_ms:.4f} ms, torch.index_select (the same function) "
-            f"{rec.library_ms:.4f} ms (20 calls queued behind a sleep kernel, CUDA events, "
-            f"median of 5, in turns plain/kernel/kernel/plain); each call with its Python "
+            f"{rec.library_ms:.4f} ms ({TIMES}); each call with its Python "
             f"launch, CUDA events, "
             f"median of 20: kernel {min(call[1], call[2]):.4f} ms, plain "
             f"{min(call[0], call[3]):.4f} ms, index_select {call[4]:.4f} ms; bound "
@@ -1536,20 +1978,31 @@ def main():
     from hipad_torch.configs.model import stage2
 
     t0 = time.perf_counter()
-    card = phase_env()
-    phase_build()
+    seconds = {}
+
+    def timed(name, phase, *a):
+        t = time.perf_counter()
+        out = phase(*a)
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    card = timed("env", phase_env)
+    timed("build", phase_build)
     cfg = stage2()
     if args.against:
         compare_paths(compare_against(args.against, cfg, card), card)
         return
-    k = phase_kernels(cfg, card)
-    k.update(phase_kernels_bwd(cfg, card))
-    frame_launches = phase_slice(cfg, card)
-    step_launches = phase_train(card)
-    serve_launches, weights = phase_serving(card)
-    agent_launches = phase_agent(card, weights)
+    k = timed("kernels", phase_kernels, cfg, card)
+    k.update(timed("kernels-bwd", phase_kernels_bwd, cfg, card))
+    frame_launches = timed("slice", phase_slice, cfg, card)
+    step_launches = timed("train", phase_train, card)
+    cli_launches = timed("train-cli", phase_train_cli, card)
+    stage1_launches = timed("stage1", phase_stage1, card)
+    ddp_launches = timed("ddp", phase_ddp, card)
+    serve_launches, weights = timed("serve", phase_serving, card)
+    agent_launches = timed("agent", phase_agent, card, weights)
     del weights
-    gather_recs, probe_launches = phase_gather(card)
+    gather_recs, probe_launches = timed("gather", phase_gather, card)
     k.update(gather_recs)
     if any(m in sys.modules for m in ("jax", "flax")):
         fail("jax was imported")
@@ -1572,6 +2025,10 @@ def main():
     paths = {
         "step": (step_launches, f"phase 5: {WARMUP_STEPS + TIMED_STEPS} chained stage-2 fp32 "
                                 "training steps"),
+        "train_cli": (cli_launches, f"phase 5b: python -m hipad_torch.tools.train --synthetic "
+                                    f"{CLI_STEPS} --accum-steps {CLI_ACCUM}, unbroken"),
+        "stage1_step": (stage1_launches, "phase 5c: one stage1() training step"),
+        "ddp": (ddp_launches, "phase 5d: 2 gloo ranks x one stage-2 step at bs=1"),
         "frame": (frame_launches, f"phase 4: {WARMUP_FRAMES + TIMED_FRAMES} chained stage-2 "
                                   "fp32 frames"),
         "serving_frame": (serve_launches, f"phase 6: {WARMUP_FRAMES + TIMED_FRAMES} chained "
@@ -1593,7 +2050,8 @@ def main():
                      "bound_ms": k[name].bound_ms, "bound_by": k[name].bound_by,
                      "library_ms": k[name].library_ms})
     say(json.dumps({"kernels": rows}))
-    say(f"[done] {time.perf_counter() - t0:.1f} s")
+    say(f"[done] {time.perf_counter() - t0:.1f} s; per phase: "
+        + ", ".join(f"{n} {t:.1f} s" for n, t in seconds.items()))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

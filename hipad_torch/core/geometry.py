@@ -17,15 +17,15 @@ from .box3d import COS_YAW, SIN_YAW, VX, W, X
 
 
 def fp32(fn):
-    """Run ``fn`` with autocast off and its floating tensor arguments in
-    float32."""
+    """Run ``fn`` with autocast off (on the card and on the CPU) and its
+    floating tensor arguments in float32."""
 
     def cast(a):
         return a.float() if torch.is_tensor(a) and a.is_floating_point() else a
 
     @functools.wraps(fn)
     def wrapped(*args, **kwargs):
-        with torch.autocast("cuda", enabled=False):
+        with torch.autocast("cuda", enabled=False), torch.autocast("cpu", enabled=False):
             return fn(*map(cast, args), **{k: cast(v) for k, v in kwargs.items()})
 
     return wrapped

@@ -36,7 +36,12 @@
 //
 // So every element of d fm is written exactly once, and the caller needs no
 // zero fill. The tile size (Ct, S, bytes) is chosen by the caller
-// (ops/kernels.py: k1_bwd_tiling). Samples whose taps all lie outside the
+// (ops/kernels.py: k1_bwd_tiling). A map whose fp32 tile does not fit one
+// block's shared memory even at 8 channels (more than 7,264 cells) is cut
+// into bands of Hb whole rows, Hb = bytes / (W * Ct * 4): each band is a
+// tile of its own, whose blocks read every sample but keep only the taps
+// whose row lies in the band (a sample's two tap rows may straddle two
+// bands, each adding its own). Samples whose taps all lie outside the
 // map (points behind a camera project to ~1e8 px) are range-checked before
 // any int conversion, in both kinds of block.
 #include <cooperative_groups.h>
@@ -181,8 +186,9 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
   *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(h);
 }
 
-// grid (S, C / Ct, bs*cams), cluster (S, 1, 1), kTileThreads threads,
-// H*W*Ct floats of dynamic shared memory: the copy of this block.
+// grid (S, C / Ct * bands, bs*cams), cluster (S, 1, 1), kTileThreads
+// threads, Hb*W*Ct floats of dynamic shared memory: the copy of this block
+// of its band of rows [r0, r0 + Hb) (the last band may be shorter).
 template <typename T>
 __global__ void __launch_bounds__(kTileThreads, 2)
 interp_sample_camsum_bwd_tiles_kernel(const float* __restrict__ px,
@@ -190,16 +196,20 @@ interp_sample_camsum_bwd_tiles_kernel(const float* __restrict__ px,
                                       const float* __restrict__ wg,
                                       const float* __restrict__ gout,
                                       T* __restrict__ dfm, int cams, int H,
-                                      int W, int C, int G, int M, int Ct) {
+                                      int W, int C, int G, int M, int Ct,
+                                      int Hb) {
   extern __shared__ float4 tile4[];
   float* tile = reinterpret_cast<float*>(tile4);
   cg::cluster_group cluster = cg::this_cluster();
   const int S = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
-  const int c0 = blockIdx.y * Ct;
+  const int bands = (H + Hb - 1) / Hb;
+  const int c0 = (blockIdx.y / bands) * Ct;
+  const int r0 = (blockIdx.y % bands) * Hb;  // the band's rows [r0, r1)
+  const int r1 = min(H, r0 + Hb);
   const long long bc = blockIdx.z;
   const long long b = bc / cams;
-  const int n4 = H * W * Ct / 4;
+  const int n4 = (r1 - r0) * W * Ct / 4;
 
   // 1. zero this block's copy
   for (int i = threadIdx.x; i < n4; i += kTileThreads) tile4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -234,15 +244,16 @@ interp_sample_camsum_bwd_tiles_kernel(const float* __restrict__ px,
     float s00 = 0.f, s01 = 0.f, s10 = 0.f, s11 = 0.f;
     if (m < M) {
       // a tap with a non-zero hat weight lies on the map only for p in
-      // (-1, size) (also false for NaN)
-      if (w != 0.f && x > -1.f && x < static_cast<float>(W) && y > -1.f &&
-          y < static_cast<float>(H)) {
+      // (-1, size), and in the band only for y in (r0 - 1, r1) (also false
+      // for NaN)
+      if (w != 0.f && x > -1.f && x < static_cast<float>(W) &&
+          y > static_cast<float>(r0 - 1) && y < static_cast<float>(r1)) {
         x0 = static_cast<int>(floorf(x));
         y0 = static_cast<int>(floorf(y));
         const float wx0 = x0 >= 0 ? hipad::hat(x - static_cast<float>(x0)) : 0.f;
         const float wx1 = x0 + 1 < W ? hipad::hat(x - static_cast<float>(x0 + 1)) : 0.f;
-        const float wy0 = y0 >= 0 ? hipad::hat(y - static_cast<float>(y0)) : 0.f;
-        const float wy1 = y0 + 1 < H ? hipad::hat(y - static_cast<float>(y0 + 1)) : 0.f;
+        const float wy0 = y0 >= r0 ? hipad::hat(y - static_cast<float>(y0)) : 0.f;
+        const float wy1 = y0 + 1 < r1 ? hipad::hat(y - static_cast<float>(y0 + 1)) : 0.f;
         s00 = wy0 * wx0 * w;
         s01 = wy0 * wx1 * w;
         s10 = wy1 * wx0 * w;
@@ -264,7 +275,9 @@ interp_sample_camsum_bwd_tiles_kernel(const float* __restrict__ px,
 #pragma unroll
       for (int k = 0; k < kBatch; ++k) {
         const int sl = src[k] < 0 ? 0 : src[k];
-        const int cell = __shfl_sync(0xffffffffu, y0 * W + x0, sl);
+        // the tap's cell in the band; negative for y0 = r0 - 1, whose row-y0
+        // taps then have weight 0
+        const int cell = __shfl_sync(0xffffffffu, (y0 - r0) * W + x0, sl);
         const float a00 = __shfl_sync(0xffffffffu, s00, sl);
         const float a01 = __shfl_sync(0xffffffffu, s01, sl);
         const float a10 = __shfl_sync(0xffffffffu, s10, sl);
@@ -303,7 +316,7 @@ interp_sample_camsum_bwd_tiles_kernel(const float* __restrict__ px,
     }
     const int cell = i / ct4;
     const int c = (i - cell * ct4) * 4;
-    store4(dfm + (bc * H * W + cell) * C + c0 + c, acc);
+    store4(dfm + (bc * H * W + static_cast<long long>(r0) * W + cell) * C + c0 + c, acc);
   }
   cluster.sync();  // no block leaves while another reads its copy
 }
@@ -331,7 +344,8 @@ cudaError_t launch(const void* fm, const float* px, const float* py,
   err = cudaFuncSetAttribute(tiles, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(S, C / Ct, bs * cams);
+  const int Hb = smem / (W * Ct * 4);
+  cfg.gridDim = dim3(S, C / Ct * ((H + Hb - 1) / Hb), bs * cams);
   cfg.blockDim = dim3(kTileThreads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
@@ -343,7 +357,7 @@ cudaError_t launch(const void* fm, const float* px, const float* py,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, tiles, px, py, wg, gout, static_cast<T*>(dfm), cams, H, W,
-                            C, G, M, Ct);
+                            C, G, M, Ct, Hb);
 }
 
 }  // namespace
@@ -353,7 +367,8 @@ cudaError_t launch(const void* fm, const float* px, const float* py,
 // [bs*cams, H, W, C] in fm's dtype; dpx, dpy [bs*cams, M] and dwg
 // [bs*cams, M, G] fp32; every element of each written here. Tiling: Ct
 // channels per tile (8, 16 or 32, dividing C/G), clusters of S <= 8 blocks,
-// smem = H*W*Ct*4 bytes of shared memory per block.
+// smem = Hb*W*Ct*4 bytes of shared memory per block for bands of Hb rows
+// (Hb = H: the whole map in one tile).
 // Returns the first CUDA error of the two launches, or 0.
 extern "C" int hipad_interp_sample_camsum_bwd(
     const void* fm, int fm_bf16, const void* px, const void* py,
@@ -361,7 +376,8 @@ extern "C" int hipad_interp_sample_camsum_bwd(
     void* dwg, int bs, int cams, int H, int W, int C, int G, int M, int Ct,
     int S, int smem, void* stream) {
   if (Ct < 8 || Ct > kMaxTile || Ct % 8 != 0 || (C / G) % Ct != 0 || S < 1 ||
-      S > kMaxCluster || static_cast<long long>(smem) != 4LL * H * W * Ct) {
+      S > kMaxCluster || smem <= 0 || smem % (4 * W * Ct) != 0 ||
+      smem / (4 * W * Ct) > H) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -3,21 +3,72 @@
 mmdet conventions: ``weight`` multiplies elementwise, ``avg_factor``
 replaces the mean's denominator when given. Every function returns a
 scalar.
+
+Data parallelism: inside :func:`global_batch`, each process computes its
+share of the loss of the global batch that the JAX package normalises as
+one (``hipad_tpu/losses/hipad_loss.py:14-16``). A count that normalises a
+loss goes through :func:`global_sum` before it is clamped or divided by, and
+a mean over the local elements is divided by the number of processes (they
+hold equal local batches). The shares of all processes then sum to the
+global loss, and the sum of their gradients is its gradient.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+_GROUP = None  # the process group of the enclosing global_batch(), if any
+
+
+@contextlib.contextmanager
+def global_batch(group):
+    """Normalise every loss computed inside over the global batch of the
+    processes of ``group`` (a ``torch.distributed`` group; ``None``: this
+    process alone)."""
+    global _GROUP
+    prev, _GROUP = _GROUP, group
+    try:
+        yield
+    finally:
+        _GROUP = prev
+
+
+def world_size() -> int:
+    """Processes that share the global batch (1 outside :func:`global_batch`)."""
+    if _GROUP is None:
+        return 1
+    import torch.distributed as dist
+
+    return dist.get_world_size(_GROUP)
+
+
+def global_sum(x: torch.Tensor) -> torch.Tensor:
+    """A normaliser summed over the processes of the global batch (no
+    gradient flows through it)."""
+    if _GROUP is None:
+        return x
+    import torch.distributed as dist
+
+    y = torch.as_tensor(x).detach().clone()
+    dist.all_reduce(y, group=_GROUP)
+    return y
+
+
+def local_mean(loss: torch.Tensor) -> torch.Tensor:
+    """This process's share of the mean over the global batch's elements."""
+    n = world_size()
+    return loss.mean() if n == 1 else loss.mean() / n
 
 
 def _reduce(loss: torch.Tensor, weight, avg_factor) -> torch.Tensor:
     if weight is not None:
         loss = loss * weight
     if avg_factor is None:
-        return loss.mean() if loss.numel() else loss.new_zeros(())
+        return local_mean(loss) if loss.numel() else loss.new_zeros(())
     return loss.sum() / torch.clamp(torch.as_tensor(avg_factor, dtype=loss.dtype,
                                                     device=loss.device), min=1e-12)
 
@@ -53,7 +104,7 @@ def sigmoid_focal_loss(logits: torch.Tensor, target: torch.Tensor, num_classes: 
     if weight is not None:
         loss = loss * weight[..., None]
     if avg_factor is None:
-        return loss.mean() * loss_weight
+        return local_mean(loss) * loss_weight
     return _reduce(loss, None, avg_factor) * loss_weight
 
 

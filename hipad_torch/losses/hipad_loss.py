@@ -7,9 +7,10 @@ multi-granularity plan alignment losses, each summed over decoder layers.
 GT comes padded with masks; masked selection is a multiply by the mask.
 
 The Hungarian matchings of all layers of both tasks are solved on the host
-from ONE device-to-host copy (``targets.matching.assign_many``). The JAX
-package's auxiliary plan regularisers (``losses/plan_aux.py``) weigh 0 in
-both shipped configs and are not ported yet (ROADMAP).
+from ONE device-to-host copy (``targets.matching.assign_many``). The
+auxiliary plan regularisers (``losses/plan_aux.py``) weigh 0 in both
+shipped configs (``PLAN_BOUND_W``, ``PLAN_COL_W``, ``PLAN_DIR_W``); set one
+above 0 to add its loss.
 """
 
 from __future__ import annotations
@@ -25,8 +26,9 @@ from ..targets import map as map_tgt
 from ..targets import matching
 from ..targets import motion as motion_tgt
 from ..targets import plan as plan_tgt
-from .common import (bce_with_logits, gaussian_focal_loss, l1_loss, sigmoid_focal_loss,
-                     smooth_l1_loss)
+from . import plan_aux
+from .common import (bce_with_logits, gaussian_focal_loss, global_sum, l1_loss,
+                     sigmoid_focal_loss, smooth_l1_loss)
 
 # Loss weights (stage2 config).
 DET_CLS_W, DET_BOX_W = 2.0, 0.25
@@ -35,6 +37,8 @@ MAP_CLS_W, MAP_LINE_W, MAP_LINE_BETA = 1.0, 10.0, 0.01
 EGO_STATUS_W = 1.0
 PLAN_CLS_W, PLAN_REG_W = 0.5, 1.0
 MOTION_CLS_W, MOTION_REG_W = 0.2, 0.2
+# Auxiliary plan regularisers: present upstream, unset in both shipped configs.
+PLAN_BOUND_W, PLAN_COL_W, PLAN_DIR_W = 0.0, 0.0, 0.0
 
 
 def _det_map_layer_loss(cls, reg, quality, cls_target, reg_target, reg_weights, cfg,
@@ -42,7 +46,7 @@ def _det_map_layer_loss(cls, reg, quality, cls_target, reg_target, reg_weights, 
     """Shared det/map per-layer loss body."""
     bs, P = cls.shape[:2]
     matched = ~(reg_target == 0).all(dim=-1)  # [bs, P]
-    num_pos = torch.clamp(matched.sum().float(), min=1.0)
+    num_pos = torch.clamp(global_sum(matched.sum().float()), min=1.0)
     reg_mask = matched
     if cfg.cls_threshold_to_reg > 0:
         reg_mask = matched & (torch.sigmoid(cls.max(dim=-1).values) > cfg.cls_threshold_to_reg)
@@ -162,7 +166,7 @@ def loss_motion(cfg, motion_out: Dict, data: Dict, col4gt):
         reg = motion_out["prediction"][i]  # [bs, P, mode, ts, 2]
         cls_t, cls_w, best_reg, reg_t, reg_w, num_pos = motion_tgt.motion_target(
             reg, data["gt_agent_fut_trajs"], data["gt_agent_fut_masks"], col4gt)
-        num_pos = torch.clamp(num_pos, min=1.0)
+        num_pos = torch.clamp(global_sum(num_pos), min=1.0)
         bs, P = cls.shape[:2]
         closs = sigmoid_focal_loss(cls.reshape(bs * P, -1), cls_t.reshape(bs * P),
                                    cfg.fut_mode, weight=cls_w.reshape(bs * P).to(cls.dtype),
@@ -295,12 +299,51 @@ def compute_losses(cfg, outputs: Dict, data: Dict,
         losses.update(loss_motion(cfg, outputs["motion"], data, col4gt))
     if "plan" in cfg.task_select:
         losses.update(loss_plan(cfg, outputs["plan"], data))
+        if PLAN_BOUND_W > 0 or PLAN_COL_W > 0 or PLAN_DIR_W > 0:
+            losses.update(loss_plan_aux(cfg, outputs, data))
     if depth_preds is not None:
         gt_depth = data.get("gt_depth") or [data[f"gt_depth_{i}"] for i in range(len(depth_preds))
                                              if f"gt_depth_{i}" in data]
         if gt_depth:
             losses["depth_loss"] = dense_depth_loss(depth_preds, gt_depth)
     return losses
+
+
+def loss_plan_aux(cfg, outputs: Dict, data: Dict) -> Dict[str, torch.Tensor]:
+    """The map-boundary, collision and lane-direction regularisers on the
+    reference anchor type's GT-selected mode, last layer only."""
+    cmd = data["gt_ego_fut_cmd"]
+    cls = outputs["plan"]["classification"][-1]
+    reg = outputs["plan"]["prediction"][-1]
+    ref_cls, ref_reg = _plan_pred(cfg, cls, reg, cfg.plan_anchor_refer)
+    gt, gm = _plan_gt(cfg, data, cfg.plan_anchor_refer)
+    _, _, cls_w, best_reg, _, _ = plan_tgt.sparse_plan_target(
+        ref_cls, ref_reg, gt, gm, cmd, cfg.ego_fut_cmd, cfg.ego_fut_ts)
+    offsets = best_reg.reshape(best_reg.shape[0], cfg.ego_fut_ts, 2)
+    ego_traj = torch.cumsum(offsets, dim=-2)
+    w = cls_w.reshape(-1, 1).to(offsets.dtype)
+    norm = global_sum(w.sum()) * cfg.ego_fut_ts
+
+    out: Dict[str, torch.Tensor] = {}
+    if PLAN_BOUND_W > 0 or PLAN_DIR_W > 0:
+        lane = outputs["map"]["prediction"][-1]
+        lane = lane.reshape(lane.shape[0], lane.shape[1], cfg.map_num_pts, 2)
+        lane_scores = torch.sigmoid(outputs["map"]["classification"][-1])
+        if PLAN_BOUND_W > 0:
+            lb = plan_aux.plan_map_bound_loss(ego_traj, lane, lane_scores)
+            out["plan_loss_bound"] = PLAN_BOUND_W * (lb * w).sum() / (norm + 1e-6)
+        if PLAN_DIR_W > 0:
+            ld = plan_aux.plan_map_dir_loss(offsets, lane, lane_scores)
+            out["plan_loss_dir"] = PLAN_DIR_W * (ld * w).sum() / (norm + 1e-6)
+    if PLAN_COL_W > 0 and "motion" in cfg.task_select:
+        det = outputs["det"]["prediction"][-1]
+        det_scores = torch.sigmoid(outputs["det"]["classification"][-1])
+        mot_reg = outputs["motion"]["prediction"][-1]
+        mot_cls = outputs["motion"]["classification"][-1]
+        lc = plan_aux.plan_collision_loss(ego_traj, det[..., :2], det_scores,
+                                          torch.cumsum(mot_reg, dim=-2), mot_cls)
+        out["plan_loss_col"] = PLAN_COL_W * (lc * w[..., None]).sum() / (2 * norm + 1e-6)
+    return out
 
 
 def total_loss(losses: Dict[str, torch.Tensor]) -> torch.Tensor:

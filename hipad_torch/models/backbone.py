@@ -87,7 +87,9 @@ class FPN(nn.Module):
         laterals = [getattr(self, f"lateral_{i}")(f) for i, f in enumerate(inputs)]
         for i in range(self.n - 1, 0, -1):
             th, tw = laterals[i - 1].shape[2:4]
-            up = F.interpolate(laterals[i], scale_factor=2, mode="nearest")
+            # nearest upsampling copies values; the card's autocast would
+            # return them in fp32 and make the top-down sums fp32
+            up = F.interpolate(laterals[i], scale_factor=2, mode="nearest").to(laterals[i].dtype)
             laterals[i - 1] = laterals[i - 1] + up[:, :, :th, :tw]
         return [getattr(self, f"fpn_bn_{i}")(getattr(self, f"fpn_conv_{i}")(lat))
                 for i, lat in enumerate(laterals)]

@@ -8,6 +8,13 @@ BatchNorm use epsilon 1e-5, as the JAX package does.
 Train mode (``module.train()``) turns on BatchNorm's batch statistics and
 dropout. Dropout draws its mask from the ``torch.Generator`` the caller
 passes down the forward (``generator=``), never from the global RNG.
+
+Reduced precision: under bf16 autocast, :func:`compute_dtype` is flax's
+module ``dtype``. Where autocast's op lists differ between the CPU and the
+card for an op on the path (softmax, layer_norm, sum, nearest upsampling
+run in fp32 on the card and in their input's dtype on the CPU), the port
+takes the op in fp32 explicitly and casts its output to ``compute_dtype``,
+as flax does, so both devices run the same arithmetic.
 """
 
 from __future__ import annotations
@@ -18,6 +25,23 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+def compute_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype activations take here: autocast's for ``x``'s device when
+    it is on (flax's module ``dtype``), else ``x``'s own."""
+    dev = x.device.type
+    return torch.get_autocast_dtype(dev) if torch.is_autocast_enabled(dev) else x.dtype
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` with flax's precision: statistics and normalisation
+    in fp32, the output in :func:`compute_dtype` (the card's autocast would
+    return fp32, the CPU's the input's dtype)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
+        return y.to(compute_dtype(x))
 
 
 class MLPLN(nn.Module):
@@ -31,7 +55,7 @@ class MLPLN(nn.Module):
             for i in range(in_loops):
                 self.add_module(f"fc_{o}_{i}", nn.Linear(d, embed_dims))
                 d = embed_dims
-            self.add_module(f"ln_{o}", nn.LayerNorm(embed_dims, eps=1e-5))
+            self.add_module(f"ln_{o}", LayerNorm(embed_dims, eps=1e-5))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for o in range(self.out_loops):
@@ -91,15 +115,35 @@ def dropout(x: torch.Tensor, p: float, training: bool,
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+def _global_var_mean(x: torch.Tensor, dims, group):
+    """The biased variance and the mean over ``dims`` of ``x`` on every
+    process of ``group`` (equal local shapes), differentiable."""
+    from torch.distributed.nn.functional import all_reduce
+
+    n = x.numel() // x.shape[1] * torch.distributed.get_world_size(group)
+    mean = all_reduce(x.sum(dim=dims), group=group) / n
+    shape = [1, -1] + [1] * (x.dim() - 2)
+    dev = x - mean.view(shape)
+    var = all_reduce((dev * dev).sum(dim=dims), group=group) / n
+    return var, mean
+
+
 class BatchNorm(nn.Module):
     """BatchNorm over dim 1, epsilon 1e-5, as flax ``nn.BatchNorm`` with
     momentum 0.9. Eval mode normalises with the running statistics. Train
-    mode normalises with the batch mean and the BIASED batch variance, taken
-    in fp32, and updates ``running = 0.9 * running + 0.1 * batch`` with that
-    biased variance (``F.batch_norm(training=True)`` would store the unbiased
-    one)."""
+    mode normalises with the batch mean and the BIASED batch variance, all in
+    fp32 and rounded once to the input's dtype, and updates ``running = 0.9 *
+    running + 0.1 * batch`` with that biased variance
+    (``F.batch_norm(training=True)`` would store the unbiased one).
+
+    With ``group`` set (``parallel.mesh.sync_batchnorm``) the train-mode
+    statistics are those of the batches of all the group's processes, as
+    flax takes them over a sharded global batch: the sum, then the sum of
+    squared deviations from the global mean, each all-reduced with autograd
+    (``torch.nn.SyncBatchNorm`` takes no CPU tensors)."""
 
     momentum = 0.9
+    group = None  # a torch.distributed process group, or None
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
@@ -115,13 +159,17 @@ class BatchNorm(nn.Module):
                                 self.bias, training=False, momentum=0.0, eps=self.eps)
         dims = [d for d in range(x.dim()) if d != 1]
         shape = [1, -1] + [1] * (x.dim() - 2)
-        var, mean = torch.var_mean(x.float(), dim=dims, correction=0)
+        if self.group is None:
+            var, mean = torch.var_mean(x.float(), dim=dims, correction=0)
+        else:
+            var, mean = _global_var_mean(x.float(), dims, self.group)
         with torch.no_grad():
             self.running_mean.mul_(self.momentum).add_(mean, alpha=1 - self.momentum)
             self.running_var.mul_(self.momentum).add_(var, alpha=1 - self.momentum)
+        # in fp32, rounded once to the input's dtype, as flax normalises
         scale = torch.rsqrt(var + self.eps) * self.weight
-        y = (x - mean.view(shape).to(x.dtype)) * scale.view(shape).to(x.dtype)
-        return y + self.bias.view(shape).to(x.dtype)
+        y = (x.float() - mean.view(shape)) * scale.view(shape) + self.bias.view(shape)
+        return y.to(x.dtype)
 
 
 class MultiheadAttention(nn.Module):
@@ -191,7 +239,7 @@ class AsymmetricFFN(nn.Module):
                  ffn_drop: float = 0.0):
         super().__init__()
         self.ffn_drop = ffn_drop
-        self.pre_norm = nn.LayerNorm(in_channels, eps=1e-5)
+        self.pre_norm = LayerNorm(in_channels, eps=1e-5)
         self.fc1 = nn.Linear(in_channels, feedforward_channels)
         self.fc2 = nn.Linear(feedforward_channels, embed_dims)
         self.identity_fc = (nn.Linear(in_channels, embed_dims)

@@ -43,7 +43,7 @@ from ..ops.sampling import front_view_feature
 from . import instance_bank as banks
 from .attention_blocks import (GroupedCrossAttention, cross_attention_groups,
                                self_attention_groups)
-from .common import MLPLN, AsymmetricFFN, BatchNorm
+from .common import MLPLN, AsymmetricFFN, BatchNorm, LayerNorm
 from .deformable import DeformableAggregation
 from .encoders import SparseBox3DEncoder, SparsePoint3DEncoder
 from .keypoints import BoxKeypoints, PointKeypoints
@@ -172,7 +172,7 @@ class SparseOneDecoder(nn.Module):
                                 GroupedCrossAttention(C, cfg.num_groups, self.inter_groups,
                                                       cfg.drop_out))
             elif op == "norm":
-                self.add_module(f"norm_{op_idx}", nn.LayerNorm(C, eps=1e-5))
+                self.add_module(f"norm_{op_idx}", LayerNorm(C, eps=1e-5))
             elif op == "ffn":
                 self.add_module(f"ffn_{op_idx}", AsymmetricFFN(C * 2, C, C * 4, cfg.drop_out))
             elif op == "deformable":

@@ -30,7 +30,7 @@ from torch import nn
 from ..core.geometry import project_points
 from ..ops import ranking
 from ..ops.sampling import deformable_aggregation, deformable_aggregation_topk
-from .common import MLPLN, dropout
+from .common import MLPLN, compute_dtype, dropout
 from .keypoints import BoxKeypoints
 
 SAMPLERS = ("topk", "zero", "reference")
@@ -76,7 +76,9 @@ class DeformableAggregation(nn.Module):
         w = self.weights_fc(feat)  # [bs, n, cams, G*L*P]
         # softmax over (cams, levels, points) per group, in this exact order
         w = w.reshape(bs, n, self.num_cams * self.num_levels * num_pts, self.num_groups)
-        w = torch.softmax(w, dim=-2)
+        # in fp32, rounded to the compute dtype as flax's softmax of its
+        # bf16 logits (the card's autocast would keep fp32, the CPU's bf16)
+        w = torch.softmax(w.float(), dim=-2).to(compute_dtype(w))
         w = w.reshape(bs, n, self.num_cams, self.num_levels, num_pts, self.num_groups)
         w = dropout(w, self.attn_drop, self.training, generator,
                     mask_shape=(bs, n, self.num_cams, 1, num_pts, 1))
@@ -100,10 +102,11 @@ class DeformableAggregation(nn.Module):
         kp = max(1, int(-(-P * self.point_frac // 1)))
         inside = ((pts_cam > 0.0) & (pts_cam < 1.0)).all(dim=-1).permute(0, 2, 1, 3)
         wm = w * inside[:, :, :, None, :, None].to(w.dtype)  # [bs, n, cams, L, P, G]
-        imp = wm.sum(dim=(2, 3, 5)).float()  # [bs, n, P]
+        imp = wm.float().sum(dim=(2, 3, 5))  # [bs, n, P]
         pidx = ranking.topk(imp, kp)[1]
         at = pidx[:, :, None, None, :, None].expand(bs, n, cams, L, kp, G)
-        ratio = wm.sum(dim=4) / torch.clamp(torch.gather(wm, 4, at).sum(dim=4), min=1e-9)
+        ratio = (wm.float().sum(dim=4) / torch.clamp(torch.gather(wm, 4, at).float().sum(dim=4),
+                                                     min=1e-9)).to(w.dtype)
         w = torch.gather(w, 4, at) * ratio[:, :, :, :, None]
         pts = torch.gather(pts_cam, 3, pidx[:, None, :, :, None].expand(bs, cams, n, kp, 2))
         return pts.permute(0, 2, 3, 1, 4), w.permute(0, 1, 4, 2, 3, 5)

@@ -14,6 +14,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..losses.common import global_sum
+
 
 class DenseDepthNet(nn.Module):
     def __init__(self, embed_dims: int, num_depth_layers: int = 3,
@@ -52,5 +54,6 @@ def dense_depth_loss(depth_preds, gt_depths, max_depth: float = 60.0,
         zero = torch.zeros((), dtype=pred.dtype, device=pred.device)
         pred = torch.clamp(torch.where(fg, pred, zero), 0.0, max_depth)
         err = (pred - torch.where(fg, gt, zero)).abs().sum()
-        total = total + err / torch.clamp(fg.sum() * len(depth_preds), min=1.0) * loss_weight
+        n = global_sum(fg.sum()) * len(depth_preds)
+        total = total + err / torch.clamp(n, min=1.0) * loss_weight
     return total

@@ -55,6 +55,39 @@ class BankStates:
     plan: PlanBankState
 
 
+def init_bank_states(cfg, batch_size: int, device, feature_dtype=torch.float32) -> BankStates:
+    """Zeroed cold-start banks (``hipad_tpu/models/instance_bank.py:
+    init_bank_states``): zero confidence and a timestamp far in the past,
+    so that every sample fails the ``max_time_interval`` check and the cache
+    is ignored, through the temporal path. The gradient-accumulation step
+    starts each micro-batch's bank slice from these."""
+    C, bs = cfg.embed_dims, batch_size
+    f32 = dict(dtype=torch.float32, device=device)
+    t_old = torch.full((bs,), -1e9, **f32)
+    g = cfg.plan_anchor_group * cfg.ego_fut_cmd
+    return BankStates(
+        det=DetBankState(
+            feature=torch.zeros(bs, cfg.num_temp_det_anchor, C, dtype=feature_dtype,
+                                device=device),
+            anchor=torch.zeros(bs, cfg.num_temp_det_anchor, 11, **f32),
+            confidence=torch.zeros(bs, cfg.num_temp_det_anchor, **f32),
+            instance_id=torch.full((bs, cfg.num_det_anchor), -1, dtype=torch.int32,
+                                   device=device),
+            prev_id=torch.zeros(bs, dtype=torch.int32, device=device),
+            timestamp=t_old, t_global=torch.eye(4, **f32).repeat(bs, 1, 1)),
+        ego=EgoBankState(
+            feature=torch.zeros(bs, 1, C, dtype=feature_dtype, device=device),
+            anchor=torch.as_tensor(np.asarray(cfg.ego_anchor_init, np.float32),
+                                   device=device)[None].repeat(bs, 1, 1),
+            timestamp=t_old.clone()),
+        plan=PlanBankState(
+            feature=torch.zeros(bs, g, cfg.num_temp_plan_mode, C, dtype=feature_dtype,
+                                device=device),
+            anchor=torch.zeros(bs, g, cfg.num_temp_plan_mode, cfg.ego_fut_ts * 2, **f32),
+            confidence=torch.zeros(bs, g, cfg.num_temp_plan_mode, **f32),
+            timestamp=t_old.clone()))
+
+
 def topk_gather(confidence: torch.Tensor, k: int, *inputs):
     """Top-k rows along dim 1 by ``confidence [bs, n]`` (ties -> lower index)
     -> (top confidences, [x gathered at the top rows for x in inputs])."""

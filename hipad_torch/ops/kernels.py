@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import fcntl
 import functools
 import os
 import pathlib
@@ -68,23 +69,37 @@ _MAX_CLUSTER = 8  # the portable cluster size
 def k1_bwd_tiling(B: int, H: int, W: int, C: int, G: int) -> tuple:
     """The tiles of K1-bwd's map gradient for ``B = bs*cams`` maps of
     ``H x W`` cells and ``C`` channels in ``G`` groups -> ``(Ct, S, smem)``:
-    ``Ct`` channels of one group per tile (32, 16 or 8, the widest whose
-    ``H*W*Ct`` fp32 copy fits one block's shared memory), ``S`` blocks per
-    tile in one cluster (the largest power of two, at most 8, for which the
-    clusters fill the SMs at most once: such clusters pack into the card's
+    ``Ct`` channels of one group per tile, ``S`` blocks per tile in one
+    cluster, ``smem`` the bytes of each block's fp32 copy of its tile.
+
+    A map whose whole ``H*W*Ct`` tile fits one block's shared memory at 32,
+    16 or 8 channels takes the widest such ``Ct`` and one tile per channel
+    slice. A larger map (more than 7,264 cells) takes the widest ``Ct`` and
+    is cut into bands of ``Hb`` whole rows, as few as fit and of equal height
+    but the last: ``smem = Hb*W*Ct*4``, from which the kernel reads ``Hb``.
+    ``S`` is the largest power of two, at most 8, for which the clusters of
+    every tile fill the SMs at most once: such clusters pack into the card's
     GPCs without gaps, and on an H100 clusters of 4 beat those of 3, 5 and 8
-    at stage 2's coarse levels, PERF.md), ``smem`` the bytes of each block's
-    copy. Raises ``ValueError`` for a map of more
-    than 7,264 cells, which does not fit even at ``Ct = 8``."""
+    at stage 2's coarse levels (PERF.md). Raises ``ValueError`` when one row
+    does not fit at 8 channels (more than 7,264 cells in a row)."""
     gd = C // G
-    fits = [ct for ct in _TILE_CHANNELS if gd % ct == 0 and H * W * ct * 4 <= _SMEM_PER_BLOCK]
-    _check(bool(fits), f"K1-bwd: a {H}x{W} map ({H * W} cells) does not fit a block's "
-                       f"{_SMEM_PER_BLOCK} B of shared memory at {_TILE_CHANNELS[-1]} channels "
-                       f"per tile (C/G = {gd})")
-    ct = fits[0]
-    smem = H * W * ct * 4
+    widths = [ct for ct in _TILE_CHANNELS if gd % ct == 0]
+    _check(bool(widths), f"K1-bwd: C/G = {gd} is not a multiple of {_TILE_CHANNELS[-1]}")
+    whole = [ct for ct in widths if H * W * ct * 4 <= _SMEM_PER_BLOCK]
+    if whole:
+        ct, hb = whole[0], H
+    else:
+        rows = [ct for ct in widths if W * ct * 4 <= _SMEM_PER_BLOCK]
+        _check(bool(rows), f"K1-bwd: a row of {W} cells does not fit a block's "
+                           f"{_SMEM_PER_BLOCK} B of shared memory at {widths[-1]} channels "
+                           f"per tile (C/G = {gd})")
+        ct = rows[0]
+        bands = -(-H // (_SMEM_PER_BLOCK // (W * ct * 4)))
+        hb = -(-H // bands)
+    smem = hb * W * ct * 4
+    tiles = B * (C // ct) * -(-H // hb)
     per_sm = min(_SMEM_PER_SM // (smem + _SMEM_RESERVED), _TILE_BLOCKS_PER_SM)
-    s = max(1, min(_MAX_CLUSTER, _SMS * per_sm // (B * (C // ct))))
+    s = max(1, min(_MAX_CLUSTER, _SMS * per_sm // tiles))
     return ct, 1 << (s.bit_length() - 1), smem
 
 
@@ -114,8 +129,21 @@ def _sources():
 
 @functools.lru_cache(maxsize=None)
 def library() -> Library:
-    """Build (if any source is newer than the library) and load the kernels."""
+    """Build (if any source is newer than the library) and load the kernels.
+    Processes that start together (the ranks of a data-parallel run) take a
+    file lock in the build directory in turn: the first builds, the others
+    find the library up to date."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        seconds, log = _build()
+        lib = ctypes.CDLL(str(BUILD_DIR / LIB_NAME))
+    return _bind(lib, seconds, log)
+
+
+def _build() -> tuple:
+    """Compile and link the sources if the library is missing or older than
+    one of them -> (seconds, nvcc's log); (0.0, "") when it is up to date."""
     out = BUILD_DIR / LIB_NAME
     newest = max(p.stat().st_mtime for p in _sources())
     seconds, log = 0.0, ""
@@ -144,7 +172,10 @@ def library() -> Library:
         os.replace(tmp, out)
         for obj in objs:
             obj.unlink()
-    lib = ctypes.CDLL(str(out))
+    return seconds, log
+
+
+def _bind(lib: ctypes.CDLL, seconds: float, log: str) -> Library:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.hipad_coarse_sample.argtypes = [p] * 4 + [i] * 14 + [p] * 3 + [i, p] + [i] * 6 + [p]
     lib.hipad_coarse_sample.restype = i
@@ -156,7 +187,7 @@ def library() -> Library:
     lib.hipad_patch_sample_bwd.restype = i
     lib.hipad_row_gather.argtypes = [p] * 3 + [i] * 3 + [p]
     lib.hipad_row_gather.restype = i
-    return Library(lib=lib, path=out, build_seconds=seconds, log=log)
+    return Library(lib=lib, path=BUILD_DIR / LIB_NAME, build_seconds=seconds, log=log)
 
 
 def _check(cond: bool, msg: str):
@@ -320,7 +351,8 @@ class InterpSampleCamsumBwd:
     ``hipad_tpu/ops/sampling.py:_interp_matmul_tpu_bwd``. Plain version:
     autograd through ``interp_matmul_camsum``. One call makes two launches:
     the sample blocks (d px, d py, d wg) and the tile blocks (d fm, tiled by
-    :func:`k1_bwd_tiling`)."""
+    :func:`k1_bwd_tiling`, in bands of rows for maps of more than 7,264
+    cells)."""
 
     name = "interp_sample_camsum_bwd"
 

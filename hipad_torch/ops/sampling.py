@@ -31,11 +31,25 @@ origin.
 
 from __future__ import annotations
 
+import functools
 from typing import List, Sequence
 
 import torch
 
 from . import kernels
+
+
+def _autocast_off(fn):
+    """Run a plain version with autocast off on both devices: like its
+    kernel it computes in fp32 whatever autocast says (the CPU's autocast
+    would take its einsums and products in bf16)."""
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with torch.autocast("cpu", enabled=False), torch.autocast("cuda", enabled=False):
+            return fn(*args, **kwargs)
+
+    return wrapped
 
 
 def hat(t: torch.Tensor) -> torch.Tensor:
@@ -53,6 +67,7 @@ def _inside(points_2d: torch.Tensor) -> torch.Tensor:
     return ((points_2d > 0.0) & (points_2d < 1.0)).all(dim=-1)
 
 
+@_autocast_off
 def deformable_aggregation(
     feature_maps: Sequence[torch.Tensor],
     points_2d: torch.Tensor,
@@ -132,6 +147,7 @@ def interp_matmul_level(
     return out.reshape(B, M, groups, C // groups) * wg.float()[..., None]
 
 
+@_autocast_off
 def interp_matmul_camsum(fm, px, py, wg, bs: int, cams: int) -> torch.Tensor:
     """One coarse level of K1's plain version (:func:`coarse_sample_plain`
     sums it over the levels): :func:`interp_matmul_level` summed over the
@@ -143,6 +159,7 @@ def interp_matmul_camsum(fm, px, py, wg, bs: int, cams: int) -> torch.Tensor:
     return c.reshape(bs, cams, M, C).sum(dim=1)
 
 
+@_autocast_off
 def patch_sample_plain(
     fine_maps: Sequence[torch.Tensor],
     cam: torch.Tensor,
@@ -182,7 +199,10 @@ def patch_sample_plain(
         wy = hat(py[..., None] - (sy[..., None] + two))
         wx = hat(px[..., None] - (sx[..., None] + two))
         row = (cam * h_l + sy.long()) * w_l + sx.long()  # [bs, M] top-left cell
-        offs = torch.tensor([0, 1, w_l, w_l + 1], device=x.device)
+        # 0, 1, w_l, w_l + 1, made on the device (a tensor from a list would
+        # be a host-to-device copy, which waits for the queue)
+        offs = (torch.arange(2, device=x.device)[:, None] * w_l
+                + torch.arange(2, device=x.device)).reshape(4)
         idx = (row[..., None] + offs).reshape(bs, M * 4, 1)
         patch = torch.gather(feat.reshape(bs, cams * h_l * w_l, C), 1,
                              idx.expand(-1, -1, C)).reshape(bs, M, 4, C).float()
@@ -235,6 +255,7 @@ def _coarse_inputs(points_2d: torch.Tensor, weights: torch.Tensor):
     return xf, yf, insf, wf.float() * insf[..., None, None]
 
 
+@_autocast_off
 def coarse_sample_plain(acc, coarse_maps: Sequence[torch.Tensor], points_2d: torch.Tensor,
                         weights: torch.Tensor, levels: Sequence[int]) -> torch.Tensor:
     """Plain version of K1: ``acc`` (``[bs, M0, C]`` float32, or ``None`` for
@@ -370,9 +391,11 @@ def deformable_samples_topk_flat(
                        cam_idx[..., None, None].expand(-1, -1, -1, num_levels, groups))
     w = wts * ins[..., None, None]  # [bs, M0, k, L, G]
     if cam_renorm and cam_k < num_cams:
-        full = (weights * inside[..., None, None].to(weights.dtype)).sum(dim=2)
-        kept = w.sum(dim=2)
-        w = w * (full / torch.clamp(kept, min=1e-9))[:, :, None]
+        # sums in fp32, the ratio in the weights' dtype: the same on both
+        # devices (the card's autocast would return fp32 sums)
+        full = (weights * inside[..., None, None].to(weights.dtype)).float().sum(dim=2)
+        kept = w.float().sum(dim=2)
+        w = w * (full / torch.clamp(kept, min=1e-9)).to(w.dtype)[:, :, None]
 
     M = M0 * cam_k
     out = None
@@ -411,7 +434,7 @@ def deformable_aggregation_topk(
                         weights.shape[-2], weights.shape[-1]),
         cam_k=cam_k, matmul_levels=matmul_levels, cam_renorm=cam_renorm,
     )
-    return flat.reshape(bs, num_anchor, num_pts, -1).sum(dim=2)
+    return flat.reshape(bs, num_anchor, num_pts, -1).float().sum(dim=2).to(flat.dtype)
 
 
 def front_view_feature(feature_maps: List[torch.Tensor], level: int = -1,

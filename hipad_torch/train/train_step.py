@@ -1,6 +1,7 @@
 """One training step with the temporal banks carried from step to step
 (counterpart of ``hipad_tpu/train/train_step.py``: forward in train mode,
-every task loss, backward, global-norm clip and the AdamW update).
+every task loss, backward, global-norm clip and the AdamW update), and its
+gradient-accumulation form.
 
     model = init_random(HiPAD(cfg), seed)          # on the card
     step = make_train_step(cfg, model, AdamW(model.named_parameters()))
@@ -12,18 +13,26 @@ every task loss, backward, global-norm clip and the AdamW update).
 norm of the gradients before clipping), as 0-d tensors. After a step each
 parameter's ``.grad`` holds that step's gradient. The banks come back
 detached: no autograd graph reaches from one step into the next.
+
+``group=`` (a ``torch.distributed`` process group, ``parallel.mesh``) makes
+the step that of the global batch the group's processes hold between them,
+as the JAX package's step sharded over its data mesh: BatchNorm statistics
+and every loss normaliser over the global batch, the gradients summed, and
+the metrics those of the global batch on every rank.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Mapping, Optional
+from typing import Callable, Dict, Mapping, Optional, Sequence
 
 import torch
 
 from ..losses import hipad_loss
+from ..losses.common import global_batch
 from ..models.detector import META_KEYS, HiPAD
 from ..models.instance_bank import BankStates
+from ..parallel import mesh
 from .optim import AdamW
 
 
@@ -41,37 +50,105 @@ def detach_banks(banks: BankStates) -> BankStates:
         for s in (banks.det, banks.ego, banks.plan)))
 
 
+def _micro_step(cfg, model: HiPAD, dtype: torch.dtype, group):
+    """-> ``run(banks, batch, generator) -> (new_banks, metrics)``: the
+    forward in train mode, the losses and their backward, which adds into
+    each ``.grad``. Only this call's activations are live."""
+
+    def run(banks, batch, generator):
+        images = batch["images"]
+        metas = {k: batch[k] for k in META_KEYS if k in batch}
+        data = {k: v for k, v in batch.items() if k != "images"}
+        with torch.autocast(images.device.type, dtype=dtype, enabled=dtype != torch.float32):
+            outputs, new_banks = model(images, metas, banks, generator=generator,
+                                       return_depth=True)
+        depth = _to_f32(outputs.pop("depth"))
+        outputs = _to_f32(outputs)
+        with global_batch(group):
+            losses = hipad_loss.compute_losses(cfg, outputs, data, depth_preds=depth)
+        total = hipad_loss.total_loss(losses)
+        total.backward()
+        metrics: Dict[str, torch.Tensor] = {k: torch.as_tensor(v).detach()
+                                            for k, v in losses.items()}
+        metrics["total_loss"] = total.detach()
+        return detach_banks(new_banks), metrics
+
+    return run
+
+
+def _apply(optimizer: AdamW, metrics, group):
+    """All-reduce (with a group), then the AdamW update -> the metrics."""
+    if group is not None:
+        mesh.all_reduce_grads(optimizer.params, group)
+        metrics = mesh.all_reduce_metrics(metrics, group)
+    metrics["grad_norm"] = optimizer.step()
+    return metrics
+
+
 def make_train_step(cfg, model: HiPAD, optimizer: AdamW,
-                    dtype: torch.dtype = torch.float32) -> Callable:
+                    dtype: torch.dtype = torch.float32, group=None) -> Callable:
     """-> ``step(banks, batch, generator) -> (new_banks, metrics)``.
 
     ``batch`` is a ``data.synthetic.make_batch``-style dict of tensors on
     the model's device; ``generator`` a ``torch.Generator`` there, which
     GridMask and every dropout draw from. ``dtype=torch.bfloat16`` runs the
     forward under bf16 autocast; its outputs are cast to fp32 before the
-    targets and the losses, which always run in fp32.
+    targets and the losses, which always run in fp32. ``group``: this
+    process's batch is its slice of the group's global batch.
     """
+    mesh.sync_batchnorm(model, group)
+    micro = _micro_step(cfg, model, dtype, group)
 
     def step(banks: Optional[BankStates], batch: Mapping[str, torch.Tensor],
              generator: torch.Generator):
-        images = batch["images"]
-        metas = {k: batch[k] for k in META_KEYS if k in batch}
-        data = {k: v for k, v in batch.items() if k != "images"}
         model.train()
         optimizer.zero_grad()
-        with torch.autocast(images.device.type, dtype=dtype, enabled=dtype != torch.float32):
-            outputs, new_banks = model(images, metas, banks, generator=generator,
-                                       return_depth=True)
-        depth = _to_f32(outputs.pop("depth"))
-        outputs = _to_f32(outputs)
-        losses = hipad_loss.compute_losses(cfg, outputs, data, depth_preds=depth)
-        total = hipad_loss.total_loss(losses)
-        total.backward()
-        grad_norm = optimizer.step()
-        metrics: Dict[str, torch.Tensor] = {k: torch.as_tensor(v).detach()
-                                            for k, v in losses.items()}
-        metrics["total_loss"] = total.detach()
-        metrics["grad_norm"] = grad_norm
-        return detach_banks(new_banks), metrics
+        new_banks, metrics = micro(banks, batch, generator)
+        return new_banks, _apply(optimizer, metrics, group)
+
+    return step
+
+
+def make_accum_train_step(cfg, model: HiPAD, optimizer: AdamW, accum_steps: int,
+                          dtype: torch.dtype = torch.float32, group=None) -> Callable:
+    """Gradient accumulation (``hipad_tpu/train/train_step.py:
+    make_accum_train_step``): ``accum_steps`` micro-batches per AdamW update.
+
+    -> ``step(banks, batches, generator) -> (new_banks, metrics)`` with
+    ``batches`` a sequence of ``accum_steps`` batch dicts and ``banks`` a
+    sequence of as many bank slices (or None: every slice starts cold).
+    Each micro-batch is another set of sequences with its own bank slice and
+    its own loss normalisers: accumulation widens the global batch, it does
+    not advance time. Each micro-step's backward adds its gradient into
+    ``.grad`` and frees its activations before the next forward; the sum is
+    scaled by ``1 / accum_steps`` and AdamW applies once. BatchNorm's running
+    statistics carry from one micro-step to the next, and the metrics are
+    the micro-steps' mean (``grad_norm`` that of the mean gradient).
+    """
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    mesh.sync_batchnorm(model, group)
+    micro = _micro_step(cfg, model, dtype, group)
+    inv = 1.0 / accum_steps
+
+    def step(banks: Optional[Sequence[Optional[BankStates]]],
+             batches: Sequence[Mapping[str, torch.Tensor]], generator: torch.Generator):
+        if len(batches) != accum_steps or (banks is not None and len(banks) != accum_steps):
+            raise ValueError(f"expected {accum_steps} micro-batches and bank slices, got "
+                             f"{len(batches)} and {None if banks is None else len(banks)}")
+        model.train()
+        optimizer.zero_grad()
+        new_banks, sums = [], {}
+        for a, batch in enumerate(batches):
+            nb, metrics = micro(None if banks is None else banks[a], batch, generator)
+            new_banks.append(nb)
+            for k, v in metrics.items():
+                sums[k] = sums[k] + v if k in sums else v
+        with torch.no_grad():
+            grads = [p.grad for p in optimizer.params if p.grad is not None]
+            if accum_steps > 1 and grads:
+                torch._foreach_mul_(grads, inv)
+        metrics = {k: v * inv for k, v in sums.items()}
+        return new_banks, _apply(optimizer, metrics, group)
 
     return step

@@ -63,6 +63,15 @@ agent = AgentCore(acfg, HiPAD(acfg, device="cpu").state_dict(), dtype=torch.floa
 log = run_replay(agent, max_steps=2, sim=FakeSim(img_hw=(90, 160)))
 assert len(log) == 2
 assert probe_gather.run("C", device="cpu")[2]
+# the training entry point and data parallelism (one process, no group)
+import tempfile
+from hipad_torch.parallel import mesh
+from hipad_torch.tools import train
+assert mesh.init("gloo", "", 1, 0).group is None
+with tempfile.TemporaryDirectory() as work:
+    res = train.main(["--device", "cpu", "--tiny", "--synthetic", "1", "--batch-size", "1",
+                      "--work-dir", work])
+assert len(res["metrics"]) == 1
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax")
                 and sys.modules[m] is not None)
 assert not loaded, loaded
@@ -100,6 +109,20 @@ def test_chip_smoke_fails_without_a_card():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+
+
+def test_train_cli_fails_without_a_card():
+    """``python -m hipad_torch.tools.train`` trains on the card unless told
+    ``--device cpu``: on a host without CUDA it exits non-zero before
+    training; nothing carries on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    res = subprocess.run([sys.executable, "-m", "hipad_torch.tools.train", "--tiny",
+                          "--synthetic", "1", "--work-dir", "/nonexistent/never-written"],
+                         cwd=ROOT, env=_env(), capture_output=True, text=True, timeout=300)
+    assert res.returncode != 0
+    assert "no CUDA device" in res.stderr, res.stderr[-2000:]
+    assert "training done" not in res.stdout
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

@@ -344,12 +344,14 @@ def test_k1_bwd_tiles_fit_shared_memory(config):
 
 
 def test_k1_bwd_tiling_refuses_maps_over_7264_cells():
-    """7,264 fp32 cells of 8 channels fill 227 KB; one cell more fits no tile."""
+    """7,264 fp32 cells of 8 channels fill 227 KB. A map of more cells is cut
+    into bands of whole rows; only a single row of more than 7,264 cells
+    fits no tile and is refused."""
     from hipad_torch.ops import kernels
 
     ct, _, smem = kernels.k1_bwd_tiling(6, 8, 908, 256, 8)
     assert (ct, smem) == (8, 232_448)
-    with pytest.raises(ValueError, match="7265 cells"):
-        kernels.k1_bwd_tiling(6, 5, 1453, 256, 8)
-    with pytest.raises(ValueError):
-        kernels.k1_bwd_tiling(1, 90, 160, 256, 8)
+    ct, _, smem = kernels.k1_bwd_tiling(6, 5, 1453, 256, 8)
+    assert (ct, smem) == (32, 1453 * 32 * 4)  # bands of one row
+    with pytest.raises(ValueError, match="a row of 7265 cells"):
+        kernels.k1_bwd_tiling(1, 1, 7265, 256, 8)
