@@ -42,6 +42,16 @@ Phases, one printed line (or a few) each; any failure exits non-zero:
      unbroken (launches per step, step time, peak memory), then ``--resume``
      from its step-2 checkpoint: the restored state bit for bit, step 3's
      metrics and update against the unbroken run's;
+  5e. (right after 5b, on its step-4 checkpoint) the open-loop eval over a
+     ``tools/make_synthetic_val.py`` split with seeded 1600x900 JPEGs: the
+     runner in fp32, streaming (frame 0 against a direct forward +
+     ``post_process``, bit for bit) and with two batch slots (held against
+     streaming record by record, rel 1e-4, abs 1e-5); then ``python -m
+     hipad_torch.tools.test`` (its ``main``, bf16) streaming (24 K1 and 24
+     K2 launches per frame), with ``--batch-slots 2`` and as two ranks (held
+     against one rank); frames, wall, ``fps_wall`` and the loader's share;
+     then ``python -m hipad_torch.tools.train --ann-file`` for 2 steps with
+     an eval;
   5c. one ``stage1()`` training step, its kernel launches;
   5d. two processes over gloo on the one card, each a stage-2 step at bs=1,
      against one process at bs=2: step-0 metrics, and the parameters after
@@ -1066,7 +1076,8 @@ def phase_train_cli(card: str):
     the backward kernels' reductions change order from run to run, the
     update turns that into parameter differences, and near-tied Hungarian
     matches then flip. The CPU test ``tests/test_torch_train_cli.py`` holds
-    resume bit for bit. -> the unbroken run's launches."""
+    resume bit for bit. -> (the unbroken run's launches, its work dir, whose
+    step-4 checkpoint ``[eval]`` evaluates)."""
     import shutil
 
     import torch
@@ -1199,9 +1210,356 @@ def phase_train_cli(card: str):
              f"run's by {rel:.3e} of its norm")
     compare(f"step {i + 2} after --resume", rest["metrics"][1], whole["metrics"][i + 1], False)
     kept.clear()
-    shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(f"{work}/resumed", ignore_errors=True)
     torch.cuda.empty_cache()
-    return launches
+    return launches, f"{work}/whole"
+
+
+# [eval]: the open-loop eval over a synthetic val split with camera files.
+# 80 frames per route: planning scores only frames with 1 s of past and 3 s
+# of future in their route (frames 10-49; 16 frames per route would leave
+# none). The first 16 dataset frames (split_group interleaving: frames 0, 5,
+# ..., 75 of route 0, two sequences of 8) hold 8 of them.
+EVAL_ROUTES, EVAL_FRAMES_PER_ROUTE, EVAL_FRAMES = 2, 80, 16
+EVAL_TASKS = ["--eval-det", "--eval-map", "--eval-motion"]
+# two ranks against one: tests/test_eval_runner.py's bound (the same forwards)
+RANKS_REL, RANKS_ABS = 1e-6, 1e-8
+# batched (bs=2) against streaming (bs=1), both fp32 through the runner with
+# TF32 off: tests/test_eval_runner.py's rel 1e-4, abs 1e-5 (a bs=2 forward
+# may take other GEMM and convolution algorithms: the same products summed
+# in other orders). Each float of a per-frame record lies within EVAL_REL of
+# the largest magnitude of its reference array plus EVAL_ABS, each summary
+# metric within EVAL_REL of itself plus EVAL_ABS, and the picks (class
+# names, labels) are equal row for row, but in a run of near-tied scores:
+# two scores that each move by at most their tolerance can change places
+# only if they lie within twice it. The rows of such a run may come in
+# another order, each matched to a row within tolerance, and at the end of a
+# list cut to its top k another candidate may take the last places. Every
+# such run is printed with its largest gap. (Every prediction list is cut:
+# detections and their motion to the top 300 of 900 anchors, map lines to
+# the top 100 of 100 anchors x 4 classes.)
+EVAL_REL, EVAL_ABS = 1e-4, 1e-5
+LOADER_STEPS, LOADER_EVAL_FRAMES = 2, 8
+
+
+def _eval_split(work: str):
+    """``tools/make_synthetic_val.py`` (a subprocess), then a seeded
+    1600x900 JPEG for every camera of the first EVAL_FRAMES frames, so the
+    loader decodes files and runs ``native.preprocess_cameras``. -> (info
+    pickle, map pickle, data root)."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    from hipad_torch.configs.model import stage2
+    from hipad_torch.tools.test import open_dataset
+
+    out = os.path.join(work, "split")
+    res = subprocess.run([sys.executable, os.path.join(ROOT, "tools", "make_synthetic_val.py"),
+                          "--routes", str(EVAL_ROUTES), "--frames-per-route",
+                          str(EVAL_FRAMES_PER_ROUTE), "--out-dir", out],
+                         capture_output=True, text=True, timeout=300)
+    if res.returncode != 0:
+        fail(f"eval: make_synthetic_val.py failed: {res.stderr[-2000:]}")
+    ann, mp, root = f"{out}/b2d_infos_val.pkl", f"{out}/b2d_map_infos.pkl", f"{out}/data"
+    dataset = open_dataset(stage2(), ann, mp, root, test_mode=True)
+    rng = np.random.RandomState(SEED)
+    jpegs = {}  # (camera, frame parity) -> bytes: smooth seeded scenes, encoded once
+    for i in range(EVAL_FRAMES):
+        for c, path in enumerate(dataset.get_data_info(i)["img_filename"]):
+            if (c, i % 2) not in jpegs:
+                low = Image.fromarray(rng.randint(0, 256, (9, 16, 3), dtype=np.uint8))
+                img = np.asarray(low.resize((1600, 900), Image.BILINEAR), np.int16)
+                img = np.clip(img + rng.randint(-12, 13, img.shape), 0, 255).astype(np.uint8)
+                buf = io.BytesIO()
+                Image.fromarray(img).save(buf, "JPEG", quality=90)
+                jpegs[(c, i % 2)] = buf.getvalue()
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            with open(path, "wb") as f:
+                f.write(jpegs[(c, i % 2)])
+    return ann, mp, root
+
+
+def _entries(value):
+    import numpy as np
+
+    return {k: np.asarray(v) for k, v in value.items()}
+
+
+def _records_close(got, ref):
+    """Per-frame records of two fp32 runs on the same frames, under the rule
+    above -> ({list.field: largest error / tolerance}, [(list, frame, first
+    row, rows, largest gap, rows exchanged at the end) of each run that came
+    in another order], [each disagreement])."""
+    import numpy as np
+
+    worst, moved, bad = {}, [], []
+
+    def err(a, b):
+        d = np.abs(a.astype(np.float64) - b)
+        return d.reshape(len(d), -1).max(1) if d.ndim > 1 else d
+
+    for key, ref_list in ref.items():
+        if not isinstance(ref_list, list) or key in ("frames", "load_s", "forward_s"):
+            continue
+        r, g = dict(ref_list), dict(got[key])
+        if sorted(g) != sorted(r):
+            bad.append(f"{key}: other frames")
+            continue
+        for idx in sorted(r):
+            rv, gv = _entries(r[idx]), _entries(g[idx])
+            if gv.keys() != rv.keys() or any(gv[n].shape != b.shape for n, b in rv.items()):
+                bad.append(f"{key} frame {idx}: other fields or shapes")
+                continue
+            tol = {n: EVAL_REL * (float(np.abs(b).max()) if b.size else 0.0) + EVAL_ABS
+                   for n, b in rv.items() if b.dtype.kind == "f"}
+            if "scores" not in rv:  # ground truth, planning: whole arrays
+                for n, b in rv.items():
+                    e = float(err(gv[n][None], b[None]).max()) if n in tol and b.size else 0.0
+                    worst[f"{key}.{n}"] = max(worst.get(f"{key}.{n}", 0.0),
+                                              e / tol[n] if n in tol else 0.0)
+                    if e > tol.get(n, 0.0) or n not in tol and not np.array_equal(gv[n], b):
+                        bad.append(f"{key} frame {idx} {n}")
+                continue
+            s = rv["scores"]
+            cuts = np.flatnonzero(np.abs(np.diff(s)) > 2 * tol["scores"]) + 1
+            for run in np.split(np.arange(len(s)), cuts):
+                free, place, lost = np.ones(len(run), bool), [], []
+                for i in run:
+                    ok, ratio = free.copy(), {}
+                    for n, b in rv.items():
+                        if n in tol:
+                            ratio[n] = err(gv[n][run], b[i][None]) / tol[n]
+                            ok &= ratio[n] <= 1
+                        else:
+                            ok &= gv[n][run] == b[i]
+                    j = np.flatnonzero(ok)
+                    if not j.size:
+                        lost.append(i)
+                        continue
+                    free[j[0]] = False
+                    place.append(run[j[0]] == i)
+                    for n, x in ratio.items():
+                        worst[f"{key}.{n}"] = max(worst.get(f"{key}.{n}", 0.0), float(x[j[0]]))
+                gap = float(np.abs(np.diff(s[run])).max()) if len(run) > 1 else 0.0
+                # a candidate from past the cut took a last place: both its
+                # score and the one it displaced lie within twice the
+                # tolerance of their list's last
+                took = gv["scores"][run][free]
+                if lost and (run[-1] != len(s) - 1 or s[lost].max() > s[-1] + 2 * tol["scores"]
+                             or took.max() > gv["scores"][-1] + 2 * tol["scores"]):
+                    bad.append(f"{key} frame {idx}: rows {run[0]}-{run[-1]} (gap {gap:.1e}) "
+                               f"unmatched")
+                elif lost or not all(place):
+                    moved.append((key, idx, int(run[0]), len(run), gap, len(lost)))
+    return worst, moved, bad
+
+
+def _flat_summary(summary):
+    return {f"{k}/{m}": float(x) for k, d in summary.items() for m, x in d.items()}
+
+
+def phase_eval(card: str, ckpt: str):
+    """The open-loop eval at stage 2 on the ``[train-cli]`` run's step-4
+    checkpoint, over a synthetic split with camera files: the runner in
+    fp32, streaming (its frame 0 against a direct ``HiPAD.forward`` +
+    ``post_process``, bit for bit) and batched against streaming; then
+    ``python -m hipad_torch.tools.test`` (its ``main``, bf16) streaming,
+    with ``--batch-slots 2 --num-workers 2``, and as two ranks through one
+    gather dir; then ``python -m hipad_torch.tools.train`` on the split's
+    loader with an eval. -> (launches of the streaming CLI run, launches of
+    the loader-driven training)."""
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from hipad_torch import postprocess
+    from hipad_torch.configs.model import stage2
+    from hipad_torch.eval import runner
+    from hipad_torch.models.detector import META_KEYS, HiPAD
+    from hipad_torch.tools import test as eval_cli
+    from hipad_torch.tools import train
+    from hipad_torch.train import checkpoint
+
+    work = os.path.join(ROOT, "work_dirs", "chip_smoke_eval")
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    ann, mp, root = _eval_split(work)
+    cfg = stage2()
+    say(f"[eval] split: tools/make_synthetic_val.py --routes {EVAL_ROUTES} --frames-per-route "
+        f"{EVAL_FRAMES_PER_ROUTE}, seeded 1600x900 JPEGs for the {EVAL_FRAMES * 6} cameras of "
+        f"the first {EVAL_FRAMES} frames, in {time.perf_counter() - t0:.1f} s; checkpoint "
+        f"{os.path.relpath(ckpt, ROOT)} step {checkpoint.latest_step(ckpt)}")
+    dataset = eval_cli.open_dataset(cfg, ann, mp, root, test_mode=True)
+    model = HiPAD(cfg, device=DEVICE)
+    if checkpoint.load_params_only(ckpt, model):
+        fail("eval: the checkpoint of the training CLI did not load whole")
+
+    # fp32 through the runner: streaming, its frame 0 against a direct
+    # forward, then batched against streaming
+    n_deform, per_call = _launch_plan(cfg)
+    tasks = dict(eval_det=True, eval_map=True, eval_motion=True)
+    t = time.perf_counter()
+    fp32 = runner.collect_records(model, dataset, EVAL_FRAMES, torch.float32, **tasks)
+    fp32_s = time.perf_counter() - t
+    frame = dataset[{"idx": 0, "aug_config": None}]
+    images = torch.as_tensor(frame["images"][None], device=DEVICE)
+    metas = {k: torch.as_tensor(np.asarray(frame[k])[None], device=DEVICE) for k in META_KEYS}
+    with torch.no_grad():
+        outputs, _ = model(images, metas)
+    direct = runner._Collector(True, True, True, True)
+    direct.collect(0, frame, postprocess.post_process(cfg, outputs, metas["gt_ego_fut_cmd"])[0])
+    unequal = []
+    for key, entries in direct.acc.items():
+        mine = dict(fp32[key]).get(0)
+        for name, ref in _entries(entries[0][1]).items() if entries else ():
+            got = np.asarray(_entries(mine)[name]) if mine is not None else None
+            if got is None or got.shape != ref.shape or not np.array_equal(got, ref):
+                unequal.append(f"{key}.{name}")
+    say(f"[eval] fp32 runner, {len(fp32['frames'])} frames streaming in {fp32_s:.1f} s: frame "
+        f"0's records ({', '.join(f'{k} {len(v)}' for k, v in direct.acc.items() if v)}) against "
+        f"a direct HiPAD.forward + post_process of the same frame: "
+        f"{'equal bit for bit' if not unequal else 'UNEQUAL ' + ', '.join(unequal)}")
+    if unequal:
+        fail(f"eval: the runner's frame 0 differs from a direct forward in {unequal}")
+    t = time.perf_counter()
+    fp32_b = runner.collect_records(model, dataset, EVAL_FRAMES, torch.float32, batch_slots=2,
+                                    num_workers=2, **tasks)
+    fp32_bs = time.perf_counter() - t
+    worst, moved, bad = _records_close(fp32_b, fp32)
+    fs, fb = (_flat_summary(runner.summarize(x)) for x in (fp32, fp32_b))
+    if set(fs) != set(fb):
+        fail(f"eval: batched summary keys differ: {set(fs) ^ set(fb)}")
+    for k in fs:
+        tol = EVAL_REL * abs(fs[k]) + EVAL_ABS
+        worst[f"summary {k}"] = abs(fb[k] - fs[k]) / tol
+        if not abs(fb[k] - fs[k]) <= tol:
+            bad.append(f"summary {k} {fb[k]:.6g} against {fs[k]:.6g}")
+    rec = max((v, k) for k, v in worst.items() if not k.startswith("summary"))
+    summ = max((v, k) for k, v in worst.items() if k.startswith("summary"))
+    say(f"[eval] fp32 runner, batch_slots=2 num_workers=2, {len(fp32_b['frames'])} frames in "
+        f"{fp32_bs:.1f} s, against streaming: records, largest error / tolerance {rec[0]:.3f} "
+        f"({rec[1]}); summary {summ[0]:.3f} ({summ[1]}) (rel {EVAL_REL:g}, abs {EVAL_ABS:g}); "
+        f"{len(moved)} runs of near-tied scores in another order, "
+        f"{sum(m[5] for m in moved)} rows exchanged at a list's end")
+    for key, idx, first, rows, gap, took in moved:
+        say(f"[eval] fp32 batched against streaming: {key} frame {idx}, rows {first}-"
+            f"{first + rows - 1} in another order (largest score gap {gap:.1e}, "
+            f"{took} exchanged at the end)")
+    if bad:
+        fail(f"eval: batched differs from streaming in fp32: {bad[:6]}")
+    del model
+    torch.cuda.empty_cache()
+
+    common = ["--ann-file", ann, "--map-file", mp, "--data-root", root, "--ckpt", ckpt,
+              "--max-frames", str(EVAL_FRAMES), "--gather-dir", f"{work}/gather", *EVAL_TASKS]
+
+    def cli(*extra, rank=None, echo=False):
+        """The CLI's main (its lines before the tables printed when
+        ``echo``) -> (its result, the launches it made)."""
+        env = {k: os.environ.get(k) for k in ("RANK", "WORLD_SIZE")}
+        if rank is not None:
+            os.environ.update(RANK=str(rank), WORLD_SIZE="2")
+        out = io.StringIO()
+        try:
+            _reset_counts()
+            with contextlib.redirect_stdout(out):
+                res = eval_cli.main(common + list(extra))
+            if echo:
+                for line in out.getvalue().splitlines():
+                    if line.startswith(("cameras:", "motion:")):
+                        say(f"[eval] the CLI's report: {line}")
+            return res, _kernel_counts()
+        finally:
+            for k, v in env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+
+    stream, launches = cli(echo=True)
+    perf = stream["perf"]
+    if stream["cameras"]["absent"] or perf["frames"] != EVAL_FRAMES:
+        fail(f"eval: cameras {stream['cameras']}, {perf['frames']} frames evaluated")
+    for name in ("coarse_sample", "patch_sample"):
+        want = EVAL_FRAMES * n_deform * per_call[name]
+        say(f"[eval] streaming {name}: {launches[name]} launches over {perf['frames']} frames "
+            f"= {launches[name] / perf['frames']:g}/frame (expected {n_deform} deformable "
+            f"calls x {per_call[name]})")
+        if launches[name] != want:
+            fail(f"eval: {name} launched {launches[name]} times, expected {want}")
+    batched, blaunch = cli("--batch-slots", "2", "--num-workers", "2")
+    bperf = batched["perf"]
+    forwards = blaunch["coarse_sample"] / (n_deform * per_call["coarse_sample"])
+    for what, p in (("streaming", perf), ("--batch-slots 2 --num-workers 2", bperf)):
+        say(f"[eval] python -m hipad_torch.tools.test {what} (stage 2, bf16) on {card}: "
+            f"{p['frames']} frames in {p['wall_s']:.3f} s, fps_wall {p['fps_wall']:.3f}; "
+            f"loader {p['load_s']:.3f} s = {p['load_share']:.3f} of the wall, forwards with "
+            f"decode {p['forward_s']:.3f} s = {p['forward_share']:.3f} (host clock)")
+    say(f"[eval] batched: {forwards:g} forwards for {bperf['frames']} frames (first frames at "
+        f"bs=1, the rest at bs=2); K1 {blaunch['coarse_sample']}, K2 "
+        f"{blaunch['patch_sample']} launches")
+    if forwards != int(forwards) or not EVAL_FRAMES / 2 <= forwards < EVAL_FRAMES:
+        fail(f"eval: the batched run made {forwards} forwards' launches")
+
+    # two ranks, one after the other, through one gather dir
+    fs = _flat_summary(stream["summary"])
+    r1, _ = cli(rank=1)
+    r0, _ = cli(rank=0)
+    if r1["summary"] is not None or r0["summary"] is None:
+        fail("eval: rank 1 returned a summary or rank 0 none")
+    fm = _flat_summary(r0["summary"])
+    if set(fm) != set(fs):
+        fail(f"eval: merged summary keys differ: {set(fm) ^ set(fs)}")
+    rworst = max((abs(fm[k] - fs[k]) / (RANKS_REL * abs(fs[k]) + RANKS_ABS), k) for k in fs)
+    say(f"[eval] two ranks ({len(r1['records']['frames'])} + "
+        f"{len(r0['records']['frames']) - len(r1['records']['frames'])} frames) merged on "
+        f"rank 0 against one rank (bf16): largest error / tolerance {rworst[0]:.3f} "
+        f"({rworst[1]}) (rel {RANKS_REL:g}, abs {RANKS_ABS:g})")
+    if rworst[0] > 1:
+        fail("eval: the two-rank summary differs from the single-rank one")
+    s = stream["summary"]
+    car = {k: v for k, v in s.get("motion", {}).items() if k.startswith("car")}
+    say(f"[eval] summary (bf16; random weights after 4 synthetic steps): planning L2 avg "
+        f"{s['planning'].get('plan_L2_avg', float('nan')):.4f} m over "
+        f"{sum(1 for _, r in stream['records']['planning'] if r['fut_valid_flag'])} scored "
+        f"frames, det mAP {s['detection']['mAP']:.4f}, map mAP {s['map']['mAP']:.4f}, motion "
+        f"{car}")
+
+    # training on the split's loader, with one eval
+    _reset_counts()
+    t = time.perf_counter()
+    res = train.main(["--ann-file", ann, "--map-file", mp, "--data-root", root,
+                      "--val-ann-file", ann, "--eval-interval", str(LOADER_STEPS),
+                      "--eval-frames", str(LOADER_EVAL_FRAMES), "--max-iters", str(LOADER_STEPS),
+                      "--batch-size", "1", "--log-interval", "1", "--seed", str(SEED),
+                      "--work-dir", f"{work}/train"])
+    loader_launches = _kernel_counts()
+    bad = [k for m in res["metrics"] for k, v in m.items() if not math.isfinite(v)]
+    if bad or len(res["metrics"]) != LOADER_STEPS or len(res["evals"]) != 1:
+        fail(f"eval: loader training: non-finite {bad}, {len(res['metrics'])} steps, "
+             f"{len(res['evals'])} evals")
+    frames = LOADER_STEPS + LOADER_EVAL_FRAMES  # forwards: one per step, one per eval frame
+    for name, per in per_call.items():
+        want = (frames if not name.endswith("_bwd") else LOADER_STEPS) * n_deform * per
+        if loader_launches[name] != want:
+            fail(f"eval: loader training launched {name} {loader_launches[name]} times, "
+                 f"expected {want}")
+    say(f"[eval] python -m hipad_torch.tools.train --ann-file <split> --eval-interval "
+        f"{LOADER_STEPS} (stage 2, bf16, batch 1): {LOADER_STEPS} steps in "
+        f"{time.perf_counter() - t:.1f} s, step ms {[round(x, 1) for x in res['step_ms']]}, "
+        f"total_loss {[round(m['total_loss'], 4) for m in res['metrics']]} (no depth loss: no "
+        f"LiDAR files); launches {loader_launches} (2 steps + {LOADER_EVAL_FRAMES} fp32 eval "
+        f"frames); eval planning L2 avg "
+        f"{res['evals'][0].get('planning', {}).get('plan_L2_avg', float('nan')):.4f}")
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(os.path.dirname(ckpt), ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches, loader_launches
 
 
 def phase_stage1(card: str):
@@ -1996,7 +2354,8 @@ def main():
     k.update(timed("kernels-bwd", phase_kernels_bwd, cfg, card))
     frame_launches = timed("slice", phase_slice, cfg, card)
     step_launches = timed("train", phase_train, card)
-    cli_launches = timed("train-cli", phase_train_cli, card)
+    cli_launches, cli_work = timed("train-cli", phase_train_cli, card)
+    eval_launches, loader_launches = timed("eval", phase_eval, card, cli_work)
     stage1_launches = timed("stage1", phase_stage1, card)
     ddp_launches = timed("ddp", phase_ddp, card)
     serve_launches, weights = timed("serve", phase_serving, card)
@@ -2027,6 +2386,11 @@ def main():
                                 "training steps"),
         "train_cli": (cli_launches, f"phase 5b: python -m hipad_torch.tools.train --synthetic "
                                     f"{CLI_STEPS} --accum-steps {CLI_ACCUM}, unbroken"),
+        "eval": (eval_launches, f"phase 5e: python -m hipad_torch.tools.test, {EVAL_FRAMES} "
+                                "stage-2 bf16 frames streaming"),
+        "train_loader": (loader_launches, f"phase 5e: python -m hipad_torch.tools.train "
+                                          f"--ann-file, {LOADER_STEPS} steps and "
+                                          f"{LOADER_EVAL_FRAMES} eval frames"),
         "stage1_step": (stage1_launches, "phase 5c: one stage1() training step"),
         "ddp": (ddp_launches, "phase 5d: 2 gloo ranks x one stage-2 step at bs=1"),
         "frame": (frame_launches, f"phase 4: {WARMUP_FRAMES + TIMED_FRAMES} chained stage-2 "

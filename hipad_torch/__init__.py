@@ -1,9 +1,11 @@
-"""hipad_torch: HiP-AD in PyTorch (the streaming forward and the training
-step), with hand-written CUDA kernels for the deformable sampler and its
-gradient on an NVIDIA Hopper card (sm_90a).
+"""hipad_torch: HiP-AD in PyTorch (the streaming forward, training, the
+closed-loop agent and open-loop evaluation), with hand-written CUDA kernels
+for the deformable sampler and its gradient on an NVIDIA Hopper card
+(sm_90a).
 
 The JAX package ``hipad_tpu`` is the reference; this package imports nothing
-of it and keeps its own copies of the configuration and the synthetic data:
+of it and keeps its own copies of its numpy modules (configuration, data,
+metrics):
 
     from hipad_torch.configs.model import stage2, tiny
     from hipad_torch.data import synthetic

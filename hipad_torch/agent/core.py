@@ -28,6 +28,7 @@ import torch
 from .. import postprocess
 from ..data import native
 from ..data import pipelines as pp
+from ..models.common import to_float32
 from ..models.detector import HiPAD
 from .calib import CAMERAS, LIDAR2EGO, stacked_lidar2img
 from .pid import PIDController
@@ -70,14 +71,6 @@ def prepare_cameras(imgs_rgb: List[np.ndarray], aug: Dict, jpeg_quality: Optiona
     if len({im.shape for im in imgs_rgb}) == 1 and not aug.get("rotate"):
         return native.resize_crop_cameras_u8(np.stack(imgs_rgb).astype(np.uint8, copy=False), aug)
     return np.stack([prepare_camera(im, aug, None) for im in imgs_rgb])
-
-
-def _float32(tree):
-    """Floating leaves of a nested dict as fp32 (post-processing runs in fp32
-    whatever the forward's autocast produced)."""
-    if isinstance(tree, dict):
-        return {k: _float32(v) for k, v in tree.items()}
-    return tree.float() if tree.is_floating_point() else tree
 
 
 class AgentCore:
@@ -132,7 +125,7 @@ class AgentCore:
             with torch.autocast(self.device.type, dtype=torch.bfloat16, enabled=self.autocast):
                 outputs, new_banks = self.model(images, metas, banks)
             decoded = postprocess.post_process_arrays(
-                self.cfg, _float32(outputs), metas["gt_ego_fut_cmd"], self.with_rescore)
+                self.cfg, to_float32(outputs), metas["gt_ego_fut_cmd"], self.with_rescore)
         return decoded, new_banks
 
     # ---- observation -> metas ---------------------------------------------

@@ -27,6 +27,17 @@ import torch.nn.functional as F
 from torch import nn
 
 
+def to_float32(tree):
+    """The floating tensors of a nested dict / list / tuple as fp32, the
+    rest as they are: losses and post-processing run in fp32 whatever the
+    forward's autocast produced."""
+    if isinstance(tree, dict):
+        return {k: to_float32(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_float32(v) for v in tree)
+    return tree.float() if torch.is_tensor(tree) and tree.is_floating_point() else tree
+
+
 def compute_dtype(x: torch.Tensor) -> torch.dtype:
     """The dtype activations take here: autocast's for ``x``'s device when
     it is on (flax's module ``dtype``), else ``x``'s own."""

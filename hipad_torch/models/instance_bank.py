@@ -55,6 +55,15 @@ class BankStates:
     plan: PlanBankState
 
 
+def map_banks(fn, *banks: BankStates) -> BankStates:
+    """``fn`` over the matching tensors of one or more bank states ->
+    BankStates (``jax.tree.map`` over the JAX package's bank pytree)."""
+    return BankStates(*(
+        dataclasses.replace(parts[0], **{f.name: fn(*(getattr(p, f.name) for p in parts))
+                                         for f in dataclasses.fields(parts[0])})
+        for parts in zip(*((b.det, b.ego, b.plan) for b in banks))))
+
+
 def init_bank_states(cfg, batch_size: int, device, feature_dtype=torch.float32) -> BankStates:
     """Zeroed cold-start banks (``hipad_tpu/models/instance_bank.py:
     init_bank_states``): zero confidence and a timestamp far in the past,

@@ -23,31 +23,21 @@ the metrics those of the global batch on every rank.
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Callable, Dict, Mapping, Optional, Sequence
 
 import torch
 
 from ..losses import hipad_loss
 from ..losses.common import global_batch
+from ..models.common import to_float32
 from ..models.detector import META_KEYS, HiPAD
-from ..models.instance_bank import BankStates
+from ..models.instance_bank import BankStates, map_banks
 from ..parallel import mesh
 from .optim import AdamW
 
 
-def _to_f32(tree):
-    if isinstance(tree, dict):
-        return {k: _to_f32(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_to_f32(v) for v in tree)
-    return tree.float() if torch.is_tensor(tree) and tree.is_floating_point() else tree
-
-
 def detach_banks(banks: BankStates) -> BankStates:
-    return BankStates(*(dataclasses.replace(
-        s, **{f.name: getattr(s, f.name).detach() for f in dataclasses.fields(s)})
-        for s in (banks.det, banks.ego, banks.plan)))
+    return map_banks(torch.Tensor.detach, banks)
 
 
 def _micro_step(cfg, model: HiPAD, dtype: torch.dtype, group):
@@ -62,8 +52,8 @@ def _micro_step(cfg, model: HiPAD, dtype: torch.dtype, group):
         with torch.autocast(images.device.type, dtype=dtype, enabled=dtype != torch.float32):
             outputs, new_banks = model(images, metas, banks, generator=generator,
                                        return_depth=True)
-        depth = _to_f32(outputs.pop("depth"))
-        outputs = _to_f32(outputs)
+        depth = to_float32(outputs.pop("depth"))
+        outputs = to_float32(outputs)
         with global_batch(group):
             losses = hipad_loss.compute_losses(cfg, outputs, data, depth_preds=depth)
         total = hipad_loss.total_loss(losses)

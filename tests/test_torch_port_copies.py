@@ -1,8 +1,10 @@
 """The port's own copies of the JAX package's configuration, synthetic data
-and numpy-only agent and pipeline modules held to the originals bit for bit.
-The port itself imports nothing of ``hipad_tpu``."""
+and numpy-only agent, data and eval modules held to the originals bit for
+bit. The port itself imports nothing of ``hipad_tpu``."""
 
+import ast
 import dataclasses
+import inspect
 import pathlib
 
 import numpy as np
@@ -58,9 +60,43 @@ def test_make_batch_copy_equals_the_original(seed):
 
 
 @pytest.mark.parametrize("path", ["data/pipelines.py", "agent/calib.py", "agent/pid.py",
-                                  "agent/planner.py", "agent/replay.py"])
+                                  "agent/planner.py", "agent/replay.py", "data/sampler.py",
+                                  "eval/__init__.py", "eval/detection.py", "eval/map.py",
+                                  "eval/motion.py", "eval/planning.py", "eval/report.py"])
 def test_verbatim_copies_equal_the_originals(path):
     """Copied file for file: the training pipeline's geometry, the rig
     calibration, the PID controller, the route planner and the fake
-    simulator (whose relative imports reach the port's own agent)."""
+    simulator (whose relative imports reach the port's own agent), the
+    training loader's sequence sampler, and the numpy metrics and report
+    tables of the open-loop eval."""
     assert (ROOT / "hipad_torch" / path).read_bytes() == (ROOT / "hipad_tpu" / path).read_bytes()
+
+
+def _without(tree: ast.Module, cls: str, method: str) -> str:
+    for node in tree.body:
+        if isinstance(node, ast.ClassDef) and node.name == cls:
+            node.body = [n for n in node.body
+                         if not (isinstance(n, ast.FunctionDef) and n.name == method)]
+    return ast.dump(tree)
+
+
+def test_dataset_copy_departs_only_in_load_images():
+    """``data/bench2drive.py`` is the original but for ``load_images``, which
+    raises where the original loads zeros for a file that exists while PIL
+    is missing (``tests/test_torch_eval_data.py`` holds the frames)."""
+    port, orig = ((ROOT / pkg / "data" / "bench2drive.py").read_text()
+                  for pkg in ("hipad_torch", "hipad_tpu"))
+    assert port != orig
+    assert _without(ast.parse(port), "Bench2DriveDataset", "load_images") == \
+        _without(ast.parse(orig), "Bench2DriveDataset", "load_images")
+
+
+@pytest.mark.parametrize("name", ["sequence_spans", "rank_spans", "_assign_slots", "_Collector",
+                                  "_summarize"])
+def test_eval_runner_numpy_half_is_a_copy(name):
+    """The runner's scheduling, per-frame records and summary are the JAX
+    runner's source; only the model half is the port's."""
+    from hipad_torch.eval import runner as trun
+    from hipad_tpu.eval import runner as jrun
+
+    assert inspect.getsource(getattr(trun, name)) == inspect.getsource(getattr(jrun, name))

@@ -1,5 +1,7 @@
 """What the port must never do: import JAX or anything of the JAX package
-``hipad_tpu``, or fall back to the CPU when it was asked to run on a card."""
+``hipad_tpu`` (on any path: forward, training, serving, the CLIs, the
+open-loop eval), or fall back to the CPU when it was asked to run on a
+card, or let a native call return None where it should raise."""
 
 import os
 import pathlib
@@ -72,6 +74,18 @@ with tempfile.TemporaryDirectory() as work:
     res = train.main(["--device", "cpu", "--tiny", "--synthetic", "1", "--batch-size", "1",
                       "--work-dir", work])
 assert len(res["metrics"]) == 1
+# the open-loop eval path: the dataset, the runner and the eval CLI
+from hipad_torch.data.bench2drive import Bench2DriveDataset
+from hipad_torch.eval import runner
+from hipad_torch.tools import test as eval_cli
+with tempfile.TemporaryDirectory() as split:
+    import subprocess
+    subprocess.run([sys.executable, "tools/make_synthetic_val.py", "--routes", "1",
+                    "--frames-per-route", "6", "--out-dir", split], check=True,
+                   capture_output=True)
+    res = eval_cli.main(["--device", "cpu", "--tiny", "--ann-file", f"{split}/b2d_infos_val.pkl",
+                         "--eval-det", "--eval-motion", "--max-frames", "4"])
+assert res["perf"]["frames"] == 4
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax")
                 and sys.modules[m] is not None)
 assert not loaded, loaded
@@ -123,6 +137,32 @@ def test_train_cli_fails_without_a_card():
     assert res.returncode != 0
     assert "no CUDA device" in res.stderr, res.stderr[-2000:]
     assert "training done" not in res.stdout
+
+
+def test_eval_cli_fails_without_a_card():
+    """``python -m hipad_torch.tools.test`` runs on the card unless told
+    ``--device cpu``: without CUDA it exits non-zero before evaluating."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    res = subprocess.run([sys.executable, "-m", "hipad_torch.tools.test", "--tiny",
+                          "--ann-file", "/nonexistent/never-read.pkl"],
+                         cwd=ROOT, env=_env(), capture_output=True, text=True, timeout=300)
+    assert res.returncode != 0
+    assert "no CUDA device" in res.stderr, res.stderr[-2000:]
+    assert '"perf"' not in res.stdout
+
+
+def test_native_binding_never_returns_none_in_place_of_raising():
+    """The JAX package's binding returns None without its library and its
+    callers fall back to numpy; the port's builds the library or raises,
+    and every entry point returns its result."""
+    from hipad_torch.data import native
+
+    src = (ROOT / "hipad_torch" / "data" / "native.py").read_text()
+    assert not re.search(r"return None|Optional\[|def available", src)
+    for name in ("preprocess_cameras", "resize_crop_cameras_u8", "depth_maps"):
+        assert callable(getattr(native, name))
+    assert native.library() is not None
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
