@@ -72,7 +72,21 @@ Phases, one printed line (or a few) each; any failure exits non-zero:
   8. the gather probes P2-P4 at the probe tool's shapes: the tool's own
      timed run (its launches), then each kernel against its plain version
      (equal: a copy), and its device time (calls queued back to back)
-     against the plain version's and ``torch.index_select``'s.
+     against the plain version's and ``torch.index_select``'s;
+  9. the decoder's model options (``[options]``): K2's and K2-bwd's
+     level-k variants (``sampler_level_k``) against their plain versions
+     and autograd of them at the det task's stage-2 shapes (cam_k 2,
+     level_k 1, renormalised or not, fp32 and bf16 maps), timed as in
+     phases 3 and 3b; one det deformable op of ``stage2(sampler=
+     "reference")``, which the card runs through K1 and K2 with every camera
+     kept, against the oracle run plainly on the card; then chained frames
+     (2 warm-up, 8 timed, fp32 and bf16) of A = ``stage2_serving`` with the
+     level top-k, both attention masks and the per-point embeds in the
+     deformable weights heads, B = ``stage2`` with the concat point
+     expansion (5,781 joint queries) and C = ``stage2(sampler="reference")``,
+     each kernel's launches against the op program and frame 0 against the
+     CPU plain path as in phase 6 (B and C at 2 decoder layers there); and
+     one training step of A against the CPU, loss by loss.
 
 The line before the last is a JSON object with one entry per kernel (its
 device time and its time per call, its plain version's, the bound the card's
@@ -86,7 +100,7 @@ With ``--against DIR`` (a checkout of another commit, such as the parent
 unpacked by ``git archive``) it builds that checkout's kernels into its own
 ``build/`` and times its four sampler kernels against this tree's in turns
 (theirs, ours, ours, theirs) at the shapes of phases 3 and 3b, fp32, device
-time, checking that the two agree.
+time, checking that the two agree (K2 without ``lvl`` bit for bit).
 """
 
 from __future__ import annotations
@@ -435,8 +449,9 @@ def _k1_reads(px, py, wg, h, w, bwd):
     return cells.numel(), int(torch.unique(cells).numel())
 
 
-def _k2_reads(maps, cam, x, y, w, bwd):
-    """(taps read, map bytes read) by K2 (or K2-bwd) over its fine levels.
+def _k2_reads(maps, cam, x, y, w, bwd, lvl=None):
+    """(taps read, map bytes read) by K2 (or K2-bwd) over its fine levels,
+    or by their level-k variants (``lvl``) over each sample's kept levels.
     The forward skips (slot, level) pairs whose group weights are all zero;
     the backward reads every slot with a valid camera (d w needs the row)."""
     import torch
@@ -448,7 +463,12 @@ def _k2_reads(maps, cam, x, y, w, bwd):
     taps, nbytes = 0, 0
     for l, m in enumerate(maps):
         H, W, C = m.shape[2:]
-        ok0 = valid if bwd else valid & (w[:, :, l] != 0).any(-1)
+        if lvl is None:
+            keep, live = valid, (w[:, :, l] != 0).any(-1)
+        else:  # the slots that keep level l
+            kept = lvl == l
+            keep, live = valid & kept.any(-1), (kept & (w != 0).any(-1)).any(-1)
+        ok0 = keep if bwd else keep & live
         p, q = x * W - 0.5, y * H - 0.5
         sx, sy = p.floor().clamp(0, W - 2), q.floor().clamp(0, H - 2)
         cells = []
@@ -593,7 +613,7 @@ GRAD_RTOL = 1e-4
 GRAD_BF16_RTOL = 8e-3
 
 
-def _check_grads(what, got, ref, bf16_first):
+def _check_grads(what, got, ref, bf16_first, tag="[kernels-bwd]"):
     worst = 0.0
     for i, (name, a, b) in enumerate(zip(("fm", "x", "y", "w"), got, ref)):
         if isinstance(a, (list, tuple)):
@@ -603,7 +623,7 @@ def _check_grads(what, got, ref, bf16_first):
             err, scale = _max_err(a, b)
         rtol = GRAD_BF16_RTOL if (i == 0 and bf16_first) else GRAD_RTOL
         ok = err <= rtol * scale
-        say(f"[kernels-bwd] {what} d{name}: max_abs_err {err:.3e} (tol {rtol:g} x "
+        say(f"{tag} {what} d{name}: max_abs_err {err:.3e} (tol {rtol:g} x "
             f"{scale:.3e}) {'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"{what}: d{name} disagrees with autograd of the plain version")
@@ -837,12 +857,15 @@ def phase_slice(cfg, card: str):
 def _launch_plan(cfg):
     """(deformable calls per forward, launches of each kernel per call): K1
     once for all coarse levels, K2 once for all fine levels, K1-bwd once per
-    coarse level and K2-bwd once."""
+    coarse level and K2-bwd once; with ``sampler_level_k`` below the number
+    of fine levels, K2's and K2-bwd's level-k variants in their place."""
     n_deform = cfg.operation_order.count("deformable") * len(cfg.query_select)
     coarse = len([l for l in cfg.sampler_matmul_levels if l < cfg.num_levels])
-    k2 = int(any(l not in cfg.sampler_matmul_levels for l in range(cfg.num_levels)))
-    return n_deform, {"coarse_sample": int(coarse > 0), "patch_sample": k2,
-                      "interp_sample_camsum_bwd": coarse, "patch_sample_bwd": k2}
+    fine = [l for l in range(cfg.num_levels) if l not in cfg.sampler_matmul_levels]
+    lk = "_lk" if cfg.sampler_level_k is not None and 0 < cfg.sampler_level_k < len(fine) else ""
+    k2 = int(bool(fine))
+    return n_deform, {"coarse_sample": int(coarse > 0), f"patch_sample{lk}": k2,
+                      "interp_sample_camsum_bwd": coarse, f"patch_sample_bwd{lk}": k2}
 
 
 # Card step vs CPU step (plain path), stage 2 at drop_out 0 without GridMask:
@@ -1623,7 +1646,7 @@ torch.backends.cudnn.allow_tf32 = False
 dp = mesh.init("gloo", f"tcp://localhost:{port}", 2, rank)
 cfg = stage2(drop_out=0.0, use_grid_mask=False)
 payload = torch.load(job, weights_only=True)
-model = HiPAD(cfg, device="cuda")
+model = HiPAD(cfg, device="cuda", group=dp.group)
 model.load_state_dict(payload["state_dict"])
 for m in model.modules():
     if isinstance(m, DeformableAggregation):
@@ -1738,10 +1761,12 @@ class _Selections:
     exceed E2E_RTOL x the largest score + E2E_ATOL) and then takes the
     card's picks, so that both runs go on with the same selections and
     their outputs can be held key by key. ``stage`` ("forward" or "decode")
-    is set by the caller."""
+    is set by the caller. With ``hold=False`` a gap above the tolerance is
+    printed, not failed (``worst`` keeps the largest gap)."""
 
-    def __init__(self, card_calls=None):
+    def __init__(self, card_calls=None, tag="[serve]", hold=True):
         self.card_calls, self.calls, self.differ, self.stage = card_calls, [], 0, "forward"
+        self.tag, self.hold, self.worst = tag, hold, 0.0
 
     def _pick(self, scores, k):
         """-> the indices this run goes on with (the card's, on the CPU)."""
@@ -1757,18 +1782,19 @@ class _Selections:
         card = self.card_calls[i][1]
         same = card == mine
         if not same.all():
-            gap = (scores.gather(-1, card) - scores.gather(-1, mine)).abs()
-            tol = E2E_RTOL * float(scores.abs().max()) + E2E_ATOL
+            gap = (scores.gather(-1, card) - scores.gather(-1, mine)).detach().abs()
+            tol = E2E_RTOL * float(scores.detach().abs().max()) + E2E_ATOL
             where = (~same).nonzero()
             self.differ += len(where)
             worst = float(gap[~same].max())
+            self.worst = max(self.worst, worst)
             shown = ", ".join(
                 f"rank {tuple(w.tolist())}: card {int(card[tuple(w)])} cpu "
                 f"{int(mine[tuple(w)])} gap {float(gap[tuple(w)]):.3e}" for w in where[:4])
-            say(f"[serve] selection {i} ({self.stage}, top-{k} of {tuple(scores.shape)}): "
+            say(f"{self.tag} selection {i} ({self.stage}, top-{k} of {tuple(scores.shape)}): "
                 f"{len(where)} ranks differ, largest gap {worst:.3e} (tol {tol:.3e}); {shown}; "
                 f"the CPU goes on with the card's picks")
-            if worst > tol:
+            if worst > tol and self.hold:
                 fail(f"selection {i}: card and CPU picks differ by more than the tolerance")
         return card
 
@@ -1786,6 +1812,64 @@ class _Selections:
 
     def __exit__(self, *exc):
         self._ranking.topk = self._topk
+
+
+def _frame0_against_cpu(tag: str, cfg, model, img, mt):
+    """Frame 0 of ``model`` (on the card) post-processed, then the same frame
+    on a CPU copy of it (the plain path) with every selection recorded: a
+    pick that differs is printed with its score gap and fails above
+    E2E_RTOL x the largest score + E2E_ATOL, and the CPU goes on with the
+    card's picks; then every post-processed output key by key (the plan's
+    only where both pick the same mode)."""
+    import torch
+
+    from hipad_torch import postprocess
+    from hipad_torch.models.detector import HiPAD
+
+    cpu_model = HiPAD(cfg, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    decoded, card_calls = [], None
+    t0 = time.perf_counter()
+    for m, d in ((model, img.device), (cpu_model, torch.device("cpu"))):
+        i, t = img.to(d), {k: v.to(d) for k, v in mt.items()}
+        with torch.no_grad(), _Selections(card_calls, tag) as sel:
+            out, _ = m(i, t)
+            sel.stage = "decode"
+            dec = postprocess.post_process_arrays(cfg, out, t["gt_ego_fut_cmd"])
+        per = cfg.ego_fut_cmd * cfg.ego_fut_mode
+        ri = cfg.plan_anchor_types.index(cfg.plan_anchor_refer)
+        dec["refer_cls"] = out["plan"]["classification"][-1][:, 0, per * ri:per * (ri + 1)]
+        decoded.append({k: v.cpu() for k, v in dec.items()})
+        card_calls = sel.calls
+    say(f"{tag} frame 0 on the card, then on the CPU with the card's picks: "
+        f"{time.perf_counter() - t0:.1f} s, {len(card_calls)} selections, {sel.differ} "
+        f"ranks of them picked differently by the CPU (each within tolerance)")
+    got, ref = decoded
+    same_mode = int(got["plan_mode_idx"][0]) == int(ref["plan_mode_idx"][0])
+    if not same_mode:
+        c = ref["refer_cls"][0]
+        gap = abs(float(c[got["plan_mode_idx"][0]] - c[ref["plan_mode_idx"][0]]))
+        tol = E2E_RTOL * float(c.abs().max()) + E2E_ATOL
+        say(f"{tag} plan mode: card {int(got['plan_mode_idx'][0])} cpu "
+            f"{int(ref['plan_mode_idx'][0])} gap {gap:.3e} (tol {tol:.3e}); the plan "
+            f"waypoints are not compared")
+        if gap > tol:
+            fail(f"{tag} plan mode selection differs by more than the tolerance")
+    for key in sorted(k for k in ref if k != "refer_cls"):
+        if key.startswith("plan_") and not same_mode:
+            continue
+        r, g = ref[key], got[key]
+        if not r.is_floating_point():
+            ok = torch.equal(r, g)
+            say(f"{tag} card vs CPU {key} {tuple(r.shape)}: {'equal' if ok else 'DIFFERENT'}")
+        else:
+            err = float((g.double() - r.double()).abs().max())
+            tol = E2E_RTOL * float(r.abs().max()) + E2E_ATOL
+            ok = err <= tol
+            say(f"{tag} card vs CPU {key} {tuple(r.shape)}: max_abs_err {err:.3e} "
+                f"(tol {tol:.3e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"{tag} card and CPU disagree on {key}")
 
 
 # stage2_serving_det frames timed in turns with stage2 frames (informational)
@@ -1862,52 +1946,7 @@ def phase_serving(card: str):
         launches = launches or counts
 
     # frame 0 on the card, then on the CPU plain path with the card's picks
-    cpu_model = HiPAD(cfg, device="cpu")
-    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
-    decoded, card_calls = [], None
-    t0 = time.perf_counter()
-    for m, d in ((model, dev), (cpu_model, torch.device("cpu"))):
-        img, mt = frame_inputs(0)
-        img, mt = img.to(d), {k: v.to(d) for k, v in mt.items()}
-        with torch.no_grad(), _Selections(card_calls) as sel:
-            out, _ = m(img, mt)
-            sel.stage = "decode"
-            dec = postprocess.post_process_arrays(cfg, out, mt["gt_ego_fut_cmd"])
-        per = cfg.ego_fut_cmd * cfg.ego_fut_mode
-        ri = cfg.plan_anchor_types.index(cfg.plan_anchor_refer)
-        dec["refer_cls"] = out["plan"]["classification"][-1][:, 0, per * ri:per * (ri + 1)]
-        decoded.append({k: v.cpu() for k, v in dec.items()})
-        card_calls = sel.calls
-    say(f"[serve] frame 0 on the card, then on the CPU with the card's picks: "
-        f"{time.perf_counter() - t0:.1f} s, {len(card_calls)} selections, {sel.differ} "
-        f"ranks of them picked differently by the CPU (each within tolerance)")
-    got, ref = decoded
-    same_mode = int(got["plan_mode_idx"][0]) == int(ref["plan_mode_idx"][0])
-    if not same_mode:
-        c = ref["refer_cls"][0]
-        gap = abs(float(c[got["plan_mode_idx"][0]] - c[ref["plan_mode_idx"][0]]))
-        tol = E2E_RTOL * float(c.abs().max()) + E2E_ATOL
-        say(f"[serve] plan mode: card {int(got['plan_mode_idx'][0])} cpu "
-            f"{int(ref['plan_mode_idx'][0])} gap {gap:.3e} (tol {tol:.3e}); the plan "
-            f"waypoints are not compared")
-        if gap > tol:
-            fail("plan mode selection differs by more than the tolerance")
-    for key in sorted(k for k in ref if k != "refer_cls"):
-        if key.startswith("plan_") and not same_mode:
-            continue
-        r, g = ref[key], got[key]
-        if not r.is_floating_point():
-            ok = torch.equal(r, g)
-            say(f"[serve] card vs CPU {key} {tuple(r.shape)}: {'equal' if ok else 'DIFFERENT'}")
-        else:
-            err = float((g.double() - r.double()).abs().max())
-            tol = E2E_RTOL * float(r.abs().max()) + E2E_ATOL
-            ok = err <= tol
-            say(f"[serve] card vs CPU {key} {tuple(r.shape)}: max_abs_err {err:.3e} "
-                f"(tol {tol:.3e}) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            fail(f"card and CPU disagree on {key}")
-    del cpu_model
+    _frame0_against_cpu("[serve]", cfg, model, *frame_inputs(0))
 
     # stage2 and serving frames in turns (informational)
     base = init_random(HiPAD(stage2(), device=dev), SEED)
@@ -1931,6 +1970,379 @@ def phase_serving(card: str):
     del base, runs, model
     torch.cuda.empty_cache()
     return launches, weights
+
+
+# ---- [options]: the decoder's model options --------------------------------
+
+# frame A: the serving config with the level top-k, both attention masks and
+# the per-point embeds in the deformable weights heads; B: stage 2 with the
+# concat point expansion (900 + 2000 + 2880 + 1 joint queries); C: stage 2
+# with the oracle sampler, which the card runs through K1 and K2 with every
+# camera kept
+OPTIONS_A = dict(sampler_level_k=1, with_distance_attn_mask=True, with_velocity_attn_mask=True,
+                 with_deform_map_points=True, with_deform_plan_points=True)
+OPTIONS_B = dict(with_concat_map_points=True, with_concat_plan_points=True)
+OPTIONS_C = dict(sampler="reference")
+# decoder layers of the card-against-CPU frame 0 of B and C (the card's
+# chained frames run all six): the CPU plain path's frames cost seconds a
+# layer at full width
+OPTIONS_CPU_LAYERS = 2
+
+
+def _lk_inputs(cfg, g, dev, dtype, renorm):
+    """K2-lk's inputs at phase 3's K2 shapes (the det task at stage 2, cam_k
+    slots): the weights of both fine levels drawn as ``_k2_inputs`` draws
+    them, then each sample's level of largest mass kept
+    (``sampling._keep_top_levels``, renormalised or not) -> (maps, cam, x,
+    y, kept weights ``[bs, M, 1, G]``, cam_k, lvl ``[bs, M, 1]``). Every 50th
+    x on a pixel corner of level 0 and every 50th y (offset 25) on one of
+    level 1: the hat weights' kinks."""
+    from hipad_torch.ops import sampling
+
+    maps, cam, x, y, w, cam_k = _k2_inputs(cfg, g, dev, dtype)
+    W0, H1 = maps[0].shape[3], maps[1].shape[2]
+    x[:, ::50] = ((x[:, ::50] * W0 - 0.5).round() + 0.5) / W0
+    y[:, 25::50] = ((y[:, 25::50] * H1 - 0.5).round() + 0.5) / H1
+    kept, lvl = sampling._keep_top_levels(w, 1, renorm)
+    return maps, cam, x, y, kept.contiguous(), cam_k, lvl
+
+
+def _lk_grid_sample(maps, x, y, lvl):
+    """``F.grid_sample``'s inputs for the library row of K2-lk: on each fine
+    map, the samples that keep it, spread over the cameras (not the same
+    function: no slots, no weights, no sums)."""
+    import torch
+
+    bs, cams = x.shape[0], maps[0].shape[1]
+    out = []
+    for l, m in enumerate(maps):
+        sel = (lvl[..., 0] == l).reshape(-1)
+        xy = torch.stack([x.reshape(-1)[sel], y.reshape(-1)[sel]], -1)
+        n = xy.shape[0] // (bs * cams) * (bs * cams)
+        out.append((m.reshape(bs * cams, *m.shape[2:]).permute(0, 3, 1, 2),
+                    xy[:n].reshape(bs * cams, 1, -1, 2) * 2 - 1))
+    return out
+
+
+def _options_kernels(cfg, card: str):
+    """K2-lk and K2-bwd-lk at the det task's stage-2 shapes (M0 = 11,700,
+    cam_k 2, level_k 1), renormalised and not, fp32 and bf16 maps, against
+    the plain version and autograd of it; timed at fp32 with the
+    renormalisation. -> their records."""
+    import torch
+    import torch.nn.functional as F
+
+    from hipad_torch.ops import kernels, sampling
+
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    fwd, bwd = _Rec(), _Rec()
+    for dtype in (torch.float32, torch.bfloat16):
+        for renorm in (True, False):
+            maps, cam, x, y, w, cam_k, lvl = _lk_inputs(cfg, g, dev, dtype, renorm)
+            bs, M = x.shape
+            C = maps[0].shape[-1]
+            share = float((lvl == 0).float().mean())
+            what = (f"{str(dtype)[6:]} renorm={'on' if renorm else 'off'} M={M} cam_k={cam_k} "
+                    f"level_k={lvl.shape[-1]} (level 0 kept by {share:.2f} of the slots)")
+            got = kernels.patch_sample_lk(maps, cam, x, y, w, cam_k, lvl)
+            ref = sampling.patch_sample_plain(maps, cam, x, y, w, cam_k, lvl)
+            torch.cuda.synchronize()
+            err, scale = _max_err(got, ref)
+            ok = err <= KERNEL_RTOL * scale
+            say(f"[options] K2-lk patch_sample_lk {what}: max_abs_err {err:.3e} (tol "
+                f"{KERNEL_RTOL:g} x {scale:.3e}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"K2-lk disagrees with its plain version ({what})")
+            fwd.err = max(fwd.err, err)
+            if not renorm:
+                continue
+            gout = torch.randn(bs, M // cam_k, C, generator=g, device=dev)
+            lm = [m.detach().clone().requires_grad_() for m in maps]
+            lx, ly, lw = (t.detach().clone().requires_grad_() for t in (x, y, w))
+            out = sampling.patch_sample_plain(lm, cam, lx, ly, lw, cam_k, lvl)
+            ref_g = torch.autograd.grad(out, lm + [lx, ly, lw], gout, retain_graph=True)
+            ref_g = (ref_g[:len(lm)],) + tuple(ref_g[len(lm):])
+            dmaps, dx, dy, dw = kernels.patch_sample_bwd_lk(maps, cam, x, y, w, gout, cam_k, lvl)
+            torch.cuda.synchronize()
+            bwd.err = max(bwd.err, _check_grads(
+                f"K2-bwd-lk {what}", ([d.to(dtype) for d in dmaps], dx, dy, dw), ref_g,
+                dtype == torch.bfloat16, "[options]"))
+            if dtype != torch.float32:
+                continue
+            lib = _lk_grid_sample(maps, x, y, lvl)
+            t = fwd.add_times(*_times([
+                lambda: sampling.patch_sample_plain(maps, cam, x, y, w, cam_k, lvl),
+                lambda: kernels.patch_sample_lk(maps, cam, x, y, w, cam_k, lvl),
+                lambda: kernels.patch_sample_lk(maps, cam, x, y, w, cam_k, lvl),
+                lambda: sampling.patch_sample_plain(maps, cam, x, y, w, cam_k, lvl),
+                lambda: [F.grid_sample(m, gr, align_corners=False) for m, gr in lib]]))
+            taps, map_bytes = _k2_reads(maps, cam, x, y, w, False, lvl)
+            fwd.add_bound(bound(map_bytes + _nbytes(cam, x, y, w, lvl, got), taps * C * 2))
+            say(f"[options] K2-lk fp32 on {card}: kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, "
+                f"F.grid_sample (each kept level's samples, no slots or weights: not the same "
+                f"function) {t[2]:.4f} ms ({TIMES}); per call {fwd.per_call_ms:.4f} ms; bound "
+                f"{fwd.bound_ms:.4f} ms ({fwd.bound_by}: {taps} taps, {map_bytes / 1e6:.2f} of "
+                f"{_nbytes(*maps) / 1e6:.2f} MB of maps read)")
+            lib_in = [[m.detach().clone().requires_grad_(), gr.detach().clone().requires_grad_()]
+                      for m, gr in lib]
+            lib_out = [F.grid_sample(*a, align_corners=False) for a in lib_in]
+            lib_g = [torch.randn_like(o) for o in lib_out]
+            t = bwd.add_times(*_times([
+                lambda: torch.autograd.grad(out, lm + [lx, ly, lw], gout, retain_graph=True),
+                lambda: kernels.patch_sample_bwd_lk(maps, cam, x, y, w, gout, cam_k, lvl),
+                lambda: kernels.patch_sample_bwd_lk(maps, cam, x, y, w, gout, cam_k, lvl),
+                lambda: torch.autograd.grad(out, lm + [lx, ly, lw], gout, retain_graph=True),
+                lambda: [torch.autograd.grad(o, a, go, retain_graph=True)
+                         for o, a, go in zip(lib_out, lib_in, lib_g)]]))
+            taps, map_bytes = _k2_reads(maps, cam, x, y, w, True, lvl)
+            bwd.add_bound(bound(map_bytes + _nbytes(cam, x, y, w, lvl, gout, *dmaps, dx, dy, dw),
+                                taps * C * 4))
+            say(f"[options] K2-bwd-lk fp32 on {card}: kernel {t[0]:.4f} ms, plain backward "
+                f"{t[1]:.4f} ms, F.grid_sample backward (not the same function) {t[2]:.4f} ms "
+                f"({TIMES}); per call {bwd.per_call_ms:.4f} ms; bound {bwd.bound_ms:.4f} ms "
+                f"({bwd.bound_by}: {taps} taps, {map_bytes / 1e6:.2f} MB of maps read)")
+            del out, lm, ref_g
+    return {"patch_sample_lk": fwd, "patch_sample_bwd_lk": bwd}
+
+
+def _options_reference_route(card: str):
+    """One det deformable op of ``stage2(sampler="reference")`` on the card
+    (seeded weights, the config's det anchors, the synthetic rig, a random
+    stage-2 pyramid), which runs K1 and K2 with every camera kept and no
+    renormalisation, against the same op whose sampling is
+    ``deformable_aggregation`` run plainly on the card, fp32."""
+    import torch
+
+    from hipad_torch.configs.model import stage2
+    from hipad_torch.data import synthetic
+    from hipad_torch.models.deformable import DeformableAggregation
+    from hipad_torch.models.detector import batch_to_torch
+    from hipad_torch.models.keypoints import BoxKeypoints
+    from hipad_torch.ops import sampling
+    from hipad_torch.weights import init_random
+
+    dev = torch.device(DEVICE)
+    cfg = stage2(**OPTIONS_C)
+    C, H, W = cfg.embed_dims, *cfg.input_size
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    with torch.device(dev):
+        kps = init_random(BoxKeypoints(cfg.det_kps, C), SEED)
+        op = init_random(DeformableAggregation(
+            C, cfg.num_groups, cfg.num_levels, cfg.num_cams, kps.num_pts, sampler=cfg.sampler,
+            sampler_matmul_levels=cfg.sampler_matmul_levels), SEED).eval()
+    _, metas = batch_to_torch(synthetic.make_batch(cfg, 1, seed=SEED), dev)
+    anchor = torch.as_tensor(cfg.det_anchor, dtype=torch.float32, device=dev)[None]
+    f, e = (torch.randn(1, anchor.shape[1], C, generator=g, device=dev) for _ in range(2))
+    maps = [torch.randn(1, cfg.num_cams, H // s, W // s, C, generator=g, device=dev)
+            for s in cfg.strides]
+    args = (kps, f, anchor, e, maps, metas["projection_mat"], metas["image_wh"])
+    with torch.no_grad():
+        _reset_counts()
+        got = op(*args)
+        launches = _kernel_counts()
+        pts2d, w = op.prepare(kps, f, anchor, e, metas["projection_mat"], metas["image_wh"])
+        ref = op.finish(sampling.deformable_aggregation(maps, pts2d, w), f)
+        torch.cuda.synchronize()
+        inside = float(sampling._inside(pts2d).float().mean())
+        err, scale = _max_err(got, ref)
+        ok = err <= KERNEL_RTOL * scale
+        say(f"[options] reference route: det op of stage2(sampler='reference'), "
+            f"{anchor.shape[1]} anchors x {pts2d.shape[2]} keypoints x {cfg.num_cams} cameras "
+            f"({inside:.3f} of them in an image), K1 {launches['coarse_sample']} and K2 "
+            f"{launches['patch_sample']} launch(es), cam_k {cfg.num_cams}, no renorm, against "
+            f"deformable_aggregation on the card: max_abs_err {err:.3e} (tol {KERNEL_RTOL:g} x "
+            f"{scale:.3e}) {'ok' if ok else 'FAIL'}")
+        if not ok or launches["coarse_sample"] != 1 or launches["patch_sample"] != 1:
+            fail("the reference route disagrees with the oracle or did not run K1 and K2 once")
+        # CUDA events around each call (the oracle's calls do not queue behind
+        # a sleep kernel: a call waits for the host)
+        ms = _timed([
+            lambda: sampling.deformable_aggregation(maps, pts2d, w),
+            lambda: sampling.deformable_aggregation_topk(
+                maps, pts2d, w, cam_k=cfg.num_cams, matmul_levels=cfg.sampler_matmul_levels),
+            lambda: sampling.deformable_aggregation_topk(
+                maps, pts2d, w, cam_k=cfg.num_cams, matmul_levels=cfg.sampler_matmul_levels),
+            lambda: sampling.deformable_aggregation(maps, pts2d, w)])
+    say(f"[options] reference route fp32 on {card}: the sampling through K1 and K2 "
+        f"{min(ms[1:3]):.4f} ms a call, the oracle plainly {min(ms[0], ms[3]):.4f} ms (CUDA "
+        f"events around each of 20 calls, median, in turns; informational)")
+    del op, maps
+    torch.cuda.empty_cache()
+
+
+def _options_frames(tag: str, cfg, cpu_cfg, card: str):
+    """``cfg`` bs=1 with seeded weights: 2 warm-up and 8 chained frames in
+    fp32 then bf16 autocast, every output finite, each sampler kernel's
+    launches against the op program; then frame 0 of ``cpu_cfg`` (``cfg``,
+    or ``cfg`` at fewer decoder layers) on the card and on the CPU plain
+    path, selection by selection and post-processed output by output.
+    -> fp32 launches."""
+    import dataclasses
+
+    import torch
+
+    from hipad_torch.data import synthetic
+    from hipad_torch.models.detector import HiPAD, batch_to_torch
+    from hipad_torch.weights import init_random
+
+    dev = torch.device(DEVICE)
+    model = init_random(HiPAD(cfg, device=dev), SEED)
+    images, metas = batch_to_torch(synthetic.make_batch(cfg, 1, seed=SEED), dev)
+    n_deform, per_call = _launch_plan(cfg)
+    per_call = {k: v for k, v in per_call.items() if not k.endswith(("_bwd", "_bwd_lk"))}
+    n_frames = WARMUP_FRAMES + TIMED_FRAMES
+
+    def frame_inputs(i):
+        return images + 1e-3 * i, dict(metas, timestamp=metas["timestamp"] + 0.5 * i)
+
+    launches = None
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        _reset_counts()
+        banks, times = None, []
+        with torch.no_grad(), torch.autocast("cuda", dtype=dtype,
+                                             enabled=dtype != torch.float32):
+            for i in range(n_frames):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out, banks = model(*frame_inputs(i), banks)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+                leaves = list(_flat(out)) + [
+                    (f"bank.{n}.{f.name}", getattr(getattr(banks, n), f.name))
+                    for n in ("det", "ego", "plan") for f in dataclasses.fields(getattr(banks, n))]
+                bad = [k for k, v in leaves
+                       if v.is_floating_point() and not torch.isfinite(v).all()]
+                if bad:
+                    fail(f"{tag} {name} frame {i}: non-finite outputs {bad[:5]}")
+        counts = _kernel_counts()
+        timed = sorted(times[WARMUP_FRAMES:])
+        say(f"{tag} bs=1 {name} on {card}: {n_frames} chained frames, every output finite; per "
+            f"frame median {statistics.median(timed):.2f} ms, min {timed[0]:.2f}, max "
+            f"{timed[-1]:.2f} (host clock, sync per frame, frames {WARMUP_FRAMES}..{n_frames - 1})"
+            f"; launches " + ", ".join(f"{k} {counts[k]} (expected {n_frames * n_deform * v})"
+                                       for k, v in per_call.items()))
+        for kname, n in counts.items():
+            want = n_frames * n_deform * per_call.get(kname, 0)
+            if n != want or (kname in per_call and n == 0):
+                fail(f"{tag}: {kname} launched {n} times, expected {want}")
+        launches = launches or counts
+    if cpu_cfg is not cfg:
+        del model
+        torch.cuda.empty_cache()
+        model = init_random(HiPAD(cpu_cfg, device=dev), SEED)
+        say(f"{tag} frame 0 against the CPU at {cpu_cfg.operation_order.count('refine')} "
+            f"decoder layers (the chained frames ran {cfg.operation_order.count('refine')})")
+    _frame0_against_cpu(tag, cpu_cfg, model, *frame_inputs(0))
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _options_train(card: str):
+    """One training step of frame A's config without dropout and GridMask,
+    bs=1 fp32, on the card and on the CPU plain path with the card's picks
+    (keypoint and level top-k, bank top-k) and Hungarian assignments
+    recorded, loss by loss under phase 5's tolerance. The picks' score gaps
+    are printed, not held: a keypoint's importance counts its mass only in
+    the cameras it lies in, so a keypoint on an image border that lies in a
+    camera on one device and not on the other moves its importance by a
+    whole camera's mass (seen on an H100: 1.3e-2) while the losses agree to
+    1e-5 of their values. -> the card's launches."""
+    import torch
+
+    from hipad_torch.configs.model import stage2_serving
+    from hipad_torch.data import synthetic
+    from hipad_torch.models.deformable import DeformableAggregation
+    from hipad_torch.models.detector import HiPAD
+    from hipad_torch.targets import matching
+    from hipad_torch.train.optim import AdamW
+    from hipad_torch.train.train_step import make_train_step
+    from hipad_torch.weights import init_random
+
+    dev = torch.device(DEVICE)
+    cfg = stage2_serving(drop_out=0.0, use_grid_mask=False, **OPTIONS_A)
+    n_deform, per_call = _launch_plan(cfg)
+    batch = {k: torch.as_tensor(v) for k, v in synthetic.make_batch(cfg, 1, seed=SEED).items()}
+    weights = {k: v.detach().cpu().clone() for k, v in
+               init_random(HiPAD(cfg, device=dev), SEED).state_dict().items()}
+    solved = []
+    assign_many = matching.assign_many
+
+    def recording(problems):
+        cols = assign_many(problems)
+        solved.append([c.cpu() for c in cols])
+        return cols
+
+    matching.assign_many = recording
+    results, card_calls, launches = [], None, None
+    try:
+        for device in (dev, torch.device("cpu")):
+            t0 = time.perf_counter()
+            model = HiPAD(cfg, device=device)
+            model.load_state_dict(weights)
+            for m in model.modules():
+                if isinstance(m, DeformableAggregation):
+                    m.attn_drop = 0.0
+            step = make_train_step(cfg, model, AdamW(model.named_parameters()))
+            _reset_counts()
+            with _Selections(card_calls, "[options] A's step", hold=False) as sel:
+                _, metrics = step(None, {k: v.to(device) for k, v in batch.items()},
+                                  torch.Generator(device=device))
+            card_calls = sel.calls
+            launches = launches or _kernel_counts()
+            results.append({k: float(v) for k, v in metrics.items()})
+            say(f"[options] A's training step (drop_out 0, no GridMask, fp32) on {device.type}: "
+                f"{time.perf_counter() - t0:.1f} s, {len(sel.calls)} selections"
+                + (f", {sel.differ} ranks picked differently by the CPU, largest score gap "
+                   f"{sel.worst:.3e} (the CPU took the card's picks; the losses are held)"
+                   if device.type == "cpu" else ""))
+            del model, step
+    finally:
+        matching.assign_many = assign_many
+    say("[options] A's step launches on the card: " + ", ".join(
+        f"{k} {launches[k]} (expected {n_deform * v})" for k, v in per_call.items()))
+    for kname, n in launches.items():
+        if n != n_deform * per_call.get(kname, 0) or (kname in per_call and n == 0):
+            fail(f"[options] step: {kname} launched {n} times, expected "
+                 f"{n_deform * per_call.get(kname, 0)}")
+    differ = [i for i, (a, b) in enumerate(zip(*solved)) if not torch.equal(a, b)]
+    if differ:
+        say(f"[options] the Hungarian assignments differ between card and CPU in problem(s) "
+            f"{differ} (0 = det, 1 = map, all layers stacked)")
+    card_m, cpu_m = results
+    for k in sorted(cpu_m):
+        rtol, atol = (GRAD_NORM_RTOL, 0.0) if k == "grad_norm" else (TRAIN_RTOL, TRAIN_ATOL)
+        err, tol = abs(card_m[k] - cpu_m[k]), rtol * abs(cpu_m[k]) + atol
+        say(f"[options] A's step card vs CPU {k}: card {card_m[k]:.6f} cpu {cpu_m[k]:.6f} "
+            f"abs_err {err:.3e} (tol {tol:.3e}) {'ok' if err <= tol else 'FAIL'}")
+        if not err <= tol:
+            fail(f"[options] card and CPU disagree on A's step {k}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_options(cfg, card: str):
+    """The decoder's model options: K2-lk and K2-bwd-lk against their plain
+    versions; the reference route against the oracle on the card; frames
+    A, B and C (chained, fp32 and bf16, frame 0 against the CPU); one
+    training step of A against the CPU. -> (kernel records, launches of
+    A's frames, of A's step)."""
+    from hipad_torch.configs.model import (SINGLE_FRAME_LAYER, TEMPORAL_FRAME_LAYER, stage2,
+                                           stage2_serving)
+
+    t0 = time.perf_counter()
+    recs = _options_kernels(cfg, card)
+    _options_reference_route(card)
+    cfg_a = stage2_serving(**OPTIONS_A)
+    frame_launches = _options_frames("[options] A", cfg_a, cfg_a, card)
+    short = SINGLE_FRAME_LAYER + TEMPORAL_FRAME_LAYER * (OPTIONS_CPU_LAYERS - 1)
+    for tag, opts in (("[options] B", OPTIONS_B), ("[options] C", OPTIONS_C)):
+        _options_frames(tag, stage2(**opts), stage2(operation_order=short, **opts), card)
+    step_launches = _options_train(card)
+    say(f"[options] {time.perf_counter() - t0:.1f} s")
+    return recs, frame_launches, step_launches
 
 
 AGENT_WARMUP, AGENT_TICKS = 2, 10
@@ -2134,7 +2546,7 @@ def compare_against(other: str, cfg, card: str):
     x[:, ::50] = ((x[:, ::50] * W0 - 0.5).round() + 0.5) / W0
     gout = torch.randn(x.shape[0], x.shape[1] // cam_k, maps2[0].shape[-1], generator=g,
                        device=dev)
-    cases.append(("K2", lambda: theirs.patch_sample(*k2_args),
+    cases.append(("K2 (bit for bit)", lambda: theirs.patch_sample(*k2_args),
                   lambda: kernels.patch_sample(*k2_args)))
     bwd2 = (maps2, cam, x, y, w, gout, cam_k)
     cases.append(("K2-bwd", lambda: theirs.patch_sample_bwd(*bwd2),
@@ -2143,6 +2555,9 @@ def compare_against(other: str, cfg, card: str):
     topk = dict(cam_k=cfg.sampler_cam_k, matmul_levels=cfg.sampler_matmul_levels,
                 cam_renorm=cfg.sampler_cam_renorm)
     their_sampler = tree["ops.sampling"].deformable_samples_topk_flat
+    # timed by CUDA events around each call: a call waits for the host once
+    # (the fine levels' weights are taken by a list index, whose copy to the
+    # card synchronises the stream), so its calls cannot queue behind a sleep
     cases.append(("sampler call (deformable_samples_topk_flat: K2, K1 and their glue)",
                   lambda: their_sampler(fmaps, pts, wts, **topk),
                   lambda: sampling.deformable_samples_topk_flat(fmaps, pts, wts, **topk)))
@@ -2150,13 +2565,18 @@ def compare_against(other: str, cfg, card: str):
         a, b = old_fn(), new_fn()
         diff = max(_max_err(u, v)[0] for u, v in zip(_tensors(a), _tensors(b)))
         scale = max(_max_err(u, u)[1] for u in _tensors(a))
-        t = _device_ms([old_fn, new_fn, new_fn, old_fn])
+        queued = not what.startswith("sampler call")
+        t = (_device_ms if queued else _timed)([old_fn, new_fn, new_fn, old_fn])
         old, new = min(t[0], t[3]), min(t[1], t[2])
+        how = QUEUED if queued else "CUDA events around each of 20 calls, median"
         say(f"[compare] {what} fp32 on {card}: theirs {old:.4f} ms, ours {new:.4f} ms "
-            f"({new / old:.3f}x; {QUEUED}, in turns theirs/ours/ours/theirs); outputs differ by "
+            f"({new / old:.3f}x; {how}, in turns theirs/ours/ours/theirs); outputs differ by "
             f"{diff:.3e} (scale {scale:.3e}, {diff / scale:.1e} of it)")
         if not diff <= KERNEL_RTOL * scale:
             fail(f"{what}: the two trees disagree by more than {KERNEL_RTOL:g} of scale")
+        if "bit for bit" in what and not all(torch.equal(u, v) for u, v in zip(
+                _tensors(a), _tensors(b))):
+            fail(f"{what}: the two trees' outputs are not the same bits")
     return tree
 
 
@@ -2363,6 +2783,8 @@ def main():
     del weights
     gather_recs, probe_launches = timed("gather", phase_gather, card)
     k.update(gather_recs)
+    option_recs, option_frames, option_step = timed("options", phase_options, cfg, card)
+    k.update(option_recs)
     if any(m in sys.modules for m in ("jax", "flax")):
         fail("jax was imported")
     if any(m.split(".")[0] == "hipad_tpu" for m in sys.modules):
@@ -2380,6 +2802,10 @@ def main():
         "gather_rows_f32": (gather_src, "tools/probe_pallas_gather.py:39", "probe"),
         "gather_rows_bf16": (gather_src, "tools/probe_pallas_gather.py:79", "probe"),
         "gather_rows_f32_every8": (gather_src, "tools/probe_pallas_gather.py:133", "probe"),
+        "patch_sample_lk": ("hipad_torch/csrc/patch_sample.cu", "hipad_tpu/ops/sampling.py:839",
+                            "options_frame"),
+        "patch_sample_bwd_lk": ("hipad_torch/csrc/patch_sample_bwd.cu",
+                                "hipad_tpu/ops/sampling.py:530", "options_step"),
     }
     paths = {
         "step": (step_launches, f"phase 5: {WARMUP_STEPS + TIMED_STEPS} chained stage-2 fp32 "
@@ -2400,6 +2826,10 @@ def main():
         "agent": (agent_launches, f"phase 7: {AGENT_WARMUP + AGENT_TICKS} AgentCore ticks"),
         "probe": (probe_launches, "phase 8: python -m hipad_torch.tools.probe_gather <probe> "
                                   "time"),
+        "options_frame": (option_frames, f"phase 9: {WARMUP_FRAMES + TIMED_FRAMES} chained fp32 "
+                                         "frames of stage2_serving with the level top-k, the "
+                                         "attention masks and the per-point embeds (frame A)"),
+        "options_step": (option_step, "phase 9: one fp32 training step of frame A's config"),
     }
     rows = []
     for name, (src, rep, own) in sources.items():

@@ -19,6 +19,14 @@
 // clamp gets none either (hat' is zero there but at the kink, where the JAX
 // convention of sample_common.cuh gives 1/2, as JAX does).
 //
+// Level-k variant (sampler_level_k, patch_sample.cu): given lvl [bs, M,
+// level_k] int32, slot j of sample s is level lvl[s, j], its weights w[s, j]
+// ([bs, M, level_k, G]) and d w[s, j] likewise; only the kept patches
+// scatter into their level's d fm. JAX's level-k path differentiates
+// through patch_bilinear_w's custom VJP on the combined pyramid, whose pad
+// gets no gradient; the chain through the level selection and the
+// renormalisation stays in autograd (ops/sampling.py).
+//
 // What bounds it on this card: the atomic reductions into d fm, which the
 // L2 executes, and the gathered rows (<= 4 rows of C channels per slot and
 // level, from maps of 88x160 and 44x80 cells, where few samples share a
@@ -55,6 +63,7 @@ patch_sample_bwd_kernel(FineLevels<T> lv, const int* __restrict__ cam,
                         const float* __restrict__ x,
                         const float* __restrict__ y,
                         const float* __restrict__ w,
+                        const int* __restrict__ lvl, int level_k,
                         const float* __restrict__ gout,
                         float* __restrict__ dx, float* __restrict__ dy,
                         float* __restrict__ dw, int bs, int cams, int C,
@@ -68,6 +77,7 @@ patch_sample_bwd_kernel(FineLevels<T> lv, const int* __restrict__ cam,
   const int m0 = static_cast<int>(row - static_cast<long long>(b) * M0);
   const int gd = C / G;
   const long long M = static_cast<long long>(M0) * cam_k;
+  const int n = lvl != nullptr ? level_k : lv.n;  // level slots of a sample
 
   float go[kMaxChunks][kVec];
   hipad::load_row(gout + row * C, go, C, lane);
@@ -79,10 +89,11 @@ patch_sample_bwd_kernel(FineLevels<T> lv, const int* __restrict__ cam,
     const float xs = x[s];
     const float ys = y[s];
     float ax = 0.f, ay = 0.f;
-    for (int l = 0; l < lv.n; ++l) {
-      const float* wrow = w + (s * lv.n + l) * G;
+    for (int jl = 0; jl < n; ++jl) {
+      const int l = lvl != nullptr ? lvl[s * level_k + jl] : jl;
+      const float* wrow = w + (s * n + jl) * G;
       float part[kMaxChunks] = {};
-      if (valid) {
+      if (valid && l >= 0 && l < lv.n) {
         const int H = lv.H[l];
         const int W = lv.W[l];
         const float p = __fmul_rn(xs, static_cast<float>(W)) - 0.5f;
@@ -119,7 +130,7 @@ patch_sample_bwd_kernel(FineLevels<T> lv, const int* __restrict__ cam,
         ax = fmaf(static_cast<float>(W), lx, ax);
         ay = fmaf(static_cast<float>(H), ly, ay);
       }
-      hipad::store_group_sums(red[warp], part, dw + (s * lv.n + l) * G, C, G, lane);
+      hipad::store_group_sums(red[warp], part, dw + (s * n + jl) * G, C, G, lane);
     }
     ax = hipad::warp_sum(ax);
     ay = hipad::warp_sum(ay);
@@ -133,9 +144,9 @@ patch_sample_bwd_kernel(FineLevels<T> lv, const int* __restrict__ cam,
 template <typename T>
 void launch(const void* const* fms, void* const* dfms, const int* Hs,
             const int* Ws, int nlev, const void* cam, const void* x,
-            const void* y, const void* w, const void* gout, void* dx,
-            void* dy, void* dw, int bs, int cams, int C, int G, int M0,
-            int cam_k, cudaStream_t st) {
+            const void* y, const void* w, const void* lvl, int level_k,
+            const void* gout, void* dx, void* dy, void* dw, int bs, int cams,
+            int C, int G, int M0, int cam_k, cudaStream_t st) {
   FineLevels<T> lv{};
   for (int l = 0; l < nlev; ++l) {
     lv.fm[l] = static_cast<const T*>(fms[l]);
@@ -149,7 +160,8 @@ void launch(const void* const* fms, void* const* dfms, const int* Hs,
   patch_sample_bwd_kernel<T><<<blocks, kThreads, 0, st>>>(
       lv, static_cast<const int*>(cam), static_cast<const float*>(x),
       static_cast<const float*>(y), static_cast<const float*>(w),
-      static_cast<const float*>(gout), static_cast<float*>(dx),
+      static_cast<const int*>(lvl), level_k, static_cast<const float*>(gout),
+      static_cast<float*>(dx),
       static_cast<float*>(dy), static_cast<float*>(dw), bs, cams, C, G, M0,
       cam_k);
 }
@@ -158,29 +170,32 @@ void launch(const void* const* fms, void* const* dfms, const int* Hs,
 
 // fm0..fm3: fine-level maps [bs, cams, H_l, W_l, C] (fp32, or bf16 when
 // fm_bf16 != 0) and dfm0..dfm3 their fp32 gradients, zeroed by the caller,
-// the first nlev used; cam [bs, M] int32; x, y [bs, M] fp32; w [bs, M, nlev,
-// G] fp32; gout [bs, M0, C] fp32; M = M0*cam_k. Outputs dx, dy [bs, M] and
-// dw [bs, M, nlev, G] fp32, every element written here.
+// the first nlev used; cam [bs, M] int32; x, y [bs, M] fp32; w [bs, M, n, G]
+// fp32 with n = nlev, or n = level_k when lvl [bs, M, level_k] int32 is
+// given; gout [bs, M0, C] fp32; M = M0*cam_k. Outputs dx, dy [bs, M] and
+// dw [bs, M, n, G] fp32, every element written here.
 // Returns cudaGetLastError() after the launch.
 extern "C" int hipad_patch_sample_bwd(
     const void* fm0, const void* fm1, const void* fm2, const void* fm3,
     void* dfm0, void* dfm1, void* dfm2, void* dfm3, int H0, int H1, int H2,
     int H3, int W0, int W1, int W2, int W3, int nlev, int fm_bf16,
     const void* cam, const void* x, const void* y, const void* w,
-    const void* gout, void* dx, void* dy, void* dw, int bs, int cams, int C,
-    int G, int M0, int cam_k, void* stream) {
-  if (nlev < 1 || nlev > kMaxLevels) return static_cast<int>(cudaErrorInvalidValue);
+    const void* lvl, int level_k, const void* gout, void* dx, void* dy,
+    void* dw, int bs, int cams, int C, int G, int M0, int cam_k,
+    void* stream) {
+  if (nlev < 1 || nlev > kMaxLevels || (lvl != nullptr && level_k < 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   const void* fms[kMaxLevels] = {fm0, fm1, fm2, fm3};
   void* dfms[kMaxLevels] = {dfm0, dfm1, dfm2, dfm3};
   const int Hs[kMaxLevels] = {H0, H1, H2, H3};
   const int Ws[kMaxLevels] = {W0, W1, W2, W3};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (fm_bf16) {
-    launch<__nv_bfloat16>(fms, dfms, Hs, Ws, nlev, cam, x, y, w, gout, dx, dy,
-                          dw, bs, cams, C, G, M0, cam_k, st);
+    launch<__nv_bfloat16>(fms, dfms, Hs, Ws, nlev, cam, x, y, w, lvl, level_k,
+                          gout, dx, dy, dw, bs, cams, C, G, M0, cam_k, st);
   } else {
-    launch<float>(fms, dfms, Hs, Ws, nlev, cam, x, y, w, gout, dx, dy, dw, bs,
-                  cams, C, G, M0, cam_k, st);
+    launch<float>(fms, dfms, Hs, Ws, nlev, cam, x, y, w, lvl, level_k, gout, dx,
+                  dy, dw, bs, cams, C, G, M0, cam_k, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -20,13 +20,13 @@ from typing import Dict, Optional, Sequence
 import torch
 
 from ..core.box3d import CNS, COS_YAW, SIN_YAW, X, YNS
-from ..models.depth_net import dense_depth_loss
 from ..targets import det as det_tgt
 from ..targets import map as map_tgt
 from ..targets import matching
 from ..targets import motion as motion_tgt
 from ..targets import plan as plan_tgt
 from . import plan_aux
+from .depth import dense_depth_loss
 from .common import (bce_with_logits, gaussian_focal_loss, global_sum, l1_loss,
                      sigmoid_focal_loss, smooth_l1_loss)
 
@@ -42,11 +42,11 @@ PLAN_BOUND_W, PLAN_COL_W, PLAN_DIR_W = 0.0, 0.0, 0.0
 
 
 def _det_map_layer_loss(cls, reg, quality, cls_target, reg_target, reg_weights, cfg,
-                        num_cls, reg_w_const, cls_lw, is_det):
+                        num_cls, reg_w_const, cls_lw, is_det, group=None):
     """Shared det/map per-layer loss body."""
     bs, P = cls.shape[:2]
     matched = ~(reg_target == 0).all(dim=-1)  # [bs, P]
-    num_pos = torch.clamp(global_sum(matched.sum().float()), min=1.0)
+    num_pos = torch.clamp(global_sum(matched.sum().float(), group), min=1.0)
     reg_mask = matched
     if cfg.cls_threshold_to_reg > 0:
         reg_mask = matched & (torch.sigmoid(cls.max(dim=-1).values) > cfg.cls_threshold_to_reg)
@@ -104,7 +104,8 @@ def _map_problem(cfg, map_out: Dict, data: Dict):
         [p for _, p in cp]
 
 
-def loss_det(cfg, det_out: Dict, data: Dict, col_all: Optional[torch.Tensor] = None):
+def loss_det(cfg, det_out: Dict, data: Dict, col_all: Optional[torch.Tensor] = None,
+             group=None):
     """Per-layer det losses and the LAST layer's ``col4gt`` (the motion
     loss's matching). ``col_all [L*bs, G]`` is the layer-stacked assignment,
     solved here when not given."""
@@ -123,14 +124,14 @@ def loss_det(cfg, det_out: Dict, data: Dict, col_all: Optional[torch.Tensor] = N
         out = _det_map_layer_loss(
             det_out["classification"][i], det_out["prediction"][i][..., :D],
             det_out["quality"][i], cls_t, box_t[..., :D], rw[..., :D], cfg,
-            cfg.num_det_classes, DET_REG_WEIGHTS, DET_CLS_W, is_det=True)
+            cfg.num_det_classes, DET_REG_WEIGHTS, DET_CLS_W, is_det=True, group=group)
         for k, v in out.items():
             losses["det_" + k] = losses["det_" + k] + v
     return losses, col4gt
 
 
 def loss_map(cfg, map_out: Dict, data: Dict, col_all: Optional[torch.Tensor] = None,
-             perm_idx: Optional[Sequence[torch.Tensor]] = None):
+             perm_idx: Optional[Sequence[torch.Tensor]] = None, group=None):
     losses = {"map_loss_cls": 0.0, "map_loss_line": 0.0}
     L, bs = map_out["classification"].shape[:2]
     if col_all is None or perm_idx is None:
@@ -143,30 +144,31 @@ def loss_map(cfg, map_out: Dict, data: Dict, col_all: Optional[torch.Tensor] = N
             cfg.num_map_classes, cfg.map_roi_size, col4gt=col_all[i * bs:(i + 1) * bs],
             perm_idx=perm_idx[i])
         out = _det_map_layer_loss(cls, reg, None, cls_t, pts_t, rw, cfg, cfg.num_map_classes,
-                                  (1.0,) * (cfg.map_num_pts * 2), MAP_CLS_W, is_det=False)
+                                  (1.0,) * (cfg.map_num_pts * 2), MAP_CLS_W, is_det=False,
+                                  group=group)
         for k, v in out.items():
             losses["map_" + k] = losses["map_" + k] + v
     return losses
 
 
-def loss_ego(cfg, ego_out: Dict, data: Dict):
+def loss_ego(cfg, ego_out: Dict, data: Dict, group=None):
     total = 0.0
     for i in range(ego_out["status"].shape[0]):
         status = ego_out["status"][i].squeeze(1)  # [bs, 6]
         sl = l1_loss(status, data["ego_status"], weight=data["ego_status_mask"],
-                     loss_weight=EGO_STATUS_W)
+                     loss_weight=EGO_STATUS_W, group=group)
         total = total + torch.nan_to_num(sl)
     return {"ego_loss_status": total}
 
 
-def loss_motion(cfg, motion_out: Dict, data: Dict, col4gt):
+def loss_motion(cfg, motion_out: Dict, data: Dict, col4gt, group=None):
     losses = {"motion_loss_cls": 0.0, "motion_loss_reg": 0.0}
     for i in range(motion_out["classification"].shape[0]):
         cls = motion_out["classification"][i]  # [bs, P, mode]
         reg = motion_out["prediction"][i]  # [bs, P, mode, ts, 2]
         cls_t, cls_w, best_reg, reg_t, reg_w, num_pos = motion_tgt.motion_target(
             reg, data["gt_agent_fut_trajs"], data["gt_agent_fut_masks"], col4gt)
-        num_pos = torch.clamp(global_sum(num_pos), min=1.0)
+        num_pos = torch.clamp(global_sum(num_pos, group), min=1.0)
         bs, P = cls.shape[:2]
         closs = sigmoid_focal_loss(cls.reshape(bs * P, -1), cls_t.reshape(bs * P),
                                    cfg.fut_mode, weight=cls_w.reshape(bs * P).to(cls.dtype),
@@ -191,17 +193,18 @@ def _plan_pred(cfg, cls, reg, anchor_type):
     return cls[:, :, per * i:per * (i + 1)], reg[:, :, per * i:per * (i + 1)]
 
 
-def _align_loss_pair(cfg, cls, cls_target, cls_weight, reg_pred, reg_target, reg_weight):
+def _align_loss_pair(cfg, cls, cls_target, cls_weight, reg_pred, reg_target, reg_weight,
+                     group=None):
     bs = cls.shape[0]
     closs = sigmoid_focal_loss(cls.reshape(bs, -1), cls_target.reshape(bs), cls.shape[-1],
                                weight=cls_weight.reshape(bs).to(cls.dtype),
-                               loss_weight=PLAN_CLS_W)
+                               loss_weight=PLAN_CLS_W, group=group)
     rloss = l1_loss(torch.cumsum(reg_pred, dim=-2), torch.cumsum(reg_target, dim=-2),
-                    weight=reg_weight[..., None], loss_weight=PLAN_REG_W)
+                    weight=reg_weight[..., None], loss_weight=PLAN_REG_W, group=group)
     return closs, rloss
 
 
-def loss_plan(cfg, plan_out: Dict, data: Dict):
+def loss_plan(cfg, plan_out: Dict, data: Dict, group=None):
     """Multi-granularity plan loss."""
     cmd = data["gt_ego_fut_cmd"]
     losses: Dict[str, torch.Tensor] = {}
@@ -224,7 +227,7 @@ def loss_plan(cfg, plan_out: Dict, data: Dict):
                     p_cls, p_reg, gt, gm, cmd, ref_target, cfg.ego_fut_cmd, cfg.ego_fut_ts)
                 # the cls loss takes the reference type's GT weight
                 closs, rloss = _align_loss_pair(cfg, a_cls, a_tgt, ref_cls_w, a_reg.squeeze(1),
-                                                a_gt.squeeze(1), a_gm.squeeze(1))
+                                                a_gt.squeeze(1), a_gm.squeeze(1), group)
                 losses[f"plan_loss_{t[0]}_cls"] = losses[f"plan_loss_{t[0]}_cls"] + closs
                 losses[f"plan_loss_{t[0]}_reg"] = losses[f"plan_loss_{t[0]}_reg"] + rloss
             else:  # speed buckets, grouped by frequency
@@ -234,21 +237,22 @@ def loss_plan(cfg, plan_out: Dict, data: Dict):
                 g["reg"].append(p_reg)
                 g["areas"].append(t[2])
         for g in speed_groups.values():
-            closs, rloss = _speed_loss(cfg, data, cmd, ref_target, g)
+            closs, rloss = _speed_loss(cfg, data, cmd, ref_target, g, group)
             losses["plan_loss_speed_cls"] = losses["plan_loss_speed_cls"] + closs
             losses["plan_loss_speed_reg"] = losses["plan_loss_speed_reg"] + rloss
     return losses
 
 
-def _speed_loss(cfg, data, cmd, ref_target, group):
-    """Per speed bucket, the reference-aligned mode's cls/reg; the cls
-    target is the GT speed's bucket."""
+def _speed_loss(cfg, data, cmd, ref_target, speeds, group=None):
+    """Per speed bucket of ``speeds`` (one frequency's buckets), the
+    reference-aligned mode's cls/reg; the cls target is the GT speed's
+    bucket."""
     bs = ref_target.shape[0]
     bidx = torch.arange(bs, device=ref_target.device)
     aligned_cls, aligned_reg = [], []
-    for p_cls, p_reg in zip(group["cls"], group["reg"]):
+    for p_cls, p_reg in zip(speeds["cls"], speeds["reg"]):
         a_cls, _, _, a_reg, _, _ = plan_tgt.align_plan_target(
-            p_cls, p_reg, group["gt"], group["gm"], cmd, ref_target, cfg.ego_fut_cmd,
+            p_cls, p_reg, speeds["gt"], speeds["gm"], cmd, ref_target, cfg.ego_fut_cmd,
             cfg.ego_fut_ts)
         aligned_cls.append(a_cls.squeeze(1)[bidx, ref_target.squeeze(-1)][:, None, None])
         aligned_reg.append(a_reg[:, :, None])  # [bs, 1, 1, ts, 2]
@@ -261,24 +265,28 @@ def _speed_loss(cfg, data, cmd, ref_target, group):
     interval = 1.0 / float(cfg.plan_speed_refer[1].split("hz")[0])
     gt_speed = dist / (ref_speed_gm.sum(-1) * interval + 1e-4)
     mode_idx = torch.ones_like(gt_speed, dtype=torch.long)
-    for si, (start, end) in enumerate(group["areas"]):
+    for si, (start, end) in enumerate(speeds["areas"]):
         mode_idx = torch.where((gt_speed >= start) & (gt_speed < end), si, mode_idx)
     cls_weight = (ref_speed_gm > 0).any(dim=-1)
     idx = mode_idx[..., None, None, None].expand(mode_idx.shape + (1, cfg.ego_fut_ts, 2))
     best_reg = torch.gather(reg_pred, 2, idx).squeeze(2)
-    gt, gm = group["gt"][:, None], group["gm"][:, None]
+    gt, gm = speeds["gt"][:, None], speeds["gm"][:, None]
     closs = sigmoid_focal_loss(cls_pred.reshape(bs, -1), mode_idx.reshape(bs),
                                cls_pred.shape[-1], weight=cls_weight.reshape(bs).to(cls_pred.dtype),
-                               loss_weight=PLAN_CLS_W)
+                               loss_weight=PLAN_CLS_W, group=group)
     rloss = l1_loss(torch.cumsum(best_reg, dim=-2), torch.cumsum(gt, dim=-2),
-                    weight=gm[..., None], loss_weight=PLAN_REG_W)
+                    weight=gm[..., None], loss_weight=PLAN_REG_W, group=group)
     return closs, rloss
 
 
 def compute_losses(cfg, outputs: Dict, data: Dict,
-                   depth_preds: Optional[Sequence[torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+                   depth_preds: Optional[Sequence[torch.Tensor]] = None,
+                   group=None) -> Dict[str, torch.Tensor]:
     """Every task loss the config turns on. The det and map matchings of all
-    layers are solved together, from one copy to the host."""
+    layers are solved together, from one copy to the host. ``group`` (a
+    ``torch.distributed`` process group, or None) makes each loss this
+    process's share of the loss of the group's global batch
+    (``losses/common.py``)."""
     losses: Dict[str, torch.Tensor] = {}
     problems, perm_idx = [], None
     if "det" in cfg.task_select:
@@ -289,27 +297,27 @@ def compute_losses(cfg, outputs: Dict, data: Dict,
     cols = iter(matching.assign_many(problems)) if problems else iter(())
     col4gt = None
     if "det" in cfg.task_select:
-        det_losses, col4gt = loss_det(cfg, outputs["det"], data, next(cols))
+        det_losses, col4gt = loss_det(cfg, outputs["det"], data, next(cols), group)
         losses.update(det_losses)
     if "map" in cfg.task_select:
-        losses.update(loss_map(cfg, outputs["map"], data, next(cols), perm_idx))
+        losses.update(loss_map(cfg, outputs["map"], data, next(cols), perm_idx, group))
     if "ego" in cfg.task_select and cfg.with_supervise_ego_status:
-        losses.update(loss_ego(cfg, outputs["ego"], data))
+        losses.update(loss_ego(cfg, outputs["ego"], data, group))
     if "motion" in cfg.task_select and col4gt is not None:
-        losses.update(loss_motion(cfg, outputs["motion"], data, col4gt))
+        losses.update(loss_motion(cfg, outputs["motion"], data, col4gt, group))
     if "plan" in cfg.task_select:
-        losses.update(loss_plan(cfg, outputs["plan"], data))
+        losses.update(loss_plan(cfg, outputs["plan"], data, group))
         if PLAN_BOUND_W > 0 or PLAN_COL_W > 0 or PLAN_DIR_W > 0:
-            losses.update(loss_plan_aux(cfg, outputs, data))
+            losses.update(loss_plan_aux(cfg, outputs, data, group))
     if depth_preds is not None:
         gt_depth = data.get("gt_depth") or [data[f"gt_depth_{i}"] for i in range(len(depth_preds))
                                              if f"gt_depth_{i}" in data]
         if gt_depth:
-            losses["depth_loss"] = dense_depth_loss(depth_preds, gt_depth)
+            losses["depth_loss"] = dense_depth_loss(depth_preds, gt_depth, group=group)
     return losses
 
 
-def loss_plan_aux(cfg, outputs: Dict, data: Dict) -> Dict[str, torch.Tensor]:
+def loss_plan_aux(cfg, outputs: Dict, data: Dict, group=None) -> Dict[str, torch.Tensor]:
     """The map-boundary, collision and lane-direction regularisers on the
     reference anchor type's GT-selected mode, last layer only."""
     cmd = data["gt_ego_fut_cmd"]
@@ -322,7 +330,7 @@ def loss_plan_aux(cfg, outputs: Dict, data: Dict) -> Dict[str, torch.Tensor]:
     offsets = best_reg.reshape(best_reg.shape[0], cfg.ego_fut_ts, 2)
     ego_traj = torch.cumsum(offsets, dim=-2)
     w = cls_w.reshape(-1, 1).to(offsets.dtype)
-    norm = global_sum(w.sum()) * cfg.ego_fut_ts
+    norm = global_sum(w.sum(), group) * cfg.ego_fut_ts
 
     out: Dict[str, torch.Tensor] = {}
     if PLAN_BOUND_W > 0 or PLAN_DIR_W > 0:

@@ -63,10 +63,14 @@ class GroupedCrossAttention(nn.Module):
                 key_pos: Optional[torch.Tensor] = None,
                 key_sections: Optional[Sections] = None,
                 has_value: bool = True,
+                attn_bias: Optional[Dict[int, torch.Tensor]] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``has_value`` says whether the reference call site passes a value:
         without one, a decoupled group's value is its feature||pos key
-        concatenation, bypassing ``fc_before``."""
+        concatenation, bypassing ``fc_before``. ``attn_bias`` maps a group's
+        index to an additive logit bias ``[bs, heads, Nq, Nk]`` for it (not
+        applied where the group attends over its own queries for want of
+        keys)."""
         out = query
         if key_x is None:
             key_x, key_pos, key_sections = query, query_pos, sections
@@ -81,12 +85,14 @@ class GroupedCrossAttention(nn.Module):
                 kp = section_gather(key_pos, k_names, key_sections)
                 v = k
             attn = getattr(self, f"attn_{gi}")
+            bias = attn_bias.get(gi) if attn_bias and num_keys else None
             if decoupled:
                 k_cat = torch.cat([k, kp], dim=-1)
                 v_in = fc_before(v) if (has_value and num_keys > 0) else k_cat
                 res = fc_after(attn(torch.cat([q, qp], dim=-1), key=k_cat, value=v_in,
-                                    generator=generator))
+                                    attn_bias=bias, generator=generator))
             else:
-                res = attn(q, key=k, value=v, query_pos=qp, key_pos=kp, generator=generator)
+                res = attn(q, key=k, value=v, query_pos=qp, key_pos=kp, attn_bias=bias,
+                           generator=generator)
             out = section_scatter(out, res, q_names, sections)
         return out

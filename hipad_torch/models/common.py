@@ -147,7 +147,7 @@ class BatchNorm(nn.Module):
     running + 0.1 * batch`` with that biased variance
     (``F.batch_norm(training=True)`` would store the unbiased one).
 
-    With ``group`` set (``parallel.mesh.sync_batchnorm``) the train-mode
+    With ``group`` set (by ``HiPAD(cfg, group=...)``) the train-mode
     statistics are those of the batches of all the group's processes, as
     flax takes them over a sharded global batch: the sum, then the sum of
     squared deviations from the global mean, each all-reduced with autograd

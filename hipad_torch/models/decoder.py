@@ -1,5 +1,5 @@
 """Unified sparse decoder over the concatenated multi-task query set
-(counterpart of ``hipad_tpu/models/decoder.py`` at ``stage2()`` semantics).
+(counterpart of ``hipad_tpu/models/decoder.py``).
 
 The decoder program is data: ``cfg.operation_order`` is a flat tuple of op
 names (concat / temp_gnn / gnn / inter_gnn / norm / split / deformable / ffn
@@ -23,9 +23,25 @@ The serving knobs run as in the JAX package:
     anchor group after refine layer ``i``; the output stacks and the cached
     plan tensors are padded back to the full mode count with cls ``-1e9``,
     reg ``+1e6`` (zero features);
-  * ``sampler_point_frac`` is the deformable op's keypoint top-k.
+  * ``sampler_point_frac`` is the deformable op's keypoint top-k, and
+    ``sampler_level_k`` its fine-level top-k.
 
-The other knobs outside stage 2 are refused in :func:`check_supported`.
+And the model options off in every shipped config:
+
+  * ``with_distance_attn_mask`` / ``with_velocity_attn_mask`` add the
+    biases of ``attn_masks.py`` into the inter_gnn op's logits, each scaled
+    by a per-head tau head (``distance_tau_{op_idx}``,
+    ``velocity_tau_{op_idx}``);
+  * with any per-point option on, a task's anchor encoder is the
+    ``KeyPoint3DEncoder``, which also embeds each polyline point.
+    ``with_concat_*_points`` expands each map (plan) query into its points
+    in the concat op (its feature repeated per point, interleaved, beside
+    the point embeds) and squeezes them back to one query in the split op
+    (``squeeze_map_instance`` / ``squeeze_plan_instance``);
+    ``with_deform_*_points`` feeds the point embeds to the deformable op's
+    weights head.
+
+:func:`check_supported` refuses the rest by name.
 """
 
 from __future__ import annotations
@@ -40,17 +56,16 @@ from torch import nn
 from ..core.geometry import agent_to_lidar_trajs, sine_embed_2d
 from ..ops import ranking
 from ..ops.sampling import front_view_feature
+from . import attn_masks
 from . import instance_bank as banks
 from .attention_blocks import (GroupedCrossAttention, cross_attention_groups,
                                self_attention_groups)
-from .common import MLPLN, AsymmetricFFN, BatchNorm, LayerNorm
+from .common import MLP, MLPLN, AsymmetricFFN, BatchNorm, LayerNorm
 from .deformable import DeformableAggregation
-from .encoders import SparseBox3DEncoder, SparsePoint3DEncoder
+from .encoders import KeyPoint3DEncoder, SparseBox3DEncoder, SparsePoint3DEncoder
 from .keypoints import BoxKeypoints, PointKeypoints
 from .refine import (EgoStatusRefinement, SparseBox3DRefinement, SparseMotionRefinement,
                      SparsePlanAlignRefinement, SparsePoint3DRefinement)
-
-QUEUE1_SERVING = "ROADMAP queue 1, item 11 (serving knobs)"
 
 
 def check_supported(cfg) -> None:
@@ -68,16 +83,10 @@ def check_supported(cfg) -> None:
          "with_topk_det pruning after the last refine layer: the JAX package splices the "
          "new tails into that layer's unpruned cls for the bank cache",
          "ROADMAP queue 3 (prune only before the last layer)"),
-        (cfg.sampler_level_k is not None, "sampler_level_k", QUEUE1_SERVING),
         (cfg.sampler_row_packed, "sampler_row_packed",
          "ROADMAP queue 1, item 14 (not ported: measured slower on the TPU)"),
         (cfg.fused_deformable, "fused_deformable",
          "ROADMAP queue 1, item 14 (not ported: measured slower on the TPU)"),
-        (cfg.with_concat_map_points or cfg.with_concat_plan_points
-         or cfg.with_deform_map_points or cfg.with_deform_plan_points,
-         "the point-expansion options (with_concat_*, with_deform_*)", QUEUE1_SERVING),
-        (cfg.with_distance_attn_mask or cfg.with_velocity_attn_mask,
-         "the distance/velocity attention masks", QUEUE1_SERVING),
     ]
     for on, what, item in refused:
         if on:
@@ -128,10 +137,28 @@ class SparseOneDecoder(nn.Module):
         self.register_buffer("motion_anchor", torch.tensor(
             np.asarray(cfg.motion_anchor, np.float32)), persistent=False)
 
-        # shared submodules
+        # shared submodules; a task with any per-point option embeds its
+        # points too (KeyPoint3DEncoder)
         self.det_anchor_encoder = SparseBox3DEncoder((C // 2, C // 8, C // 8, C // 4))
-        self.map_anchor_encoder = SparsePoint3DEncoder(cfg.map_num_pts * 2, C)
-        self.plan_anchor_encoder = SparsePoint3DEncoder(cfg.ego_fut_ts * 2, C)
+        self.per_point = {
+            "map": cfg.with_concat_map_points or cfg.with_deform_map_points,
+            "plan": cfg.with_concat_plan_points or cfg.with_deform_plan_points}
+        # points per query in the concat op (0: not expanded) and in the
+        # deformable op's weights head (0: the instance embed)
+        self.expand_S = {"map": cfg.map_num_pts * cfg.with_concat_map_points,
+                         "plan": cfg.ego_fut_ts * cfg.with_concat_plan_points}
+        self.deform_S = {"map": cfg.map_num_pts * cfg.with_deform_map_points,
+                         "plan": cfg.ego_fut_ts * cfg.with_deform_plan_points}
+        for q, n_pts in (("map", cfg.map_num_pts), ("plan", cfg.ego_fut_ts)):
+            self.add_module(f"{q}_anchor_encoder",
+                            KeyPoint3DEncoder(C, n_pts) if self.per_point[q]
+                            else SparsePoint3DEncoder(n_pts * 2, C))
+        if cfg.with_concat_map_points:
+            self.squeeze_map_instance = MLP(cfg.map_num_pts * C,
+                                            (cfg.map_num_pts * C // 4, C, C))
+        if cfg.with_concat_plan_points:
+            self.squeeze_plan_instance = MLP(cfg.ego_fut_ts * C,
+                                             (cfg.ego_fut_ts * C // 2, C, C))
         self.ego_feature_encoder = FrontViewEncoder(C)
         self.plan_feature_encoder = FrontViewEncoder(C)
         self.fc_before = nn.Linear(C, C * 2, bias=False)
@@ -171,6 +198,12 @@ class SparseOneDecoder(nn.Module):
                 self.add_module(f"inter_gnn_{op_idx}",
                                 GroupedCrossAttention(C, cfg.num_groups, self.inter_groups,
                                                       cfg.drop_out))
+                if cfg.with_distance_attn_mask:
+                    self.add_module(f"distance_tau_{op_idx}",
+                                    attn_masks.TauHead(C, cfg.num_groups))
+                if cfg.with_velocity_attn_mask:
+                    self.add_module(f"velocity_tau_{op_idx}",
+                                    attn_masks.TauHead(C, cfg.num_groups))
             elif op == "norm":
                 self.add_module(f"norm_{op_idx}", LayerNorm(C, eps=1e-5))
             elif op == "ffn":
@@ -185,7 +218,10 @@ class SparseOneDecoder(nn.Module):
                         sampler=cfg.sampler, sampler_cam_k=cfg.sampler_cam_k,
                         sampler_cam_renorm=cfg.sampler_cam_renorm,
                         sampler_matmul_levels=cfg.sampler_matmul_levels,
-                        sampler_point_frac=cfg.sampler_point_frac))
+                        sampler_point_frac=cfg.sampler_point_frac,
+                        sampler_level_k=cfg.sampler_level_k,
+                        sampler_level_renorm=cfg.sampler_level_renorm,
+                        use_points_embed=self.deform_S.get(q, 0)))
                 deform_i += 1
             elif op == "refine":
                 self.add_module(f"det_refine_{refine_i}",
@@ -199,6 +235,26 @@ class SparseOneDecoder(nn.Module):
                 refine_i += 1
             elif op not in ("concat", "split"):
                 raise NotImplementedError(f"unknown op {op!r}")
+
+    def _inter_bias(self, op_idx: int, feat, anchor) -> Optional[Dict[int, torch.Tensor]]:
+        """The inter_gnn op's attention biases (``attn_masks.py``) for its one
+        group, summed, or None with both masks off. Each tau head reads the
+        group's query features."""
+        cfg = self.cfg
+        if not (cfg.with_distance_attn_mask or cfg.with_velocity_attn_mask):
+            return None
+        q_names, k_names, _ = self.inter_groups[0]
+        q_feat = torch.cat([feat[m] for m in q_names], dim=1)
+        bias = 0.0
+        if cfg.with_distance_attn_mask:
+            tau = getattr(self, f"distance_tau_{op_idx}")(q_feat)
+            bias = bias + attn_masks.distance_bias(
+                attn_masks.min_distance_matrix(q_names, k_names, anchor), tau)
+        if cfg.with_velocity_attn_mask:
+            tau = getattr(self, f"velocity_tau_{op_idx}")(q_feat)
+            bias = bias + attn_masks.velocity_bias(
+                attn_masks.speed_diff_matrix(q_names, k_names, anchor), tau)
+        return {0: bias}
 
     def forward(self, feature_maps: Sequence[torch.Tensor], metas: Dict[str, torch.Tensor],
                 bank_states: Optional[banks.BankStates] = None,
@@ -231,20 +287,31 @@ class SparseOneDecoder(nn.Module):
         tfeat["det"] = temp_det_feat
         tembed["det"] = det_enc(temp_det_anchor) if has_temp else None
 
+        # per-point embeds [bs, n * points, C] (tasks with a per-point option)
+        pts_embed: Dict[str, Optional[torch.Tensor]] = {"map": None, "plan": None}
+        temp_pts_embed: Dict[str, Optional[torch.Tensor]] = {"map": None, "plan": None}
+
+        def encode(q, a):
+            """-> (instance embed, per-point embed or None) of map/plan anchors."""
+            enc = getattr(self, f"{q}_anchor_encoder")
+            return enc(a) if self.per_point[q] else (enc(a), None)
+
         feat["map"] = self.map_feature[None].expand(bs, -1, -1)
         anchor["map"] = self.map_anchor[None].expand(bs, -1, -1)
-        embed["map"] = self.map_anchor_encoder(anchor["map"])
+        embed["map"], pts_embed["map"] = encode("map", anchor["map"])
         tfeat["map"] = tembed["map"] = None
 
         front = front_view_feature(feature_maps)
         plan_base = self.plan_feature_encoder(front)  # [bs, C]
         feat["plan"] = plan_base[:, None].expand(-1, cfg.num_plan_anchor, -1)
         anchor["plan"] = self.plan_anchor[None].expand(bs, -1, -1)
-        embed["plan"] = self.plan_anchor_encoder(anchor["plan"])
+        embed["plan"], pts_embed["plan"] = encode("plan", anchor["plan"])
         temp_plan_feat, temp_plan_anchor = banks.plan_bank_get(
             cfg, bank_states.plan if has_temp else None)
         tfeat["plan"] = temp_plan_feat
-        tembed["plan"] = self.plan_anchor_encoder(temp_plan_anchor) if has_temp else None
+        tembed["plan"] = None
+        if has_temp:
+            tembed["plan"], temp_pts_embed["plan"] = encode("plan", temp_plan_anchor)
 
         feat["ego"] = self.ego_feature_encoder(front)[:, None]  # [bs, 1, C]
         anchor["ego"] = self.ego_anchor_init[None].expand(bs, -1, -1)
@@ -254,14 +321,19 @@ class SparseOneDecoder(nn.Module):
         tfeat["ego"] = temp_ego_feat
         tembed["ego"] = det_enc(temp_ego_anchor) if has_temp else None
 
-        def joint_pair(f_d, e_d):
-            """Concatenate features and embeds over query_select."""
+        def joint_pair(f_d, e_d, p_d):
+            """Concatenate features and embeds over query_select; a
+            point-expanded task's features are repeated per point
+            (interleaved) beside its point embeds."""
             fparts, eparts, sections, start = [], [], {}, 0
             for q in qs:
                 f, e = f_d[q], e_d[q]
                 if f is None:
                     f = e = torch.zeros((bs, 0, C), dtype=torch.float32,
                                         device=feature_maps[0].device)
+                S = self.expand_S.get(q, 0)
+                if S and f.shape[1]:
+                    f, e = f.repeat_interleave(S, dim=1), p_d[q]
                 fparts.append(f)
                 eparts.append(e)
                 sections[q] = (start, start + f.shape[1])
@@ -314,15 +386,23 @@ class SparseOneDecoder(nn.Module):
 
         for op_idx, op in enumerate(cfg.operation_order):
             if op == "concat":
-                joint_feat, joint_embed, cur_sections = joint_pair(feat, embed)
+                joint_feat, joint_embed, cur_sections = joint_pair(feat, embed, pts_embed)
                 if has_temp:
-                    temp_joint_feat, temp_joint_embed, temp_sections = joint_pair(tfeat, tembed)
+                    temp_joint_feat, temp_joint_embed, temp_sections = joint_pair(
+                        tfeat, tembed, temp_pts_embed)
 
             elif op == "split":
                 for q in qs:
                     s, e = cur_sections[q]
-                    feat[q] = joint_feat[:, s:e]
-                    embed[q] = joint_embed[:, s:e]
+                    S = self.expand_S.get(q, 0)
+                    if S and e > s:
+                        # the S point features of each query squeezed back to one
+                        squeeze = getattr(self, f"squeeze_{q}_instance")
+                        feat[q] = squeeze(joint_feat[:, s:e].reshape(bs, (e - s) // S, S * C))
+                        pts_embed[q] = joint_embed[:, s:e]
+                    else:
+                        feat[q] = joint_feat[:, s:e]
+                        embed[q] = joint_embed[:, s:e]
 
             elif op == "gnn":
                 joint_feat = getattr(self, f"gnn_{op_idx}")(
@@ -339,7 +419,7 @@ class SparseOneDecoder(nn.Module):
                 joint_feat = getattr(self, f"inter_gnn_{op_idx}")(
                     joint_feat, joint_embed, cur_sections, self.fc_before, self.fc_after,
                     key_x=joint_feat, key_pos=joint_embed, key_sections=cur_sections,
-                    generator=generator)
+                    attn_bias=self._inter_bias(op_idx, feat, anchor), generator=generator)
 
             elif op == "norm":
                 joint_feat = getattr(self, f"norm_{op_idx}")(joint_feat)
@@ -350,7 +430,8 @@ class SparseOneDecoder(nn.Module):
             elif op == "deformable":
                 for q in qs:
                     feat[q] = getattr(self, f"{q}_deformable_{deform_i}")(
-                        getattr(self, f"{q}_kps_{deform_i}"), feat[q], anchor[q], embed[q],
+                        getattr(self, f"{q}_kps_{deform_i}"), feat[q], anchor[q],
+                        pts_embed[q] if self.deform_S.get(q, 0) else embed[q],
                         feature_maps, projection_mat, image_wh, generator)
                 deform_i += 1
 
@@ -379,7 +460,7 @@ class SparseOneDecoder(nn.Module):
                     feat["map"], anchor["map"], embed["map"])
                 out["map"]["prediction"].append(anchor["map"])
                 out["map"]["classification"].append(map_cls)
-                embed["map"] = self.map_anchor_encoder(anchor["map"])
+                embed["map"], pts_embed["map"] = encode("map", anchor["map"])
 
                 # ---- motion ----------------------------------------------
                 if self.with_motion:
@@ -436,7 +517,7 @@ class SparseOneDecoder(nn.Module):
                 out["plan"]["prediction"].append(pad_modes(offsets, 1e6)[:, None])  # [bs, 1, N, ts, 2]
                 out["plan"]["classification"].append(
                     pad_modes(plan_cls.reshape(bs, -1, 1), -1e9).reshape(bs, 1, -1))
-                embed["plan"] = self.plan_anchor_encoder(anchor["plan"])
+                embed["plan"], pts_embed["plan"] = encode("plan", anchor["plan"])
 
                 # ---- det-query pruning, at the end of the refine block -----
                 if det_prune and refine_i + 1 >= cfg.num_single_frame_decoder:

@@ -1,10 +1,26 @@
 """Deformable feature aggregation (counterpart of
-``hipad_tpu/models/deformable.py`` at ``stage2()`` semantics).
+``hipad_tpu/models/deformable.py``).
 
 With ``sampler_point_frac < 1`` (the serving knob of
 ``stage2_serving``) :meth:`prepare` keeps only ``ceil(frac * P)`` keypoints
 of each anchor, ranked by their in-bounds weight mass, and rescales the
 kept weights to the full mass, so the sampler's kernels see fewer samples.
+``sampler_level_k`` keeps each compacted sample's ``level_k`` fine levels of
+largest mass (``ops/sampling.py``). With ``use_points_embed = S > 0`` (the
+point-expanded map and plan queries of ``with_deform_*_points``) the
+anchor embed is per sample point, ``[bs, n * S, C]``, and the weights head
+reads each anchor's S points' features side by side (``S * C`` wide), its
+feature tiled over its own points.
+
+The samplers: ``"topk"`` (the default), ``"zero"`` (an ablation that samples
+nothing) and ``"reference"``, the exact oracle. On the CPU ``"reference"``
+runs the plain oracle (``ops/sampling.py:deformable_aggregation``). On the
+card it runs the topk sampler with every camera kept and no
+renormalisation, the same function: both drop a sample outside the open
+unit square, with ``cam_k = cams`` every camera it lies in is kept, K2's
+hat weights against the clamped patch origin give a corner off the map
+weight zero as the oracle's per-corner validity does, and K1's dense
+interpolation has no cell off the map.
 
 In train mode a dropout of rate ``attn_drop`` drops whole (anchor, camera,
 point) columns of the sampling weights. It is 0.15, the JAX package's
@@ -43,7 +59,8 @@ class DeformableAggregation(nn.Module):
                  num_cams: int, num_pts: int, sampler: str = "topk",
                  sampler_cam_k: int = 3, sampler_cam_renorm: bool = False,
                  sampler_matmul_levels: Tuple[int, ...] = (2, 3),
-                 sampler_point_frac: float = 1.0):
+                 sampler_point_frac: float = 1.0, sampler_level_k: Optional[int] = None,
+                 sampler_level_renorm: bool = True, use_points_embed: int = 0):
         super().__init__()
         if sampler not in SAMPLERS:
             raise ValueError(f"sampler must be one of {SAMPLERS}, got {sampler!r}")
@@ -53,8 +70,11 @@ class DeformableAggregation(nn.Module):
         self.cam_k, self.cam_renorm = sampler_cam_k, sampler_cam_renorm
         self.matmul_levels = tuple(sampler_matmul_levels)
         self.point_frac = sampler_point_frac
+        self.level_k, self.level_renorm = sampler_level_k, sampler_level_renorm
+        self.points_embed = use_points_embed
         self.camera_encoder = MLPLN(12, embed_dims, 1, 2)
-        self.weights_fc = nn.Linear(embed_dims, num_groups * num_levels * num_pts)
+        self.weights_fc = nn.Linear(embed_dims * max(1, use_points_embed),
+                                    num_groups * num_levels * num_pts)
         self.output_proj = nn.Linear(embed_dims, embed_dims)
 
     def prepare(self, kps: nn.Module, instance_feature: torch.Tensor,
@@ -72,7 +92,16 @@ class DeformableAggregation(nn.Module):
 
         cam_embed = self.camera_encoder(
             projection_mat[:, :, :3, :].reshape(bs, self.num_cams, 12))
-        feat = (instance_feature + anchor_embed)[:, :, None] + cam_embed[:, None]
+        if self.points_embed:
+            # [bs, n*S, C] per-point embeds; each feature tiled over its own
+            # anchor's points, the S points' features side by side per camera
+            S = self.points_embed
+            pf = ((instance_feature.repeat_interleave(S, dim=1) + anchor_embed)[:, :, None]
+                  + cam_embed[:, None])
+            feat = pf.reshape(bs, n, S, self.num_cams, -1).transpose(2, 3).reshape(
+                bs, n, self.num_cams, -1)
+        else:
+            feat = (instance_feature + anchor_embed)[:, :, None] + cam_embed[:, None]
         w = self.weights_fc(feat)  # [bs, n, cams, G*L*P]
         # softmax over (cams, levels, points) per group, in this exact order
         w = w.reshape(bs, n, self.num_cams * self.num_levels * num_pts, self.num_groups)
@@ -129,11 +158,12 @@ class DeformableAggregation(nn.Module):
         elif self.sampler == "topk":
             features = deformable_aggregation_topk(
                 feature_maps, pts2d, w, cam_k=self.cam_k,
-                matmul_levels=self.matmul_levels, cam_renorm=self.cam_renorm)
-        else:
-            if pts2d.device.type != "cpu":
-                raise NotImplementedError(
-                    "sampler='reference' is the CPU oracle; on the card it waits "
-                    "for ROADMAP queue 1, item 11 (serving knobs)")
+                matmul_levels=self.matmul_levels, cam_renorm=self.cam_renorm,
+                level_k=self.level_k, level_renorm=self.level_renorm)
+        elif pts2d.device.type == "cpu":
             features = deformable_aggregation(feature_maps, pts2d, w)
+        else:  # the oracle's function through K1 and K2 (module docstring)
+            features = deformable_aggregation_topk(
+                feature_maps, pts2d, w, cam_k=self.num_cams,
+                matmul_levels=self.matmul_levels, cam_renorm=False)
         return self.finish(features, instance_feature)

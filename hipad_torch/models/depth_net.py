@@ -1,9 +1,8 @@
-"""Dense depth auxiliary head and its loss (counterpart of
-``hipad_tpu/models/depth_net.py``; training-time supervision only).
+"""Dense depth auxiliary head (counterpart of ``hipad_tpu/models/depth_net.py``;
+training-time supervision only; its loss is ``losses/depth.py``).
 
 A 1x1 convolution per FPN level predicts exp-depth, scaled by
-``focal / equal_focal``; the loss is a masked mean absolute error against
-projected LiDAR depth. Both run in fp32, also under autocast.
+``focal / equal_focal``, in fp32, also under autocast.
 """
 
 from __future__ import annotations
@@ -13,8 +12,6 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
-
-from ..losses.common import global_sum
 
 
 class DenseDepthNet(nn.Module):
@@ -41,19 +38,3 @@ class DenseDepthNet(nn.Module):
                     d = d * (focal.reshape(-1).float()[:, None, None, None] / self.equal_focal)
                 depths.append(d.permute(0, 2, 3, 1).reshape((bs, cams) + d.shape[2:] + (1,)))
         return depths
-
-
-def dense_depth_loss(depth_preds, gt_depths, max_depth: float = 60.0,
-                     loss_weight: float = 0.2) -> torch.Tensor:
-    """Masked L1 summed over levels; ``gt <= 0`` marks invalid pixels."""
-    total = 0.0
-    for pred, gt in zip(depth_preds, gt_depths):
-        pred = pred.reshape(-1)
-        gt = gt.reshape(-1)
-        fg = (gt > 0.0) & torch.isfinite(pred)
-        zero = torch.zeros((), dtype=pred.dtype, device=pred.device)
-        pred = torch.clamp(torch.where(fg, pred, zero), 0.0, max_depth)
-        err = (pred - torch.where(fg, gt, zero)).abs().sum()
-        n = global_sum(fg.sum()) * len(depth_preds)
-        total = total + err / torch.clamp(n, min=1.0) * loss_weight
-    return total

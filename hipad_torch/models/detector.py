@@ -22,6 +22,7 @@ import torch
 from torch import nn
 
 from .backbone import ResNetFPN
+from .common import BatchNorm
 from .decoder import SparseOneDecoder
 from .depth_net import DenseDepthNet
 from .grid_mask import draw_grid_mask, grid_mask
@@ -42,14 +43,21 @@ def batch_to_torch(batch: Mapping[str, np.ndarray], device) -> tuple:
 
 
 class HiPAD(nn.Module):
-    def __init__(self, cfg, device="cuda"):
+    def __init__(self, cfg, device="cuda", group=None):
+        """``group``: the ``torch.distributed`` process group whose processes
+        hold the global batch between them in training (``parallel/mesh.py``):
+        every BatchNorm then takes its train-mode statistics over their
+        batches. None: this process's batch alone."""
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.group = cfg, group
         with torch.device(device):
             self.backbone = ResNetFPN(cfg.backbone_stage_blocks, cfg.backbone_base_planes,
                                       cfg.embed_dims)
             self.decoder = SparseOneDecoder(cfg)
             self.depth_net = DenseDepthNet(cfg.embed_dims, cfg.num_depth_layers)
+        for m in self.modules():
+            if isinstance(m, BatchNorm):
+                m.group = group
         self.to(memory_format=torch.channels_last)
         self.eval()
 

@@ -39,3 +39,23 @@ class SparsePoint3DEncoder(nn.Module):
 
     def forward(self, anchor: torch.Tensor) -> torch.Tensor:
         return self.pos_fc(anchor)
+
+
+class KeyPoint3DEncoder(nn.Module):
+    """Per-point and instance polyline encoder: with point-expanded map or
+    plan queries (``with_concat_*_points``, ``with_deform_*_points``) it
+    takes the place of :class:`SparsePoint3DEncoder` and returns both the
+    instance embedding ``[bs, n, C]`` (``embed_instance``) and a per-point
+    embedding ``[bs, n * num_sample, C]`` of each point's (x, y)
+    (``embed_points``)."""
+
+    def __init__(self, embed_dims: int = 256, num_sample: int = 6):
+        super().__init__()
+        self.num_sample = num_sample
+        self.embed_points = MLPLN(2, embed_dims, 1, 2)
+        self.embed_instance = MLPLN(num_sample * 2, embed_dims, 1, 2)
+
+    def forward(self, anchor: torch.Tensor):
+        bs, n = anchor.shape[:2]
+        pts = anchor.reshape(bs, n * self.num_sample, 2)
+        return self.embed_instance(anchor), self.embed_points(pts)

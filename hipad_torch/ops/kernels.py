@@ -1,7 +1,8 @@
 """Build, bind and launch the port's CUDA kernels: the sampler's K1 (every
 coarse level in one launch) and K2 (the fine levels) forward, K1-bwd and
-K2-bwd for their gradients, and the row gather that stands in for the
-Pallas gather probes P2-P4.
+K2-bwd for their gradients, K2's and K2-bwd's level-k variants (each sample
+reads only its kept fine levels: ``sampler_level_k``), and the row gather
+that stands in for the Pallas gather probes P2-P4.
 
 The sources ``hipad_torch/csrc/*.cu`` are compiled with plain ``nvcc`` for
 ``sm_90a``, one ``nvcc`` per source and all started together, then linked
@@ -179,11 +180,12 @@ def _bind(lib: ctypes.CDLL, seconds: float, log: str) -> Library:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.hipad_coarse_sample.argtypes = [p] * 4 + [i] * 14 + [p] * 3 + [i, p] + [i] * 6 + [p]
     lib.hipad_coarse_sample.restype = i
-    lib.hipad_patch_sample.argtypes = [p] * 4 + [i] * 10 + [p] * 5 + [i] * 6 + [p]
+    lib.hipad_patch_sample.argtypes = [p] * 4 + [i] * 10 + [p] * 5 + [i, p] + [i] * 6 + [p]
     lib.hipad_patch_sample.restype = i
     lib.hipad_interp_sample_camsum_bwd.argtypes = [p, i] + [p] * 8 + [i] * 10 + [p]
     lib.hipad_interp_sample_camsum_bwd.restype = i
-    lib.hipad_patch_sample_bwd.argtypes = [p] * 8 + [i] * 10 + [p] * 8 + [i] * 6 + [p]
+    lib.hipad_patch_sample_bwd.argtypes = ([p] * 8 + [i] * 10 + [p] * 5 + [i] + [p] * 4
+                                           + [i] * 6 + [p])
     lib.hipad_patch_sample_bwd.restype = i
     lib.hipad_row_gather.argtypes = [p] * 3 + [i] * 3 + [p]
     lib.hipad_row_gather.restype = i
@@ -249,8 +251,10 @@ def _check_k1_bwd(k: str, fm, px, py, wg, bs: int, cams: int):
     return B, H, W, C, M, G
 
 
-def _check_k2(k: str, fine_maps, cam, x, y, w, cam_k: int):
-    """Validate K2's (or K2-bwd's) inputs -> (bs, M0, cams, C, G)."""
+def _check_k2(k: str, fine_maps, cam, x, y, w, cam_k: int, lvl=None, takes_levels=False):
+    """Validate K2's (or K2-bwd's) inputs, and ``lvl`` for their level-k
+    variants (``takes_levels``) -> (bs, M0, cams, C, G, n): ``n`` level slots
+    per sample (every fine level, or ``level_k``)."""
     _check(x.is_cuda, f"{k}: takes CUDA tensors, got {x.device}")
     dev = x.device
     nlev = len(fine_maps)
@@ -260,8 +264,17 @@ def _check_k2(k: str, fine_maps, cam, x, y, w, cam_k: int):
            f"{tuple(x.shape)}, {tuple(y.shape)}")
     bs, M = x.shape
     _check(cam_k >= 1 and M % cam_k == 0, f"{k}: M={M} is not a multiple of cam_k={cam_k}")
-    _check(w.dim() == 4 and w.shape[:3] == (bs, M, nlev),
-           f"{k}: w must be [bs, M, {nlev}, G], got {tuple(w.shape)}")
+    _check((lvl is not None) == takes_levels,
+           f"{k}: {'takes' if takes_levels else 'takes no'} lvl [bs, M, level_k] (the "
+           f"level-k variant is its own wrapper)")
+    n = nlev
+    if lvl is not None:
+        _check(lvl.dim() == 3 and lvl.shape[:2] == (bs, M) and lvl.shape[2] >= 1,
+               f"{k}: lvl must be [bs, M, level_k], got {tuple(lvl.shape)}")
+        _check_tensor("lvl", lvl, dev, (torch.int32,), k)
+        n = lvl.shape[2]
+    _check(w.dim() == 4 and w.shape[:3] == (bs, M, n),
+           f"{k}: w must be [bs, M, {n}, G], got {tuple(w.shape)}")
     G = w.shape[3]
     cams, C = fine_maps[0].shape[1], fine_maps[0].shape[-1]
     _check_channels(k, C, G)
@@ -272,7 +285,7 @@ def _check_k2(k: str, fine_maps, cam, x, y, w, cam_k: int):
     _check_tensor("cam", cam, dev, (torch.int32,), k)
     for name, t in (("x", x), ("y", y), ("w", w)):
         _check_tensor(name, t, dev, (torch.float32,), k)
-    return bs, M // cam_k, cams, C, G
+    return bs, M // cam_k, cams, C, G, n
 
 
 def _level_args(fine_maps):
@@ -393,22 +406,29 @@ class PatchSample:
     camera-compacted samples, summed over the kept cameras and the fine
     levels; replaces the ``patch_bilinear_w`` loop of
     ``hipad_tpu/ops/sampling.py:deformable_samples_topk_flat``.
-    Plain version: ``ops/sampling.py:patch_sample_plain``."""
+    Plain version: ``ops/sampling.py:patch_sample_plain``.
 
-    name = "patch_sample"
+    Two instances with their own launch counts: ``patch_sample`` reads
+    every fine level of each sample, ``patch_sample_lk`` (the level-k
+    variant, ``sampler_level_k``; replaces that function's combined-pyramid
+    loop, ``sampling.py:791-830``) only the levels ``lvl`` names."""
 
-    def __init__(self):
+    def __init__(self, name: str, takes_levels: bool):
+        self.name, self.takes_levels = name, takes_levels
         self.launches = 0
 
     def __call__(self, fine_maps: Sequence[torch.Tensor], cam: torch.Tensor,
                  x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
-                 cam_k: int) -> torch.Tensor:
+                 cam_k: int, lvl=None) -> torch.Tensor:
         """fine_maps: ``[bs, cams, H_l, W_l, C]`` fp32|bf16 (one dtype);
-        cam ``[bs, M]`` int32; x, y ``[bs, M]`` fp32; w ``[bs, M, nlev, G]``
-        fp32; ``M = M0*cam_k`` -> ``[bs, M0, C]`` fp32."""
-        k = "K2 patch_sample"
-        bs, M0, cams, C, G = _check_k2(k, fine_maps, cam, x, y, w, cam_k)
-        _check_pairs(k, cam_k * len(fine_maps), G)
+        cam ``[bs, M]`` int32; x, y ``[bs, M]`` fp32; w ``[bs, M, n, G]``
+        fp32 with ``n`` the number of fine levels, or ``level_k`` for the
+        level-k variant, which takes lvl ``[bs, M, level_k]`` int32 (indices
+        into ``fine_maps``); ``M = M0*cam_k`` -> ``[bs, M0, C]`` fp32."""
+        k = f"K2 {self.name}"
+        bs, M0, cams, C, G, n = _check_k2(k, fine_maps, cam, x, y, w, cam_k, lvl,
+                                          self.takes_levels)
+        _check_pairs(k, cam_k * n, G)
         out = torch.empty(bs, M0, C, dtype=torch.float32, device=x.device)
         ptrs = [fm.data_ptr() for fm in fine_maps] + [0] * (_MAX_LEVELS - len(fine_maps))
         hs, ws = _level_args(fine_maps)
@@ -417,7 +437,8 @@ class PatchSample:
             err = lib.hipad_patch_sample(
                 *ptrs, *hs, *ws, len(fine_maps), int(fine_maps[0].dtype == torch.bfloat16),
                 cam.data_ptr(), x.data_ptr(), y.data_ptr(), w.data_ptr(),
-                out.data_ptr(), bs, cams, C, G, M0, cam_k, _stream(x.device))
+                None if lvl is None else lvl.data_ptr(), n, out.data_ptr(), bs, cams, C, G,
+                M0, cam_k, _stream(x.device))
         _launched(k, err)
         self.launches += 1
         return out
@@ -427,20 +448,22 @@ class PatchSampleBwd:
     """K2-bwd (``csrc/patch_sample_bwd.cu``): the adjoint of K2 over every
     fine level and slot in one launch; replaces ``hipad_tpu/ops/sampling.py:
     _patch_bilinear_w_bwd`` with ``_dense_fmap_grad``. Plain version:
-    autograd through ``ops/sampling.py:patch_sample_plain``."""
+    autograd through ``ops/sampling.py:patch_sample_plain``. Two instances
+    with their own launch counts, as :class:`PatchSample`:
+    ``patch_sample_bwd`` and the level-k variant ``patch_sample_bwd_lk``."""
 
-    name = "patch_sample_bwd"
-
-    def __init__(self):
+    def __init__(self, name: str, takes_levels: bool):
+        self.name, self.takes_levels = name, takes_levels
         self.launches = 0
 
     def __call__(self, fine_maps: Sequence[torch.Tensor], cam, x, y, w,
-                 gout: torch.Tensor, cam_k: int):
+                 gout: torch.Tensor, cam_k: int, lvl=None):
         """K2's inputs and ``gout [bs, M0, C]`` fp32, the gradient of its
         output -> (per-level d maps fp32, d x, d y ``[bs, M]``, d w
-        ``[bs, M, nlev, G]``)."""
-        k = "K2-bwd patch_sample_bwd"
-        bs, M0, cams, C, G = _check_k2(k, fine_maps, cam, x, y, w, cam_k)
+        ``[bs, M, n, G]``)."""
+        k = f"K2-bwd {self.name}"
+        bs, M0, cams, C, G, n = _check_k2(k, fine_maps, cam, x, y, w, cam_k, lvl,
+                                          self.takes_levels)
         _check(gout.shape == (bs, M0, C), f"{k}: gout must be [bs, M0, C], got {tuple(gout.shape)}")
         dev = x.device
         _check_tensor("gout", gout, dev, (torch.float32,), k)
@@ -458,8 +481,9 @@ class PatchSampleBwd:
                 *[fm.data_ptr() for fm in fine_maps], *pad,
                 *[d.data_ptr() for d in dmaps], *pad, *hs, *ws, len(fine_maps),
                 int(fine_maps[0].dtype == torch.bfloat16), cam.data_ptr(), x.data_ptr(),
-                y.data_ptr(), w.data_ptr(), gout.data_ptr(), dx.data_ptr(), dy.data_ptr(),
-                dw.data_ptr(), bs, cams, C, G, M0, cam_k, _stream(dev))
+                y.data_ptr(), w.data_ptr(), None if lvl is None else lvl.data_ptr(), n,
+                gout.data_ptr(), dx.data_ptr(), dy.data_ptr(), dw.data_ptr(), bs, cams, C, G,
+                M0, cam_k, _stream(dev))
         _launched(k, err)
         self.launches += 1
         return dmaps, dx, dy, dw
@@ -504,10 +528,13 @@ class RowGather:
 
 coarse_sample = CoarseSample()
 interp_sample_camsum_bwd = InterpSampleCamsumBwd()
-patch_sample = PatchSample()
-patch_sample_bwd = PatchSampleBwd()
+patch_sample = PatchSample("patch_sample", takes_levels=False)
+patch_sample_bwd = PatchSampleBwd("patch_sample_bwd", takes_levels=False)
+patch_sample_lk = PatchSample("patch_sample_lk", takes_levels=True)
+patch_sample_bwd_lk = PatchSampleBwd("patch_sample_bwd_lk", takes_levels=True)
 gather_rows_f32 = RowGather("gather_rows_f32", "P2", torch.float32, 1)
 gather_rows_bf16 = RowGather("gather_rows_bf16", "P3", torch.bfloat16, 1)
 gather_rows_f32_every8 = RowGather("gather_rows_f32_every8", "P4", torch.float32, 8)
 KERNELS = (coarse_sample, patch_sample, interp_sample_camsum_bwd, patch_sample_bwd,
-           gather_rows_f32, gather_rows_bf16, gather_rows_f32_every8)
+           gather_rows_f32, gather_rows_bf16, gather_rows_f32_every8, patch_sample_lk,
+           patch_sample_bwd_lk)

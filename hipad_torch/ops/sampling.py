@@ -1,10 +1,13 @@
 """Multi-camera multi-scale deformable sampling: plain PyTorch versions and
 the dispatch to the CUDA kernels.
 
-Counterpart of ``hipad_tpu/ops/sampling.py`` at ``stage2()`` semantics. For
-every (anchor, keypoint, camera, level) the sampler reads a bilinear sample
-of an NHWC feature pyramid at a normalised 2D location, multiplies it by a
-per-(point, camera, level, group) weight and sums into a per-anchor feature.
+Counterpart of ``hipad_tpu/ops/sampling.py``: the oracle, the camera top-k
+sampler with its renormalisation and the level top-k of
+``sampler_level_k``; not the row-packed gathers (``sampler_row_packed``).
+For every (anchor, keypoint, camera, level) the sampler reads a bilinear
+sample of an NHWC feature pyramid at a normalised 2D location, multiplies it
+by a per-(point, camera, level, group) weight and sums into a per-anchor
+feature.
 
 Layouts are the JAX package's: feature maps ``[bs, cams, H, W, C]``, points
 ``[bs, n, P, cams, 2]`` in (x, y) order, weights ``[bs, n, P, cams, L, G]``
@@ -18,7 +21,8 @@ Two functions dispatch by device and by nothing else:
     all coarse levels, with K1-bwd (one launch per level) as its gradient;
   * :func:`patch_sample` (fine levels, counterpart of ``patch_bilinear_w`` as
     driven by ``deformable_samples_topk_flat``) -> kernel K2, with K2-bwd as
-    its gradient.
+    its gradient; with ``lvl`` (each sample's kept fine levels under
+    ``sampler_level_k``) their level-k variants.
 
 A CPU tensor takes the plain version beside each, and autograd through it
 gives the gradient; a CUDA tensor takes the kernels in ``ops/kernels.py``
@@ -36,7 +40,7 @@ from typing import List, Sequence
 
 import torch
 
-from . import kernels
+from . import kernels, ranking
 
 
 def _autocast_off(fn):
@@ -167,9 +171,11 @@ def patch_sample_plain(
     y: torch.Tensor,
     w: torch.Tensor,
     cam_k: int,
+    lvl=None,
 ) -> torch.Tensor:
-    """Plain version of K2: fine-level patch sampling of camera-compacted
-    samples, summed over the ``cam_k`` slots and the fine levels.
+    """Plain version of K2 (and, given ``lvl``, of its level-k variant):
+    fine-level patch sampling of camera-compacted samples, summed over the
+    ``cam_k`` slots and the fine levels.
 
     Args:
       fine_maps: per-level ``[bs, cams, H, W, C]`` maps (H, W >= 2).
@@ -177,12 +183,15 @@ def patch_sample_plain(
         with the slot index fastest.
       x, y: ``[bs, M]`` normalised locations.
       w: ``[bs, M, len(fine_maps), G]`` group weights carrying the inside
-        mask and the camera renormalisation.
+        mask and the camera renormalisation; with ``lvl``, ``[bs, M,
+        level_k, G]``, the weights of each sample's kept levels.
+      lvl: None, or ``[bs, M, level_k]`` int indices into ``fine_maps``:
+        slot ``j`` of a sample reads level ``lvl[..., j]`` only.
 
-    Each sample reads one ``(2, 2, C)`` patch whose origin is clamped to
-    ``[0, H-2] x [0, W-2]``; the hat weights ``max(0, 1 - |p - origin - i|)``
-    taken against the clamped origin give corners out of bounds weight zero.
-    Returns ``[bs, M0, C]`` float32.
+    Each sample reads one ``(2, 2, C)`` patch per level whose origin is
+    clamped to ``[0, H-2] x [0, W-2]`` of that level; the hat weights
+    ``max(0, 1 - |p - origin - i|)`` taken against the clamped origin give
+    corners out of bounds weight zero. Returns ``[bs, M0, C]`` float32.
     """
     bs, M = cam.shape
     C = fine_maps[0].shape[-1]
@@ -190,7 +199,8 @@ def patch_sample_plain(
     two = torch.arange(2, dtype=torch.float32, device=x.device)
     cam = cam.long()
     out = torch.zeros(bs, M, C, dtype=torch.float32, device=x.device)
-    for lvl, feat in enumerate(fine_maps):
+    sampled_at = []  # [bs, M, G, C/G] per level, unweighted
+    for feat in fine_maps:
         cams, h_l, w_l = feat.shape[1:4]
         px = x.float() * w_l - 0.5
         py = y.float() * h_l - 0.5
@@ -207,37 +217,74 @@ def patch_sample_plain(
         patch = torch.gather(feat.reshape(bs, cams * h_l * w_l, C), 1,
                              idx.expand(-1, -1, C)).reshape(bs, M, 4, C).float()
         w4 = (wy[..., :, None] * wx[..., None, :]).reshape(bs, M, 4)
-        sampled = torch.einsum("bmqc,bmq->bmc", patch, w4)
-        out = out + (sampled.reshape(bs, M, G, C // G)
-                     * w[:, :, lvl].float()[..., None]).reshape(bs, M, C)
+        sampled_at.append(torch.einsum("bmqc,bmq->bmc", patch, w4).reshape(bs, M, G, C // G))
+    # (level, its group weights): every level with its own weights, or, with
+    # lvl, each kept slot's weights on the level it names and zero elsewhere
+    if lvl is None:
+        terms = [(l, w[:, :, l].float()) for l in range(len(fine_maps))]
+    else:
+        lvl = lvl.long()
+        terms = [(l, w[:, :, j].float() * (lvl[..., j] == l)[..., None])
+                 for j in range(lvl.shape[-1]) for l in range(len(fine_maps))]
+    for l, wl in terms:
+        out = out + (sampled_at[l] * wl[..., None]).reshape(bs, M, C)
     return out.reshape(bs, M // cam_k, cam_k, C).sum(dim=2)
 
 
 class _PatchSample(torch.autograd.Function):
-    """K2 forward, K2-bwd backward; the maps ride last in ``*maps``."""
+    """K2 forward, K2-bwd backward, or with ``lvl`` their level-k variants;
+    the maps ride last in ``*maps``. The chain from the kept levels' weights
+    back through the level selection and its renormalisation is autograd's
+    (:func:`_keep_top_levels`)."""
 
     @staticmethod
-    def forward(ctx, cam, x, y, w, cam_k: int, *maps):
+    def forward(ctx, cam, x, y, w, lvl, cam_k: int, *maps):
         ctx.save_for_backward(cam, x, y, w, *maps)
-        ctx.cam_k = cam_k
-        return kernels.patch_sample(list(maps), cam, x, y, w, cam_k)
+        ctx.cam_k, ctx.lvl = cam_k, lvl
+        if lvl is None:
+            return kernels.patch_sample(list(maps), cam, x, y, w, cam_k)
+        return kernels.patch_sample_lk(list(maps), cam, x, y, w, cam_k, lvl)
 
     @staticmethod
     def backward(ctx, gout):
         cam, x, y, w, *maps = ctx.saved_tensors
-        dmaps, dx, dy, dw = kernels.patch_sample_bwd(
-            maps, cam, x, y, w, gout.float().contiguous(), ctx.cam_k)
-        return (None, dx, dy, dw, None, *(d.to(m.dtype) for d, m in zip(dmaps, maps)))
+        bwd = kernels.patch_sample_bwd if ctx.lvl is None else kernels.patch_sample_bwd_lk
+        dmaps, dx, dy, dw = bwd(maps, cam, x, y, w, gout.float().contiguous(), ctx.cam_k,
+                                ctx.lvl)
+        return (None, dx, dy, dw, None, None, *(d.to(m.dtype) for d, m in zip(dmaps, maps)))
 
 
-def patch_sample(fine_maps, cam, x, y, w, cam_k: int) -> torch.Tensor:
+def patch_sample(fine_maps, cam, x, y, w, cam_k: int, lvl=None) -> torch.Tensor:
     """Fine-level sampling -> ``[bs, M0, C]`` float32. A CPU tensor takes
     :func:`patch_sample_plain`; anything else takes kernel K2
-    (``kernels.patch_sample``) and, for its gradient, K2-bwd; both raise off
-    the card."""
+    (``kernels.patch_sample``) and, for its gradient, K2-bwd, or with
+    ``lvl`` their level-k variants (``kernels.patch_sample_lk``,
+    ``kernels.patch_sample_bwd_lk``); they raise off the card."""
     if x.device.type == "cpu":
-        return patch_sample_plain(fine_maps, cam, x, y, w, cam_k)
-    return _PatchSample.apply(cam, x, y, w, cam_k, *fine_maps)
+        return patch_sample_plain(fine_maps, cam, x, y, w, cam_k, lvl)
+    return _PatchSample.apply(cam, x, y, w, lvl, cam_k, *fine_maps)
+
+
+def _keep_top_levels(w_fine: torch.Tensor, level_k: int, renorm: bool):
+    """The level top-k of ``sampler_level_k`` (``hipad_tpu/ops/sampling.py:
+    791-830``): for each compacted sample the ``level_k`` fine levels of
+    largest group-weight mass, ties to the lower level as ``topk_by_argmax``
+    breaks them. ``w_fine [bs, M, n_fine, G]`` (the inside mask and any
+    camera renormalisation already in) -> (the kept levels' weights ``[bs,
+    M, level_k, G]``, their indices ``[bs, M, level_k]`` int32). With
+    ``renorm`` the kept weights of each sample are rescaled per group to the
+    full fine mass (floor 1e-9; sums in fp32, the ratio in the weights'
+    dtype, as the camera renormalisation)."""
+    bs, M, n_fine, G = w_fine.shape
+    # the mass in the weights' dtype, as the JAX package sums it
+    mass = w_fine.float().sum(dim=-1).to(w_fine.dtype).float()
+    lidx = ranking.topk(mass, level_k)[1]  # [bs, M, level_k]
+    kept = torch.gather(w_fine, 2, lidx[..., None].expand(bs, M, level_k, G))
+    if renorm:
+        full = w_fine.float().sum(dim=2)
+        ratio = full / torch.clamp(kept.float().sum(dim=2), min=1e-9)
+        kept = kept * ratio.to(kept.dtype)[:, :, None]
+    return kept, lidx.to(torch.int32)
 
 
 def _coarse_inputs(points_2d: torch.Tensor, weights: torch.Tensor):
@@ -364,6 +411,8 @@ def deformable_samples_topk_flat(
     cam_k: int = 3,
     matmul_levels: Sequence[int] = (2, 3),
     cam_renorm: bool = False,
+    level_k=None,
+    level_renorm: bool = True,
 ) -> torch.Tensor:
     """Camera-compacted hybrid sampler on flat samples -> ``[bs, M0, C]``.
 
@@ -374,7 +423,10 @@ def deformable_samples_topk_flat(
     ``matmul_levels`` are sampled by :func:`patch_sample` on the compacted
     samples (one launch of K2 on the card), then the levels in it by
     :func:`coarse_sample` on all cameras, added to K2's sum (one launch of
-    K1 for all of them).
+    K1 for all of them). With ``0 < level_k <`` the number of fine levels,
+    each compacted sample reads only its ``level_k`` fine levels of largest
+    mass (:func:`_keep_top_levels`, renormalised with ``level_renorm``),
+    each from that level's own map (K2's level-k variant on the card).
     """
     bs, M0, num_cams, _ = points_2d.shape
     num_levels = len(feature_maps)
@@ -401,13 +453,16 @@ def deformable_samples_topk_flat(
     out = None
     fine = [l for l in range(num_levels) if l not in matmul_levels]
     if fine:
-        w_fine = w.reshape(bs, M, num_levels, groups)[:, :, fine].float().contiguous()
+        w_fine = w.reshape(bs, M, num_levels, groups)[:, :, fine]
+        lvl = None
+        if level_k is not None and 0 < level_k < len(fine):
+            w_fine, lvl = _keep_top_levels(w_fine, level_k, level_renorm)
         out = patch_sample(
             [feature_maps[l] for l in fine],
             cam_idx.reshape(bs, M).to(torch.int32),
             pts[..., 0].reshape(bs, M).float().contiguous(),
             pts[..., 1].reshape(bs, M).float().contiguous(),
-            w_fine, cam_k)
+            w_fine.float().contiguous(), cam_k, lvl)
 
     coarse = [l for l in matmul_levels if l < num_levels]
     if coarse:
@@ -422,9 +477,11 @@ def deformable_aggregation_topk(
     cam_k: int = 3,
     matmul_levels: Sequence[int] = (2, 3),
     cam_renorm: bool = False,
+    level_k=None,
+    level_renorm: bool = True,
 ) -> torch.Tensor:
-    """The stage-2 sampler: :func:`deformable_samples_topk_flat` on the
-    flattened (anchor, point) samples, summed over each anchor's points ->
+    """The sampler: :func:`deformable_samples_topk_flat` on the flattened
+    (anchor, point) samples, summed over each anchor's points ->
     ``[bs, anchors, C]``."""
     bs, num_anchor, num_pts, num_cams, _ = points_2d.shape
     flat = deformable_samples_topk_flat(
@@ -433,6 +490,7 @@ def deformable_aggregation_topk(
         weights.reshape(bs, num_anchor * num_pts, num_cams,
                         weights.shape[-2], weights.shape[-1]),
         cam_k=cam_k, matmul_levels=matmul_levels, cam_renorm=cam_renorm,
+        level_k=level_k, level_renorm=level_renorm,
     )
     return flat.reshape(bs, num_anchor, num_pts, -1).float().sum(dim=2).to(flat.dtype)
 

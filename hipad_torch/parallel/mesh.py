@@ -11,17 +11,19 @@ batch, and these helpers make the result that of the global batch:
     ``nccl`` for one process per card, ``gloo`` on the CPU and for several
     processes sharing one card;
   * :func:`local_batch` takes a rank's slice of the global batch;
-  * :func:`sync_batchnorm` makes every ``BatchNorm`` sum its statistics over
-    the group (with autograd), as flax does under ``jit`` over a sharded
-    batch;
-  * ``losses.common.global_batch`` normalises every loss over the global
-    batch, so each process computes its share of the global loss;
+  * ``HiPAD(cfg, group=group)`` makes every ``BatchNorm`` sum its
+    statistics over the group (with autograd), as flax does under ``jit``
+    over a sharded batch;
+  * ``losses.hipad_loss.compute_losses(..., group=group)`` normalises every
+    loss over the global batch, so each process computes its share of the
+    global loss;
   * :func:`all_reduce_grads` sums the shares' gradients in one flat buffer,
     a parameter without a gradient counting as zero (one collective, as
     XLA's), and :func:`all_reduce_metrics` sums the loss shares, so that
     every rank holds and logs the global values.
 
-``train.train_step.make_train_step(..., group=)`` applies the last four.
+``train.train_step.make_train_step(..., group=)`` applies the last three,
+on a model built for the same group.
 Every process must start from the same parameters: :func:`broadcast_state`
 copies rank 0's.
 """
@@ -80,17 +82,6 @@ def local_batch(batch: Mapping[str, object], rank: int, world: int,
         idx[axis] = slice(rank * per, (rank + 1) * per)
         out[k] = v[tuple(idx)]
     return out
-
-
-def sync_batchnorm(model: torch.nn.Module, group) -> torch.nn.Module:
-    """Every ``BatchNorm`` of ``model`` takes its train-mode statistics over
-    the batches of all processes of ``group`` (None: its own batch)."""
-    from ..models.common import BatchNorm
-
-    for m in model.modules():
-        if isinstance(m, BatchNorm):
-            m.group = group
-    return model
 
 
 @torch.no_grad()

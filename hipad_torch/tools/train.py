@@ -168,7 +168,7 @@ def _train(args, dp: mesh.DataParallel, device: torch.device) -> Dict[str, objec
     local_bs = args.batch_size // dp.world
     dtype = torch.bfloat16
 
-    model = init_random(HiPAD(cfg, device=device), args.seed)
+    model = init_random(HiPAD(cfg, device=device, group=dp.group), args.seed)
     opt = AdamW(model.named_parameters(), base_lr=args.lr, total_steps=total_steps)
     gen = torch.Generator(device=device).manual_seed(args.seed + 1)
     A = args.accum_steps

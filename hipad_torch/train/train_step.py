@@ -16,9 +16,11 @@ detached: no autograd graph reaches from one step into the next.
 
 ``group=`` (a ``torch.distributed`` process group, ``parallel.mesh``) makes
 the step that of the global batch the group's processes hold between them,
-as the JAX package's step sharded over its data mesh: BatchNorm statistics
-and every loss normaliser over the global batch, the gradients summed, and
-the metrics those of the global batch on every rank.
+as the JAX package's step sharded over its data mesh: every loss normaliser
+over the global batch (``compute_losses(..., group=)``), the gradients
+summed, and the metrics those of the global batch on every rank. The model
+must be built for the same group (``HiPAD(cfg, group=group)``), whose
+BatchNorms then take their statistics over the global batch.
 """
 
 from __future__ import annotations
@@ -28,7 +30,6 @@ from typing import Callable, Dict, Mapping, Optional, Sequence
 import torch
 
 from ..losses import hipad_loss
-from ..losses.common import global_batch
 from ..models.common import to_float32
 from ..models.detector import META_KEYS, HiPAD
 from ..models.instance_bank import BankStates, map_banks
@@ -54,8 +55,7 @@ def _micro_step(cfg, model: HiPAD, dtype: torch.dtype, group):
                                        return_depth=True)
         depth = to_float32(outputs.pop("depth"))
         outputs = to_float32(outputs)
-        with global_batch(group):
-            losses = hipad_loss.compute_losses(cfg, outputs, data, depth_preds=depth)
+        losses = hipad_loss.compute_losses(cfg, outputs, data, depth_preds=depth, group=group)
         total = hipad_loss.total_loss(losses)
         total.backward()
         metrics: Dict[str, torch.Tensor] = {k: torch.as_tensor(v).detach()
@@ -64,6 +64,15 @@ def _micro_step(cfg, model: HiPAD, dtype: torch.dtype, group):
         return detach_banks(new_banks), metrics
 
     return run
+
+
+def _check_group(model: HiPAD, group):
+    """The step of a group's global batch needs the model built for that
+    group (``HiPAD(cfg, group=group)``: its BatchNorms take their statistics
+    over the group's batches)."""
+    if model.group is not group:
+        raise ValueError(f"the step runs for process group {group!r}, the model was built for "
+                         f"{model.group!r}: build it with HiPAD(cfg, group=...)")
 
 
 def _apply(optimizer: AdamW, metrics, group):
@@ -86,7 +95,7 @@ def make_train_step(cfg, model: HiPAD, optimizer: AdamW,
     targets and the losses, which always run in fp32. ``group``: this
     process's batch is its slice of the group's global batch.
     """
-    mesh.sync_batchnorm(model, group)
+    _check_group(model, group)
     micro = _micro_step(cfg, model, dtype, group)
 
     def step(banks: Optional[BankStates], batch: Mapping[str, torch.Tensor],
@@ -117,7 +126,7 @@ def make_accum_train_step(cfg, model: HiPAD, optimizer: AdamW, accum_steps: int,
     """
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
-    mesh.sync_batchnorm(model, group)
+    _check_group(model, group)
     micro = _micro_step(cfg, model, dtype, group)
     inv = 1.0 / accum_steps
 

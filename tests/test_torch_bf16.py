@@ -76,6 +76,22 @@ def _numpy(x):
 
 def test_two_frame_episode_matches_jax_bf16():
     cfg = tiny(decoder_remat=False)
+    for frame, (jout, jout32) in enumerate(bf16_episode(cfg)):
+        # the smoke holds the card's bf16/fp32 waypoint difference on the
+        # same frame (cold banks, then warm) to the spread this test allows
+        # there, rounded up by at most a quarter
+        wp = _numpy(jout["plan"]["final_waypoints"])
+        wp32 = _numpy(jout32["plan"]["final_waypoints"])
+        rel = np.abs(wp - wp32).max() / np.abs(wp32).max()
+        bound = chip_smoke.BF16_FRAME_RTOL[frame]
+        assert SPREAD_X * rel <= bound <= 1.25 * SPREAD_X * rel, (frame, rel, bound)
+
+
+def bf16_episode(cfg):
+    """Two frames of ``cfg`` (bs=2) through the port under bf16 autocast and
+    through the JAX package in bf16 and in fp32, on the same weights; every
+    float output and bank leaf of the port held to the rule above -> the JAX
+    (bf16, fp32) outputs of each frame."""
     batch = synthetic.make_batch(cfg, 2, seed=3)
     model = _port(cfg)
     images, metas = batch_to_torch(batch, "cpu")
@@ -107,15 +123,8 @@ def test_two_frame_episode_matches_jax_bf16():
                 continue  # ids and counters: selections that a rounding may flip
             worst[f"frame {frame + 1} {k}"] = _check(f"frame {frame + 1} {k}", _numpy(got[k]),
                                                      _numpy(ref[k]), _numpy(ref32[k]))
-        # the smoke holds the card's bf16/fp32 waypoint difference on the
-        # same frame (cold banks, then warm) to the spread this test allows
-        # there, rounded up by at most a quarter
-        wp = _numpy(ref["out.plan.final_waypoints"])
-        wp32 = _numpy(ref32["out.plan.final_waypoints"])
-        rel = np.abs(wp - wp32).max() / np.abs(wp32).max()
-        bound = chip_smoke.BF16_FRAME_RTOL[frame]
-        assert SPREAD_X * rel <= bound <= 1.25 * SPREAD_X * rel, (frame, rel, bound)
     assert len(worst) > 20
+    return [(runs["bf16"][f][0], runs["fp32"][f][0]) for f in range(2)]
 
 
 @pytest.fixture(scope="module")

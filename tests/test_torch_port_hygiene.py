@@ -1,7 +1,9 @@
 """What the port must never do: import JAX or anything of the JAX package
 ``hipad_tpu`` (on any path: forward, training, serving, the CLIs, the
-open-loop eval), or fall back to the CPU when it was asked to run on a
-card, or let a native call return None where it should raise."""
+open-loop eval, the model options), or fall back to the CPU when it was
+asked to run on a card, or let a native call return None where it should
+raise; and what its layers keep apart: no model module imports the losses,
+and the decoder runs every option but those it refuses by name."""
 
 import os
 import pathlib
@@ -56,6 +58,14 @@ with torch.no_grad():
     out, banks = smodel(images, metas, banks)
     dec = postprocess.post_process_arrays(scfg, out, metas["gt_ego_fut_cmd"])
 assert torch.isfinite(dec["plan_speed_5hz"]).all()
+# the model options: masks, point expansion, the level top-k, the oracle sampler
+for opts in (dict(sampler_level_k=1, with_distance_attn_mask=True, with_velocity_attn_mask=True,
+                  with_deform_map_points=True, with_deform_plan_points=True),
+             dict(with_concat_map_points=True, with_concat_plan_points=True),
+             dict(sampler="reference")):
+    with torch.no_grad():
+        out, _ = init_random(HiPAD(tiny(**opts), device="cpu"), 0)(images, metas)
+    assert torch.isfinite(out["plan"]["final_waypoints"]).all(), opts
 acfg = tiny(num_cams=6, input_size=(64, 128))
 aug_conf = {"resize_lim": (0.4, 0.4), "final_dim": (64, 128), "bot_pct_lim": (0.0, 0.0),
             "rot_lim": (0.0, 0.0), "H": 90, "W": 160, "rand_flip": False,
@@ -186,8 +196,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         kernels.patch_sample(fine, cam, x, x, w, 2)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.patch_sample_bwd(fine, cam, x, x, w, torch.zeros(1, 3, 32), 2)
-    for k in (kernels.coarse_sample, kernels.interp_sample_camsum_bwd,
-              kernels.patch_sample, kernels.patch_sample_bwd):
+    lvl = torch.zeros(1, 6, 1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.patch_sample_lk(fine, cam, x, x, w, 2, lvl)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.patch_sample_bwd_lk(fine, cam, x, x, w, torch.zeros(1, 3, 32), 2, lvl)
+    for k in kernels.KERNELS:
         assert k.launches == 0, k.name
 
 
@@ -221,3 +235,45 @@ def test_model_is_built_on_the_card_by_default():
         with pytest.raises((RuntimeError, AssertionError)):
             HiPAD(tiny())
     assert next(HiPAD(tiny(), device="cpu").parameters()).device.type == "cpu"
+
+
+def test_models_never_import_the_losses():
+    """The model is a function of weights and inputs: nothing under
+    ``hipad_torch/models/`` imports ``hipad_torch.losses`` (the depth loss
+    lives in ``losses/depth.py``), and the losses hold no process group of
+    their own: the data-parallel group is an argument."""
+    pat = re.compile(r"^\s*from\s+(\.\.losses|hipad_torch\.losses)\b|"
+                     r"^\s*import\s+hipad_torch\.losses\b", re.M)
+    models = ROOT / "hipad_torch" / "models"
+    offenders = [p.name for p in models.rglob("*.py") if pat.search(p.read_text())]
+    assert not offenders
+    from hipad_torch.losses import common
+
+    assert not hasattr(common, "_GROUP") and not hasattr(common, "global_batch")
+
+
+@pytest.mark.parametrize("option,refused", [
+    ({"with_topk_det": True, "topk_det_list": (6, 6)}, True),  # prunes at the merge layer
+    ({"with_topk_det": True, "topk_det_list": (12, 12, 6)}, True),  # after the last layer
+    ({"sampler_row_packed": True}, True),
+    ({"fused_deformable": True}, True),
+    ({"with_distance_attn_mask": True, "with_velocity_attn_mask": True}, False),
+    ({"with_concat_map_points": True, "with_concat_plan_points": True}, False),
+    ({"with_deform_map_points": True, "with_deform_plan_points": True}, False),
+    ({"sampler_level_k": 1}, False),
+    ({"sampler": "reference"}, False),
+])
+def test_check_supported_refuses_only_the_unported_options(option, refused):
+    """The row-packed and fused samplers (not ported) and the two det
+    pruning schedules the JAX package gets wrong are refused by name; the
+    masks, point expansion, the level top-k and the oracle sampler run."""
+    from hipad_torch.configs.model import SINGLE_FRAME_LAYER, TEMPORAL_FRAME_LAYER, tiny
+    from hipad_torch.models.decoder import check_supported
+
+    if len(option.get("topk_det_list", ())) == 3:
+        option = dict(option, operation_order=SINGLE_FRAME_LAYER + TEMPORAL_FRAME_LAYER * 2)
+    if refused:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            check_supported(tiny(**option))
+    else:
+        check_supported(tiny(**option))

@@ -141,16 +141,46 @@ def test_weights_cover_every_flax_leaf():
 
 @pytest.mark.parametrize("knob", [
     {"with_topk_det": True, "topk_det_list": (6, 6)},  # prunes at the merge layer
-    {"with_velocity_attn_mask": True},
-    {"sampler_level_k": 1},
     {"sampler_row_packed": True},
     {"fused_deformable": True},
-    {"with_concat_map_points": True},
-    {"with_distance_attn_mask": True},
 ])
 def test_knobs_outside_stage2_are_refused(knob):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         HiPAD(tiny(**knob), device="cpu")
+
+
+# every model option of the port on, in the two sets the configuration
+# allows together (the concat expansion refuses the masks)
+WITH_OPTIONS = {
+    "masks_deform_level_k": dict(with_distance_attn_mask=True, with_velocity_attn_mask=True,
+                                 with_deform_map_points=True, with_deform_plan_points=True,
+                                 sampler_level_k=1),
+    "concat": dict(with_concat_map_points=True, with_concat_plan_points=True),
+}
+
+
+@pytest.mark.parametrize("options", sorted(WITH_OPTIONS))
+def test_weights_with_options_cover_every_flax_leaf_and_round_trip(options):
+    """With the options on, the port's state_dict through ``to_jax`` has
+    exactly the flax model's leaves and shapes (the tau heads, the per-point
+    encoders, the squeeze MLPs, the wider weights heads), and ``from_jax``
+    returns it bit for bit."""
+    cfg = tiny(**WITH_OPTIONS[options])
+    batch = synthetic.make_batch(cfg, 1)
+    jm = JHiPAD(cfg)
+    shapes = jax.eval_shape(
+        lambda r: jm.init(r, jnp.asarray(batch["images"]),
+                          {k: jnp.asarray(batch[k]) for k in META_KEYS}, return_depth=True),
+        jax.random.PRNGKey(0))
+    want = {k: tuple(v.shape) for k, v in _leaves(shapes)}
+    sd = _port(cfg, seed=5).state_dict()
+    got = {k: tuple(v.shape) for k, v in _leaves(to_jax(sd))}
+    assert got.keys() == want.keys(), sorted(set(got) ^ set(want))[:10]
+    assert got == want
+    back = from_jax(to_jax(sd))
+    assert set(back) == set(sd)
+    for k, v in sd.items():
+        assert back[k].dtype == v.dtype and torch.equal(back[k], v), k
 
 
 def test_det_pruning_after_the_last_layer_is_refused():

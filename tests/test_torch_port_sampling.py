@@ -302,3 +302,41 @@ def test_front_view_feature():
     ref = jsam.front_view_feature([jnp.asarray(f) for f in maps])
     got = tsam.front_view_feature([torch.from_numpy(f) for f in maps])
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def test_reference_route_is_the_oracle_at_tiny():
+    """``sampler="reference"`` runs the oracle on the CPU and, on the card,
+    the topk sampler with every camera kept and no renormalisation (K2 on
+    the fine levels, K1 on the coarse ones). The two plain forms are one
+    function at ``tiny()``'s widths (2 cameras, C 32, G 4, the 64x96 input's
+    four levels), with points exactly on the image borders 0 and 1 and just
+    outside them (both masked), just inside, and on pixel edges and centres
+    of every level (the hat weights' kinks, and corners that fall off the
+    map)."""
+    from hipad_torch.configs.model import tiny
+
+    cfg = tiny()
+    rng = np.random.default_rng(11)
+    H, W = cfg.input_size
+    maps = [torch.from_numpy(rng.standard_normal(
+        (BS, cfg.num_cams, H // s, W // s, cfg.embed_dims)).astype(np.float32))
+        for s in cfg.strides]
+    n, p = 30, 13
+    pts = rng.uniform(-0.2, 1.2, (BS, n, p, cfg.num_cams, 2)).astype(np.float32)
+    special = np.array([0.0, 1.0, -1e-6, 1.0 + 1e-6, 1e-6, 1.0 - 1e-6], np.float32)
+    pts[:, ::3, 0, :, 0] = rng.choice(special, (BS, 10, cfg.num_cams))
+    pts[:, 1::3, 1, :, 1] = rng.choice(special, (BS, 10, cfg.num_cams))
+    for i, s in enumerate(cfg.strides):  # pixel edges (k / w) and centres
+        w = W // s
+        k = rng.integers(0, w + 1, (BS, n, cfg.num_cams))
+        pts[:, :, 2 + 2 * i, :, 0] = (k + 0.5 * (i % 2)) / w
+        pts[:, :, 3 + 2 * i, :, 1] = rng.integers(0, H // s + 1, (BS, n, cfg.num_cams)) / (H // s)
+    w = rng.uniform(0, 1, (BS, n, p, cfg.num_cams, cfg.num_levels, cfg.num_groups))
+    tp, tw = torch.from_numpy(pts), torch.from_numpy(w.astype(np.float32))
+    inside = ((pts > 0) & (pts < 1)).all(-1)
+    assert inside.any() and not inside.all()
+    ref = tsam.deformable_aggregation(maps, tp, tw)
+    got = tsam.deformable_aggregation_topk(maps, tp, tw, cam_k=cfg.num_cams,
+                                           matmul_levels=cfg.sampler_matmul_levels,
+                                           cam_renorm=False)
+    _assert_close(got, ref.numpy(), FP32_RTOL, "topk(cam_k=cams, no renorm) vs oracle at tiny")

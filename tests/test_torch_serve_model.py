@@ -129,7 +129,12 @@ def test_pruned_episode_matches_jax(episode):
     both frames. Det pruning: ``tiny`` with 3 refine layers, 12 det queries,
     merge at layer 0, 6 kept from layer 1 on, keypoint top-k 0.5. Plan-mode
     pruning: 3 then 2 of 3 modes per anchor group, 2 cached."""
-    cfg, frames = episode
+    assert_episode_matches(episode[1])
+
+
+def assert_episode_matches(frames):
+    """:func:`_episode`'s frames: every output leaf and every bank tensor of
+    both frames within the episode tolerance (ids and masks equal)."""
     checked = 0
     for frame, (tout, tb, jout, jb) in enumerate(frames):
         jleaves = dict(_leaves(jax.tree_util.tree_map(np.asarray, jout)))

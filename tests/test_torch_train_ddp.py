@@ -53,7 +53,7 @@ with open(src, "rb") as f:
     job = pickle.load(f)
 cfg = job["cfg"]
 dp = mesh.init("gloo", f"tcp://localhost:{port}", job["world"], rank)
-model = HiPAD(cfg, device="cpu")
+model = HiPAD(cfg, device="cpu", group=dp.group)
 model.load_state_dict(job["state_dict"])
 for m in model.modules():
     if hasattr(m, "attn_drop"):

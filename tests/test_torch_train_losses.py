@@ -27,7 +27,7 @@ from hipad_tpu.train import optim as jopt
 from hipad_torch.configs.model import tiny
 from hipad_torch.data import synthetic
 from hipad_torch.losses import hipad_loss as tloss
-from hipad_torch.models import depth_net as tdepth
+from hipad_torch.losses import depth as tdepth
 from hipad_torch.models import grid_mask as tgrid
 from hipad_torch.models.common import BatchNorm
 from hipad_torch.targets import det as tdet
