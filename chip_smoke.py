@@ -37,6 +37,15 @@ Phases, one printed line (or a few) each; any failure exits non-zero:
      step in turn, which compare the two on the host clock; then step 0
      without dropout and GridMask on the card and on the CPU plain path,
      loss by loss;
+  5f. (right after 5) K3, the batched assignment solver: the det and map
+     cost matrices of a stage-2 fp32 step at bs=1 and bs=2, and seeded
+     costs with exact ties, NaN and +-inf entries, an all-invalid matrix
+     and more valid rows than columns; K3 against ``assign_plain`` on the
+     card, bit for bit, and against scipy on the host (totals); K3's device
+     time and time per call, the plain version's time and scipy's with the
+     device-to-host copy; K3 launches per step; the step's synchronizing calls by call site
+     (``torch.cuda.set_sync_debug_mode("warn")``), none of them the
+     matcher's, and ``assign_many`` under ``set_sync_debug_mode("error")``;
   5b. the training CLI, ``python -m hipad_torch.tools.train`` (its
      ``main``), at stage 2 in bf16: 4 optimizer steps of 2 micro-batches
      unbroken (launches per step, step time, peak memory), then ``--resume``
@@ -69,6 +78,16 @@ Phases, one printed line (or a few) each; any failure exits non-zero:
      simulator's 6 x 1600x900 uint8 cameras, JPEG q20 and the native
      resize/crop, 2 warm-up and 10 ticks; every control finite and clipped;
      the median host preprocessing and upload+inference per tick;
+  7b. the closed loop (``[closed-loop]``): the CARLA leaderboard agent
+     ``HiPADTorchAgent`` through its stub with
+     ``setup("+smoke+config=stage2_serving_det")``, its sensors and 12
+     ticks of leaderboard-format input (six BGRA 1600x900 cameras, IMU,
+     GNSS, speedometer) on a straight route: controls finite and clipped,
+     ``metric_info.json``, a composite every 4 ticks; then
+     ``closed_loop_serving_bench.main`` for 30 ticks of
+     ``stage2_serving_det`` (ticks/s, per-phase ms) and
+     ``serving_error_sweep.main`` decoder-only at full width, every row
+     (deltas finite, each row's K1 and K2 or K2-lk launches);
   8. the gather probes P2-P4 at the probe tool's shapes: the tool's own
      timed run (its launches), then each kernel against its plain version
      (equal: a copy), and its device time (calls queued back to back)
@@ -100,7 +119,9 @@ With ``--against DIR`` (a checkout of another commit, such as the parent
 unpacked by ``git archive``) it builds that checkout's kernels into its own
 ``build/`` and times its four sampler kernels against this tree's in turns
 (theirs, ours, ours, theirs) at the shapes of phases 3 and 3b, fp32, device
-time, checking that the two agree (K2 without ``lvl`` bit for bit).
+time, checking that the two agree (K2 without ``lvl`` bit for bit); then
+phases 4-7's paths in turns, and each tree's synchronizing calls in one
+training step, by call site.
 """
 
 from __future__ import annotations
@@ -205,11 +226,10 @@ def _kernel_name(line: str) -> str:
         start = pos + len(digits)
         ident, pos = sym[start:start + int(digits)], start + int(digits)
         if ident.endswith("_kernel"):
-            args = re.match(r"I(f|13__nv_bfloat16)(?:Li(\d+)E)?", sym[pos:])
-            if args:
-                ident += f"<{'fp32' if args.group(1) == 'f' else 'bf16'}"
-                ident += f",{args.group(2)}>" if args.group(2) else ">"
-            return ident
+            args = re.match(r"(?:I(f|13__nv_bfloat16)?(?:Li(\d+)E)?)?", sym[pos:])
+            parts = [{"f": "fp32", "13__nv_bfloat16": "bf16"}.get(args.group(1)), args.group(2)]
+            parts = [p for p in parts if p]
+            return f"{ident}<{','.join(parts)}>" if parts else ident
     return sym
 
 
@@ -876,6 +896,9 @@ def _launch_plan(cfg):
 # norm. Seen on an H100: <= 7e-7 of each loss, 2.5e-5 of the norm.
 TRAIN_RTOL, TRAIN_ATOL, GRAD_NORM_RTOL = 1e-4, 1e-5, 1e-3
 WARMUP_STEPS, TIMED_STEPS = 2, 4
+# K3 launches per training step: one for the det and one for the map
+# matrices of every decoder layer (targets/matching.py: assign_many)
+MATCH_PROBLEMS = 2
 # rounds of one fp32 and one bf16 step in turn, after the warm-up steps
 PAIRED_ROUNDS = 3
 
@@ -950,6 +973,11 @@ def phase_train(card: str):
                 f"{per_call[kname]} = {n_deform * per_call[kname]}/step)")
             if n != want or n == 0:
                 fail(f"train: {kname} launched {n} times, expected {want}")
+        n = launches["lsa_assign"]
+        say(f"[train] {name} lsa_assign: {n} launches over {n_steps} steps = {n / n_steps:g}/step "
+            f"(expected {MATCH_PROBLEMS}: the det and the map matrices, every layer stacked)")
+        if n != n_steps * MATCH_PROBLEMS:
+            fail(f"train: lsa_assign launched {n} times, expected {n_steps * MATCH_PROBLEMS}")
         del model, opt, step
         torch.cuda.empty_cache()
         return launches
@@ -1032,6 +1060,250 @@ def phase_train(card: str):
             fail(f"card and CPU disagree on {k}")
     return launches
 
+
+# K3 against scipy: the totals of two optimal assignments summed in float64
+# from the same fp32 costs in other orders: |diff| <= MATCH_TOTAL_RTOL * sum
+# |assigned costs|.
+MATCH_TOTAL_RTOL = 1e-9
+
+
+def _planted_problems(g, dev):
+    """Seeded costs for K3 on the card: a coarse integer grid (exact ties
+    everywhere) with NaN and +-inf entries planted, one all-invalid matrix,
+    [6, 32, 900] and [6, 24, 100] as a stage-2 step's det and map
+    matrices, and 32 valid rows for 12 columns (tiny()'s det anchors)."""
+    import torch
+
+    out = []
+    for n, R, C in ((6, 32, 900), (6, 24, 100), (4, 32, 12)):
+        cost = torch.randint(0, 6, (n, R, C), generator=g, device=dev).float()
+        flat = cost.view(-1)
+        idx = torch.randint(0, flat.numel(), (3, 8), generator=g, device=dev)
+        flat[idx[0]] = float("nan")
+        flat[idx[1]] = float("inf")
+        flat[idx[2]] = -float("inf")
+        mask = torch.rand(n, R, generator=g, device=dev) < 0.7
+        mask[0] = False
+        mask[-1] = True
+        out.append((f"planted [{n}, {R}, {C}]", cost, mask))
+    return out
+
+
+def _sanitised(cost):
+    """The costs on the host in float64 as the matcher reads them: NaN and
+    +inf -> 1e3, -inf -> -1e3, clipped to +-1e3."""
+    import numpy as np
+
+    c = cost.cpu().numpy().astype(np.float64)
+    return np.clip(np.nan_to_num(c, nan=1e3, posinf=1e3, neginf=-1e3), -1e3, 1e3)
+
+
+def _scipy_cols(cost, mask):
+    """scipy's optimum of the sanitised costs (host, float64) -> col4row
+    [n, R] numpy; the device-to-host copy included."""
+    import numpy as np
+    from scipy.optimize import linear_sum_assignment
+
+    c, m = _sanitised(cost), mask.cpu().numpy()
+    out = np.full(m.shape, -1, np.int32)
+    for b in range(len(c)):
+        rows = np.flatnonzero(m[b])
+        if rows.size:
+            r, col = linear_sum_assignment(c[b, rows])
+            out[b, rows[r]] = col
+    return out
+
+
+def _check_against_scipy(what, cost, mask, got):
+    """Each valid row on a distinct real column where it fits, invalid rows
+    -1, each matrix's total within MATCH_TOTAL_RTOL of scipy's -> the
+    largest relative gap."""
+    import numpy as np
+
+    ref = _scipy_cols(cost, mask)
+    c, m, got = _sanitised(cost), mask.cpu().numpy(), got.cpu().numpy()
+    worst = 0.0
+    for b in range(len(c)):
+        if (got[b][~m[b]] != -1).any():
+            fail(f"[match] {what} matrix {b}: an invalid row was assigned")
+        sel = got[b] >= 0
+        taken = got[b][sel]
+        if len(set(taken.tolist())) != len(taken) or sel.sum() != (ref[b] >= 0).sum():
+            fail(f"[match] {what} matrix {b}: not an assignment of {(ref[b] >= 0).sum()} rows")
+        rows = np.arange(len(got[b]))
+        mine = c[b, rows[sel], taken]
+        theirs = c[b, rows[ref[b] >= 0], ref[b][ref[b] >= 0]]
+        gap = abs(mine.sum() - theirs.sum()) / max(np.abs(theirs).sum(), 1e-30)
+        worst = max(worst, gap)
+        if gap > MATCH_TOTAL_RTOL:
+            fail(f"[match] {what} matrix {b}: total {mine.sum()!r} against scipy's "
+                 f"{theirs.sum()!r}")
+    return worst
+
+
+def _sync_sites(fn):
+    """Run fn under ``torch.cuda.set_sync_debug_mode("warn")`` -> {call site:
+    count} of the synchronizing calls it made, each site the innermost frame
+    in the port (else the innermost frame). A warning raised outside fn (the
+    one ``set_sync_debug_mode`` itself gives in some runs) is not fn's and is
+    not counted."""
+    import collections
+    import traceback
+    import warnings
+
+    import torch
+
+    sites = collections.Counter()
+    inside = False
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if not inside or "synchronizing" not in str(message):
+            return
+        frames = [f for f in traceback.extract_stack()[:-1]
+                  if not os.path.basename(f.filename).startswith("warnings")]
+        port = [f for f in frames if f"{os.sep}hipad_torch{os.sep}" in f.filename]
+        f = (port or frames)[-1]
+        sites[f"{os.path.relpath(f.filename, ROOT)}:{f.lineno} {f.name}"] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        inside = True
+        try:
+            fn()
+        finally:
+            inside = False
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sites
+
+
+def count_step_syncs(tag, step, batch, card):
+    """The synchronizing calls of one stage-2 fp32 training step (after one
+    warm-up step) -> {call site: count}."""
+    import torch
+
+    gen = torch.Generator(device=batch["images"].device).manual_seed(SEED)
+    banks, _ = step(None, batch, gen)
+    torch.cuda.synchronize()
+    sites = _sync_sites(lambda: step(banks, batch, gen))
+    total = sum(sites.values())
+    say(f"[syncs] {tag} one stage-2 fp32 training step on {card}: {total} synchronizing "
+        f"calls (torch.cuda.set_sync_debug_mode('warn')) at {len(sites)} call sites:")
+    for site, n in sites.most_common():
+        say(f"[syncs]   {n:5d}  {site}")
+    return sites
+
+
+def phase_match(card: str):
+    """K3: the cost matrices of a stage-2 fp32 step at bs=1 and bs=2 and the
+    planted cases, K3 against ``assign_plain`` on the card (bit for bit) and
+    against scipy on the host (totals); K3's device time and time per call,
+    the plain version's, scipy's with the copy and its bound; the step's synchronizing calls by call site, none of them the
+    matcher's; ``assign_many`` under ``set_sync_debug_mode("error")``."""
+    import torch
+
+    from hipad_torch.configs.model import stage2
+    from hipad_torch.data import synthetic
+    from hipad_torch.losses import hipad_loss
+    from hipad_torch.models.detector import HiPAD
+    from hipad_torch.ops import kernels
+    from hipad_torch.targets import matching
+    from hipad_torch.train.optim import AdamW
+    from hipad_torch.train.train_step import make_train_step
+    from hipad_torch.weights import init_random
+
+    dev = torch.device(DEVICE)
+    cfg = stage2()
+    model = init_random(HiPAD(cfg, device=dev), SEED)
+    opt = AdamW(model.named_parameters())
+    step = make_train_step(cfg, model, opt)
+    seen = []
+    assign_many = matching.assign_many
+
+    def recording(problems):
+        seen.append([(c.detach().float().contiguous().clone(), m.bool().contiguous().clone())
+                     for c, m in problems])
+        return assign_many(problems)
+
+    batches = {}
+    hipad_loss.matching.assign_many = recording
+    try:
+        for bs in (1, 2):
+            batches[bs] = {k: torch.as_tensor(v, device=dev)
+                           for k, v in synthetic.make_batch(cfg, bs, seed=SEED).items()}
+            before = kernels.lsa_assign.launches
+            step(None, batches[bs], torch.Generator(device=dev).manual_seed(SEED))
+            torch.cuda.synchronize()
+            per_step = kernels.lsa_assign.launches - before
+            say(f"[match] stage2 fp32 step bs={bs}: {per_step} K3 launches "
+                f"({', '.join(str(tuple(c.shape)) for c, _ in seen[-1])})")
+            if per_step != len(seen[-1]) or per_step != MATCH_PROBLEMS:
+                fail(f"[match] bs={bs}: {per_step} K3 launches for {len(seen[-1])} problems")
+    finally:
+        hipad_loss.matching.assign_many = assign_many
+    cases = [(f"step bs={bs} {kind} {tuple(c.shape)}", c, m)
+             for bs, probs in zip((1, 2), seen) for kind, (c, m) in zip(("det", "map"), probs)]
+    cases += _planted_problems(torch.Generator(device=dev).manual_seed(SEED), dev)
+    rec = _Rec()
+    for what, cost, mask in cases:
+        cols = kernels.lsa_assign(cost, mask)
+        ref = matching.assign_plain(cost, mask)
+        torch.cuda.synchronize()
+        if not torch.equal(cols, ref):
+            fail(f"[match] {what}: K3 differs from assign_plain in "
+                 f"{int((cols != ref).sum())} rows")
+        gap = _check_against_scipy(what, cost, mask, ref)
+        say(f"[match] {what}: K3 equals assign_plain bit for bit; valid "
+            f"rows {int(mask.sum())}, assigned {int((ref >= 0).sum())}; total vs scipy "
+            f"rel gap {gap:.2e} (tol {MATCH_TOTAL_RTOL:g}) ok")
+
+    # times at bs=1, summed over the step's two problems as the step calls them
+    for kind, (cost, mask) in zip(("det", "map"), seen[0]):
+        def k3(c=cost, m=mask):
+            return kernels.lsa_assign(c, m)
+
+        dev_ms = _device_ms([k3, k3])
+        call_ms = _timed([k3, k3])
+        plain_ms = cuda_time_ms(lambda: matching.assign_plain(cost, mask), 3)
+        host = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _scipy_cols(cost, mask)
+            host.append((time.perf_counter() - t0) * 1e3)
+        scipy_ms = statistics.median(host)
+        rec.ms += min(dev_ms)
+        rec.per_call_ms += min(call_ms)
+        rec.plain_ms += plain_ms
+        rec.library_ms += scipy_ms
+        b = bound(_nbytes(cost, mask) + mask.numel() * 4, 0)
+        rec.add_bound(b)
+        say(f"[match] K3 {kind} {tuple(cost.shape)} on {card}: kernel {min(dev_ms):.4f} ms "
+            f"({QUEUED}, the better of two); per call {min(call_ms):.4f} ms; plain (syncs each iteration: CUDA events around one "
+            f"call, median of 3) {plain_ms:.2f} ms; scipy with the device-to-host copy (host "
+            f"clock, median of 5) {scipy_ms:.3f} ms; bound {b[0]:.5f} ms ({b[1]}: cost, mask "
+            f"and out once)")
+    say(f"[match] K3 per step (det + map, bs=1): kernel {rec.ms:.4f} ms, per call "
+        f"{rec.per_call_ms:.4f} ms, plain {rec.plain_ms:.2f} ms, scipy with the copy "
+        f"{rec.library_ms:.3f} ms, bound {rec.bound_ms:.5f} ms")
+
+    sites = count_step_syncs("ours:", step, batches[1], card)
+    mine = [s for s in sites if "targets/matching.py" in s or "ops/kernels.py" in s]
+    if mine:
+        fail(f"[syncs] the matcher synchronizes: {mine}")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        matching.assign_many(seen[1])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    say("[syncs] assign_many on the card ran under set_sync_debug_mode('error') without raising")
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return {"lsa_assign": rec}
 
 CLI_STEPS, CLI_ACCUM, CLI_RESUME_AT = 4, 2, 2
 # parameters after the first step past --resume against the unbroken run's:
@@ -2301,12 +2573,13 @@ def _options_train(card: str):
             del model, step
     finally:
         matching.assign_many = assign_many
+    want = {k: n_deform * v for k, v in per_call.items()}
+    want["lsa_assign"] = MATCH_PROBLEMS
     say("[options] A's step launches on the card: " + ", ".join(
-        f"{k} {launches[k]} (expected {n_deform * v})" for k, v in per_call.items()))
+        f"{k} {launches[k]} (expected {v})" for k, v in want.items()))
     for kname, n in launches.items():
-        if n != n_deform * per_call.get(kname, 0) or (kname in per_call and n == 0):
-            fail(f"[options] step: {kname} launched {n} times, expected "
-                 f"{n_deform * per_call.get(kname, 0)}")
+        if n != want.get(kname, 0) or (kname in want and n == 0):
+            fail(f"[options] step: {kname} launched {n} times, expected {want.get(kname, 0)}")
     differ = [i for i, (a, b) in enumerate(zip(*solved)) if not torch.equal(a, b)]
     if differ:
         say(f"[options] the Hungarian assignments differ between card and CPU in problem(s) "
@@ -2399,6 +2672,150 @@ def phase_agent(card: str, weights):
     torch.cuda.empty_cache()
     return counts
 
+
+CL_TICKS, CL_VIZ_EVERY, CL_BENCH_TICKS = 12, 4, 30
+
+
+def _location_to_gps(x: float, y: float, lat_ref: float = 42.0, lon_ref: float = 2.0):
+    """CARLA world [x, y] -> GNSS (lat, lon), the inverse of the planner's
+    ``gps_to_location`` at the agent's default town origin."""
+    from hipad_torch.agent.planner import EARTH_RADIUS_EQUA
+
+    scale = math.cos(lat_ref * math.pi / 180.0)
+    lon = (x + scale * lon_ref * math.pi * EARTH_RADIUS_EQUA / 180.0) \
+        * 180.0 / (math.pi * EARTH_RADIUS_EQUA * scale)
+    my = scale * EARTH_RADIUS_EQUA * math.log(math.tan((90.0 + lat_ref) * math.pi / 360.0)) - y
+    lat = 360.0 / math.pi * math.atan(math.exp(my / (EARTH_RADIUS_EQUA * scale))) - 90.0
+    return lat, lon
+
+
+def _cl_agent(work: str):
+    """``HiPADTorchAgent`` through the leaderboard's stub: setup, sensors
+    and ``CL_TICKS`` ticks of leaderboard-format ``input_data`` (six BGRA
+    1600x900 cameras, IMU, GNSS, speedometer) driving along a straight
+    route at 5 m/s, composites every ``CL_VIZ_EVERY`` ticks -> its
+    ``upload_infer`` and ``host_preproc`` per tick."""
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from hipad_torch.agent import carla_adapter
+    from hipad_torch.agent.calib import CAMERAS, IMG_H, IMG_W
+
+    viz = os.path.join(work, "viz")
+
+    class SmokeAgent(carla_adapter.HiPADTorchAgent):
+        def _agent_core_kwargs(self):
+            return {"visualize_dir": viz, "visualize_interval": CL_VIZ_EVERY}
+
+    os.environ["SAVE_PATH"] = work
+    t0 = time.perf_counter()
+    agent = SmokeAgent("host", "port")
+    agent.setup("+smoke+config=stage2_serving_det")
+    if next(agent.core.model.parameters()).device.type != "cuda":
+        fail("[closed-loop] the agent's model is not on the card")
+    specs = agent.sensors()
+    cams = [s for s in specs if s["type"] == "sensor.camera.rgb"]
+    if {c["id"] for c in cams} != set(CAMERAS) or len(specs) != len(CAMERAS) + 3:
+        fail(f"[closed-loop] sensor rig {[s['id'] for s in specs]}")
+    world, gps = [], []
+    for i in range(20):
+        x, y = 1.0 + 4.0 * i, 2.0
+        world.append((SimpleNamespace(location=SimpleNamespace(x=x, y=y, z=0.0)), 4))
+        lat, lon = _location_to_gps(x, y)
+        gps.append(({"lat": lat, "lon": lon, "z": 0.0}, 4))
+    agent._global_plan, agent._global_plan_world_coord = gps, world
+    say(f"[closed-loop] HiPADTorchAgent (entry point {carla_adapter.get_entry_point()}) set up "
+        f"with '+smoke+config=stage2_serving_det' in {time.perf_counter() - t0:.1f} s: "
+        f"{len(specs)} sensors, cameras {IMG_W}x{IMG_H}, {len(agent.core.banks)} banks, "
+        f"bf16 on the card")
+    rng = np.random.RandomState(SEED)
+    phases = []
+    for t in range(CL_TICKS):
+        lat, lon = _location_to_gps(1.0 + 0.25 * t, 2.0)
+        data = {"GPS": (t, np.array([lat, lon, 0.0])),
+                "IMU": (t, np.array([0.1, 0.0, 9.8, 0.0, 0.0, 0.01, math.pi / 2])),
+                "SPEED": (t, {"speed": 5.0})}
+        for cam in CAMERAS:
+            data[cam] = (t, rng.randint(0, 255, (IMG_H, IMG_W, 4), np.uint8))
+        out = agent.run_step(data, 0.05 * t)
+        vals = [out["steer"], out["throttle"], out["brake"]]
+        if not (np.isfinite(vals).all() and -1 <= vals[0] <= 1 and 0 <= vals[1] <= 0.75
+                and 0 <= vals[2] <= 1):
+            fail(f"[closed-loop] tick {t}: control {vals} not finite or outside the clip ranges")
+        phases.append(dict(agent.core.last_phase_ms))
+    info = json.load(open(os.path.join(agent.save_path, "metric_info.json")))
+    if sorted(info, key=int) != [str(t) for t in range(CL_TICKS)]:
+        fail(f"[closed-loop] metric_info.json holds ticks {sorted(info)}")
+    want = [f"{t:06d}.jpg" for t in range(0, CL_TICKS, CL_VIZ_EVERY)]
+    dumps = sorted(os.listdir(viz))
+    if dumps != want or any(os.path.getsize(os.path.join(viz, d)) == 0 for d in dumps):
+        fail(f"[closed-loop] composites {dumps}, expected {want}")
+    from PIL import Image
+
+    size = Image.open(os.path.join(viz, dumps[0])).size
+    med = {k: statistics.median(p[k] for p in phases[2:]) for k in phases[0]}
+    say(f"[closed-loop] {CL_TICKS} ticks: every control finite and clipped, metric_info.json "
+        f"with {len(info)} ticks, composites {dumps} ({size[0]}x{size[1]}); median of ticks "
+        f"2..{CL_TICKS - 1} host_preproc {med['host_preproc']:.2f} ms, upload_infer "
+        f"{med['upload_infer']:.2f} ms (host clock; the dumps fall outside both phases)")
+    agent.destroy()
+
+
+def phase_closed_loop(card: str):
+    """The leaderboard agent (``_cl_agent``), then ``closed_loop_serving_bench.main``
+    for ``CL_BENCH_TICKS`` ticks of ``stage2_serving_det`` and
+    ``serving_error_sweep.main`` decoder-only at full width, every row. ->
+    the kernels' launches over the three."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from hipad_torch.tools import closed_loop_serving_bench, serving_error_sweep
+
+    _reset_counts()
+    with tempfile.TemporaryDirectory(prefix="hipad_closed_loop_") as work:
+        saved = os.environ.get("SAVE_PATH")
+        try:
+            _cl_agent(work)
+        finally:
+            os.environ.pop("SAVE_PATH", None)
+            if saved is not None:
+                os.environ["SAVE_PATH"] = saved
+        torch.cuda.empty_cache()
+        before = _kernel_counts()
+        summary = closed_loop_serving_bench.main(
+            ["--ticks", str(CL_BENCH_TICKS), "--config", "stage2_serving_det",
+             "--out", os.path.join(work, "ticks.jsonl")])
+        n = {k: v - before[k] for k, v in _kernel_counts().items() if v > before[k]}
+        if not summary["controls_sane"] or summary["ticks"] != CL_BENCH_TICKS:
+            fail(f"[closed-loop] serving bench: {summary}")
+        say(f"[closed-loop] closed_loop_serving_bench stage2_serving_det bf16 on {card}: "
+            f"{summary['ticks']} ticks, {summary['warm_ticks']} warm: tick median "
+            f"{summary['tick_ms_median']} ms (p90 {summary['tick_ms_p90']}), "
+            f"{summary['ticks_per_s_warm']} ticks/s, host_preproc median "
+            f"{summary['host_preproc_ms_median']} ms, upload_infer median "
+            f"{summary['upload_infer_ms_median']} ms (host clock); native_preproc "
+            f"{summary['native_preproc']}; launches {n}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rows = serving_error_sweep.main([])
+    if len(rows) != len(serving_error_sweep.ROWS):
+        fail(f"[closed-loop] the sweep ran {len(rows)} of {len(serving_error_sweep.ROWS)} rows")
+    for r in rows:
+        vals = [v for k, v in r.items() if k not in ("config", "launches")]
+        if not np.isfinite(vals).all():
+            fail(f"[closed-loop] sweep row {r['config']}: a delta is not finite")
+        lk = "sampler_level_k" if "level_k" in r["config"] else ""
+        fine = "patch_sample_lk" if lk else "patch_sample"
+        if not r["launches"].get("coarse_sample") or not r["launches"].get(fine):
+            fail(f"[closed-loop] sweep row {r['config']}: launches {r['launches']}")
+    say(f"[closed-loop] serving_error_sweep (decoder only, stage 2 at 352x640, seeded random "
+        f"weights) on {card}: {len(rows)} rows in {time.perf_counter() - t0:.1f} s, every delta "
+        f"finite; launches per row (two frames): "
+        + "; ".join(f"{r['config']}: {r['launches']}" for r in rows))
+    return _kernel_counts()
 
 def phase_gather(card: str):
     """P2-P4 at the probe tool's shapes: the tool's own run (launches), then
@@ -2708,6 +3125,8 @@ def compare_paths(tree, card: str):
                               "gen": torch.Generator(device=dev).manual_seed(SEED)}), km)
             for n, st, km in (("theirs", steps[0], theirs_k), ("ours", steps[1], kernels))}
     _in_turns("stage2 training step fp32", runs, card, WARMUP_STEPS, PAIRED_ROUNDS)
+    for name, st in zip(("theirs:", "ours:"), steps):
+        count_step_syncs(name, st, batch, card)
     del theirs, ours, steps, runs
     torch.cuda.empty_cache()
 
@@ -2774,6 +3193,7 @@ def main():
     k.update(timed("kernels-bwd", phase_kernels_bwd, cfg, card))
     frame_launches = timed("slice", phase_slice, cfg, card)
     step_launches = timed("train", phase_train, card)
+    k.update(timed("match", phase_match, card))
     cli_launches, cli_work = timed("train-cli", phase_train_cli, card)
     eval_launches, loader_launches = timed("eval", phase_eval, card, cli_work)
     stage1_launches = timed("stage1", phase_stage1, card)
@@ -2781,6 +3201,7 @@ def main():
     serve_launches, weights = timed("serve", phase_serving, card)
     agent_launches = timed("agent", phase_agent, card, weights)
     del weights
+    closed_loop_launches = timed("closed-loop", phase_closed_loop, card)
     gather_recs, probe_launches = timed("gather", phase_gather, card)
     k.update(gather_recs)
     option_recs, option_frames, option_step = timed("options", phase_options, cfg, card)
@@ -2806,6 +3227,8 @@ def main():
                             "options_frame"),
         "patch_sample_bwd_lk": ("hipad_torch/csrc/patch_sample_bwd.cu",
                                 "hipad_tpu/ops/sampling.py:530", "options_step"),
+        "lsa_assign": ("hipad_torch/csrc/lsa_assign.cu", "hipad_tpu/targets/matching.py:36",
+                       "step"),
     }
     paths = {
         "step": (step_launches, f"phase 5: {WARMUP_STEPS + TIMED_STEPS} chained stage-2 fp32 "
@@ -2824,6 +3247,9 @@ def main():
         "serving_frame": (serve_launches, f"phase 6: {WARMUP_FRAMES + TIMED_FRAMES} chained "
                                           "stage2_serving_det fp32 frames"),
         "agent": (agent_launches, f"phase 7: {AGENT_WARMUP + AGENT_TICKS} AgentCore ticks"),
+        "closed_loop": (closed_loop_launches, f"phase 7b: {CL_TICKS} HiPADTorchAgent ticks, "
+                                              f"{CL_BENCH_TICKS} serving-bench ticks and the "
+                                              "error sweep's rows"),
         "probe": (probe_launches, "phase 8: python -m hipad_torch.tools.probe_gather <probe> "
                                   "time"),
         "options_frame": (option_frames, f"phase 9: {WARMUP_FRAMES + TIMED_FRAMES} chained fp32 "

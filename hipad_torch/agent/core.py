@@ -35,7 +35,6 @@ from .pid import PIDController
 
 FRAME_RATE = 20  # Hz
 CLOSE_LOOP_BANKS = 10  # 20 Hz sim / 2 Hz training
-VIZ_NOT_PORTED = "ROADMAP queue 1, item 13 (utils/viz.py is not ported yet)"
 
 
 def jpeg_roundtrip(img_rgb: np.ndarray, quality: int = 20) -> np.ndarray:
@@ -220,6 +219,27 @@ class AgentCore:
         return {"steer": steer, "throttle": throttle, "brake": brake, "metadata": meta}
 
     def _dump_composite(self, decoded, obs, target_point):
-        """The multi-camera and BEV composite of the JAX package's agent
-        needs ``utils/viz.py``, which the port does not have yet."""
-        raise NotImplementedError(f"AgentCore(visualize_dir=...): {VIZ_NOT_PORTED}")
+        """The multi-camera and BEV composite of every ``visualize_interval``-th
+        tick, as the JAX package's agent dumps it: detections on every camera,
+        the plan trajectories and the target point on the front cameras and
+        on the BEV panel, saved as ``<visualize_dir>/<step:06d>.jpg``; without
+        PIL the BEV panel alone, as ``bev_<step:06d>.npy``."""
+        import os
+
+        from ..utils.viz import render_composite, render_frame
+
+        os.makedirs(self.visualize_dir, exist_ok=True)
+        res = postprocess.to_result_dicts(decoded)[0]
+        try:
+            from PIL import Image
+        except ImportError:
+            np.save(os.path.join(self.visualize_dir, f"bev_{self.step:06d}.npy"),
+                    render_frame(res))
+            return
+        in_h, in_w = self.cfg.input_size
+        cams = {cam: np.asarray(Image.fromarray(obs["images"][cam].astype(np.uint8))
+                                .resize((in_w, in_h))) for cam in CAMERAS}
+        l2i = {cam: self.lidar2img[i] for i, cam in enumerate(CAMERAS)}
+        img = render_composite(cams, l2i, res, target_point=target_point)
+        Image.fromarray(img).save(os.path.join(self.visualize_dir, f"{self.step:06d}.jpg"),
+                                  quality=85)

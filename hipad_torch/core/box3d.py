@@ -41,3 +41,28 @@ def encode_box(box):
         torch.cos(box[..., YAW])[..., None],
         box[..., YAW + 1:],
     ], dim=-1)
+
+
+def box3d_to_corners(box3d):
+    """Decoded boxes ``[..., >=7]`` (a tensor, or an array, which is taken in
+    float32 as the JAX package takes it) -> 8 corners ``[..., 8, 3]``.
+
+    The corner order is the JAX package's: ``unravel_index(arange(8),
+    (2, 2, 2))`` reordered by ``[0, 1, 3, 2, 4, 5, 7, 6]``, centred at the
+    box origin; the sizes scale the unit corners, the yaw rotates them about
+    z and the centre moves them."""
+    import numpy as np
+    import torch
+
+    box = box3d if torch.is_tensor(box3d) else torch.as_tensor(np.asarray(box3d, np.float32))
+    unit = np.stack(np.unravel_index(np.arange(8), [2] * 3), axis=1)
+    unit = torch.as_tensor(unit[[0, 1, 3, 2, 4, 5, 7, 6]].astype(np.float32) - 0.5,
+                           dtype=box.dtype, device=box.device)  # [8, 3]
+    corners = box[..., None, 3:6] * unit  # [..., 8, 3]
+    cos, sin = torch.cos(box[..., YAW]), torch.sin(box[..., YAW])
+    zeros, ones = torch.zeros_like(cos), torch.ones_like(cos)
+    rot = torch.stack([torch.stack([cos, -sin, zeros], dim=-1),
+                       torch.stack([sin, cos, zeros], dim=-1),
+                       torch.stack([zeros, zeros, ones], dim=-1)], dim=-2)  # [..., 3, 3]
+    corners = torch.einsum("...ij,...kj->...ki", rot, corners)
+    return corners + box[..., None, 0:3]

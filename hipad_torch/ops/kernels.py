@@ -1,8 +1,9 @@
 """Build, bind and launch the port's CUDA kernels: the sampler's K1 (every
 coarse level in one launch) and K2 (the fine levels) forward, K1-bwd and
 K2-bwd for their gradients, K2's and K2-bwd's level-k variants (each sample
-reads only its kept fine levels: ``sampler_level_k``), and the row gather
-that stands in for the Pallas gather probes P2-P4.
+reads only its kept fine levels: ``sampler_level_k``), the row gather
+that stands in for the Pallas gather probes P2-P4, and K3, the training
+step's batched assignment solver.
 
 The sources ``hipad_torch/csrc/*.cu`` are compiled with plain ``nvcc`` for
 ``sm_90a``, one ``nvcc`` per source and all started together, then linked
@@ -189,6 +190,8 @@ def _bind(lib: ctypes.CDLL, seconds: float, log: str) -> Library:
     lib.hipad_patch_sample_bwd.restype = i
     lib.hipad_row_gather.argtypes = [p] * 3 + [i] * 3 + [p]
     lib.hipad_row_gather.restype = i
+    lib.hipad_lsa_assign.argtypes = [p] * 3 + [i] * 3 + [p]
+    lib.hipad_lsa_assign.restype = i
     return Library(lib=lib, path=BUILD_DIR / LIB_NAME, build_seconds=seconds, log=log)
 
 
@@ -197,11 +200,12 @@ def _check(cond: bool, msg: str):
         raise ValueError(msg)
 
 
-def _check_tensor(name: str, t: torch.Tensor, device: torch.device, dtypes, kernel: str):
+def _check_tensor(name: str, t: torch.Tensor, device: torch.device, dtypes, kernel: str,
+                  align: int = 16):
     _check(t.device == device, f"{kernel}: {name} is on {t.device}, expected {device}")
     _check(t.dtype in dtypes, f"{kernel}: {name} has dtype {t.dtype}, takes {dtypes}")
     _check(t.is_contiguous(), f"{kernel}: {name} must be contiguous")
-    _check(t.data_ptr() % 16 == 0, f"{kernel}: {name} must be 16-byte aligned")
+    _check(t.data_ptr() % align == 0, f"{kernel}: {name} must be {align}-byte aligned")
 
 
 def _check_channels(kernel: str, C: int, G: int):
@@ -526,6 +530,50 @@ class RowGather:
         return out
 
 
+def lsa_smem_bytes(R: int, C: int) -> int:
+    """Shared memory of one block of K3: v, minv (fp64), p, way (int32) and
+    used (one byte) per padded column, u (fp64) per row."""
+    return (C + R + 1) * (2 * 8 + 2 * 4 + 1) + R * 8
+
+
+class LsaAssign:
+    """K3 (``csrc/lsa_assign.cu``): the exact assignment of every ``[R, C]``
+    cost matrix of a batch, one block per matrix; replaces
+    ``hipad_tpu/targets/matching.py:_lsa_single`` with ``assign``. Plain
+    version: ``targets/matching.py:assign_plain``, equal bit for bit."""
+
+    name = "lsa_assign"
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, cost: torch.Tensor, row_mask: torch.Tensor) -> torch.Tensor:
+        """cost ``[n, R, C]`` fp32, row_mask ``[n, R]`` bool -> col4row
+        ``[n, R]`` int32 on the card: the column of each row, -1 for an
+        invalid row and for a row left without a real column (more valid
+        rows than columns)."""
+        k = "K3 lsa_assign"
+        _check(cost.is_cuda, f"{k}: takes CUDA tensors, got {cost.device}")
+        dev = cost.device
+        _check(cost.dim() == 3 and row_mask.shape == cost.shape[:2],
+               f"{k}: cost must be [n, R, C] and row_mask [n, R], got {tuple(cost.shape)}, "
+               f"{tuple(row_mask.shape)}")
+        n, R, C = cost.shape
+        _check(lsa_smem_bytes(R, C) <= _SMEM_PER_BLOCK,
+               f"{k}: [{R}, {C}] needs {lsa_smem_bytes(R, C)} B of shared memory a block, "
+               f"more than {_SMEM_PER_BLOCK}")
+        _check_tensor("cost", cost, dev, (torch.float32,), k, align=4)
+        _check_tensor("row_mask", row_mask, dev, (torch.bool,), k, align=1)
+        out = torch.empty(n, R, dtype=torch.int32, device=dev)
+        lib = library().lib
+        with torch.cuda.device(dev):
+            err = lib.hipad_lsa_assign(cost.data_ptr(), row_mask.data_ptr(), out.data_ptr(),
+                                       n, R, C, _stream(dev))
+        _launched(k, err)
+        self.launches += 1
+        return out
+
+
 coarse_sample = CoarseSample()
 interp_sample_camsum_bwd = InterpSampleCamsumBwd()
 patch_sample = PatchSample("patch_sample", takes_levels=False)
@@ -535,6 +583,7 @@ patch_sample_bwd_lk = PatchSampleBwd("patch_sample_bwd_lk", takes_levels=True)
 gather_rows_f32 = RowGather("gather_rows_f32", "P2", torch.float32, 1)
 gather_rows_bf16 = RowGather("gather_rows_bf16", "P3", torch.bfloat16, 1)
 gather_rows_f32_every8 = RowGather("gather_rows_f32_every8", "P4", torch.float32, 8)
+lsa_assign = LsaAssign()
 KERNELS = (coarse_sample, patch_sample, interp_sample_camsum_bwd, patch_sample_bwd,
            gather_rows_f32, gather_rows_bf16, gather_rows_f32_every8, patch_sample_lk,
-           patch_sample_bwd_lk)
+           patch_sample_bwd_lk, lsa_assign)

@@ -62,13 +62,15 @@ def test_make_batch_copy_equals_the_original(seed):
 @pytest.mark.parametrize("path", ["data/pipelines.py", "agent/calib.py", "agent/pid.py",
                                   "agent/planner.py", "agent/replay.py", "data/sampler.py",
                                   "eval/__init__.py", "eval/detection.py", "eval/map.py",
-                                  "eval/motion.py", "eval/planning.py", "eval/report.py"])
+                                  "eval/motion.py", "eval/planning.py", "eval/report.py",
+                                  "utils/viz.py"])
 def test_verbatim_copies_equal_the_originals(path):
     """Copied file for file: the training pipeline's geometry, the rig
     calibration, the PID controller, the route planner and the fake
     simulator (whose relative imports reach the port's own agent), the
-    training loader's sequence sampler, and the numpy metrics and report
-    tables of the open-loop eval."""
+    training loader's sequence sampler, the numpy metrics and report
+    tables of the open-loop eval, and the composite dumps' rendering (whose
+    relative import reaches the port's own ``box3d_to_corners``)."""
     assert (ROOT / "hipad_torch" / path).read_bytes() == (ROOT / "hipad_tpu" / path).read_bytes()
 
 
@@ -100,3 +102,58 @@ def test_eval_runner_numpy_half_is_a_copy(name):
     from hipad_tpu.eval import runner as jrun
 
     assert inspect.getsource(getattr(trun, name)) == inspect.getsource(getattr(jrun, name))
+
+
+def _tool(name):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"_tool_{name}", ROOT / "tools" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name", ["conv_w", "linear_w", "_bn", "_set", "convert_backbone",
+                                  "_lin", "_ln", "_mlpln", "_mha", "_conv_bn_encoder",
+                                  "_refine_reg_cls", "convert_decoder", "convert", "_flatten"])
+def test_converter_rules_are_the_tools(name):
+    """``hipad_torch/tools/convert_weights.py`` keeps ``tools/convert_weights.py``'s
+    numpy rules verbatim (its own ``merge_into`` and ``main`` need no JAX)."""
+    from hipad_torch.tools import convert_weights
+
+    tool = _tool("convert_weights")
+    assert inspect.getsource(getattr(convert_weights, name)) == \
+        inspect.getsource(getattr(tool, name))
+    for const in ("HEAD", "SINGLE_LAYER", "TEMPORAL_LAYER", "STAGE2_OPS", "GNN_GROUPS"):
+        assert getattr(convert_weights, const) == getattr(tool, const), const
+
+
+@pytest.mark.parametrize("name", ["kmeans", "det_anchors", "map_anchors", "motion_anchors",
+                                  "plan_spatial_anchors", "resample_spacing", "main"])
+def test_kmeans_tool_is_a_copy(name):
+    """``hipad_torch/tools/kmeans.py`` is ``tools/kmeans.py`` function for
+    function, but for the two imports of the JAX package's data modules,
+    which reach the port's."""
+    from hipad_torch.tools import kmeans
+
+    src = inspect.getsource(getattr(_tool("kmeans"), name)).replace("from hipad_tpu.data.",
+                                                                     "from ..data.")
+    assert inspect.getsource(getattr(kmeans, name)) == src
+
+
+def test_error_sweep_numpy_halves_are_the_tools():
+    """``hipad_torch/tools/serving_error_sweep.py``: ``_print_retention`` is
+    ``tools/serving_error_sweep.py``'s function, and ``deltas`` the body of
+    that tool's nested ``deltas`` (which reads ``exact`` and ``exact_cfg``
+    from its closure; the port passes them), ``sig`` its ``sig``."""
+    from hipad_torch.tools import serving_error_sweep
+
+    tool = {n.name: n for n in ast.walk(ast.parse((ROOT / "tools" /
+                                                   "serving_error_sweep.py").read_text()))
+            if isinstance(n, ast.FunctionDef)}
+    port = {n.name: n for n in ast.parse(inspect.getsource(serving_error_sweep)).body
+            if isinstance(n, ast.FunctionDef)}
+    assert ast.dump(port["_print_retention"]) == ast.dump(tool["_print_retention"])
+    assert [ast.dump(s) for s in port["deltas"].body[1:]] == \
+        [ast.dump(s) for s in tool["deltas"].body]
+    assert ast.dump(port["sig"].body[0]) == ast.dump(tool["sig"].body[0])

@@ -1,6 +1,7 @@
 """What the port must never do: import JAX or anything of the JAX package
 ``hipad_tpu`` (on any path: forward, training, serving, the CLIs, the
-open-loop eval, the model options), or fall back to the CPU when it was
+open-loop eval, the model options, the CARLA agent and its launcher, the
+serving tools, the converter and k-means), or fall back to the CPU when it was
 asked to run on a card, or let a native call return None where it should
 raise; and what its layers keep apart: no model module imports the losses,
 and the decoder runs every option but those it refuses by name."""
@@ -75,6 +76,15 @@ agent = AgentCore(acfg, HiPAD(acfg, device="cpu").state_dict(), dtype=torch.floa
 log = run_replay(agent, max_steps=2, sim=FakeSim(img_hw=(90, 160)))
 assert len(log) == 2
 assert probe_gather.run("C", device="cpu")[2]
+# the closed loop: the leaderboard agent, the serving bench, the tools
+from hipad_torch.agent import carla_adapter
+from hipad_torch.tools import closed_loop_serving_bench, convert_weights, kmeans
+from hipad_torch.tools import serving_error_sweep
+from hipad_torch.utils import viz
+assert carla_adapter.get_entry_point() == "HiPADTorchAgent"
+assert viz.render_frame({}).shape == (512, 512, 3)
+assert closed_loop_serving_bench.main(["--ticks", "2", "--config", "tiny", "--set", "num_cams=6",
+                                       "--device", "cpu", "--out", "/dev/null"])["ticks"] == 2
 # the training entry point and data parallelism (one process, no group)
 import tempfile
 from hipad_torch.parallel import mesh
@@ -162,6 +172,47 @@ def test_eval_cli_fails_without_a_card():
     assert '"perf"' not in res.stdout
 
 
+@pytest.mark.parametrize("tool", ["closed_loop_serving_bench", "serving_error_sweep"])
+def test_serving_tools_fail_without_a_card(tool):
+    """The serving bench and the error sweep run on the card unless told
+    ``--device cpu``: without CUDA they exit non-zero before building a
+    model, and write nothing."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    res = subprocess.run([sys.executable, "-m", f"hipad_torch.tools.{tool}", "--out",
+                          "/nonexistent/never-written"] if tool.startswith("closed") else
+                         [sys.executable, "-m", f"hipad_torch.tools.{tool}"],
+                         cwd=ROOT, env=_env(), capture_output=True, text=True, timeout=300)
+    assert res.returncode != 0
+    assert "no CUDA device" in res.stderr, res.stderr[-2000:]
+
+
+def test_carla_agent_runs_on_the_card_by_default():
+    """The leaderboard agent's model goes to the card unless a harness asks
+    for the CPU; without CUDA its setup raises."""
+    from hipad_torch.agent.carla_adapter import HiPADTorchAgent
+    from hipad_torch.configs.model import tiny
+
+    class Tiny(HiPADTorchAgent):
+        def _make_config(self, name):
+            return tiny(num_cams=6, input_size=(64, 128))
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    with pytest.raises((RuntimeError, AssertionError)):
+        Tiny().setup("+never_written+config=tiny")
+
+
+def test_launcher_hands_the_leaderboard_the_ports_agent():
+    """``hipad_torch/tools/run_closed_loop.sh`` passes the port's adapter as
+    ``--agent`` and names nothing of the JAX package."""
+    script = (ROOT / "hipad_torch" / "tools" / "run_closed_loop.sh").read_text()
+    agents = re.findall(r'--agent="\$\{REPO_ROOT\}/([^"]+)"', script)
+    assert agents == ["hipad_torch/agent/carla_adapter.py"]
+    assert (ROOT / agents[0]).is_file()
+    assert "hipad_tpu" not in script
+
+
 def test_native_binding_never_returns_none_in_place_of_raising():
     """The JAX package's binding returns None without its library and its
     callers fall back to numpy; the port's builds the library or raises,
@@ -201,6 +252,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         kernels.patch_sample_lk(fine, cam, x, x, w, 2, lvl)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.patch_sample_bwd_lk(fine, cam, x, x, w, torch.zeros(1, 3, 32), 2, lvl)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.lsa_assign(torch.zeros(2, 3, 5), torch.ones(2, 3, dtype=torch.bool))
     for k in kernels.KERNELS:
         assert k.launches == 0, k.name
 

@@ -140,7 +140,16 @@ def test_prepare_cameras_matches_jax():
                                   jcore.prepare_cameras(mixed, aug, jpeg_quality=20))
 
 
-def test_visualize_dir_is_refused(agents, tmp_path):
-    port = _port_agent(agents, visualize_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.run_step(FakeSim(img_hw=(90, 160)).observe())
+def test_visualize_dir_writes_composites(agents, tmp_path):
+    """With ``visualize_dir`` the agent writes its multi-camera and BEV
+    composite every ``visualize_interval``-th tick (``utils/viz.py``), as the
+    JAX package's agent does."""
+    port = _port_agent(agents, visualize_dir=str(tmp_path), visualize_interval=2)
+    sim = FakeSim(img_hw=(90, 160))
+    for _ in range(3):
+        port.run_step(sim.observe())
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["000000.jpg", "000002.jpg"]
+    from PIL import Image
+
+    h, w = port.cfg.input_size
+    assert Image.open(tmp_path / "000000.jpg").size == (3 * w + 2 * h, 2 * h)
