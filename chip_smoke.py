@@ -39,11 +39,14 @@ Phases, one printed line (or a few) each; any failure exits non-zero:
      loss by loss;
   5f. (right after 5) K3, the batched assignment solver: the det and map
      cost matrices of a stage-2 fp32 step at bs=1 and bs=2, and seeded
-     costs with exact ties, NaN and +-inf entries, an all-invalid matrix
-     and more valid rows than columns; K3 against ``assign_plain`` on the
-     card, bit for bit, and against scipy on the host (totals); K3's device
-     time and time per call, the plain version's time and scipy's with the
-     device-to-host copy; K3 launches per step; the step's synchronizing calls by call site
+     costs with exact ties, NaN and +-inf entries, an all-invalid matrix,
+     more valid rows than columns and a matrix too large to stage in
+     shared memory; K3 against ``assign_plain`` on the
+     card, bit for bit, and against scipy on the host (totals), with each
+     matrix's inner iterations; one K3 launch per step; K3's device time
+     per step and per iteration of the longest chain, time per call, the
+     plain version's time and scipy's with the device-to-host copy, its
+     bound (bytes or fp64 operations); the step's synchronizing calls by call site
      (``torch.cuda.set_sync_debug_mode("warn")``), none of them the
      matcher's, and ``assign_many`` under ``set_sync_debug_mode("error")``;
   5b. the training CLI, ``python -m hipad_torch.tools.train`` (its
@@ -91,7 +94,7 @@ Phases, one printed line (or a few) each; any failure exits non-zero:
   8. the gather probes P2-P4 at the probe tool's shapes: the tool's own
      timed run (its launches), then each kernel against its plain version
      (equal: a copy), and its device time (calls queued back to back)
-     against the plain version's and ``torch.index_select``'s;
+     against the plain version's and ``torch.index_select``'s, in turns;
   9. the decoder's model options (``[options]``): K2's and K2-bwd's
      level-k variants (``sampler_level_k``) against their plain versions
      and autograd of them at the det task's stage-2 shapes (cam_k 2,
@@ -117,9 +120,11 @@ script exits non-zero and prints no result.
 
 With ``--against DIR`` (a checkout of another commit, such as the parent
 unpacked by ``git archive``) it builds that checkout's kernels into its own
-``build/`` and times its four sampler kernels against this tree's in turns
-(theirs, ours, ours, theirs) at the shapes of phases 3 and 3b, fp32, device
-time, checking that the two agree (K2 without ``lvl`` bit for bit); then
+``build/`` and times its four sampler kernels, K3 (a stage-2 step's problems
+through each tree's ``assign_many``) and P2-P4 against this tree's in turns
+(theirs, ours, ours, theirs) at the shapes of phases 3, 3b, 5f and 8, fp32,
+device time, checking that the two agree (K2 without ``lvl``, K3 and P2-P4
+bit for bit); then
 phases 4-7's paths in turns, and each tree's synchronizing calls in one
 training step, by call site.
 """
@@ -129,6 +134,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -217,8 +223,6 @@ def _kernel_name(line: str) -> str:
     symbol ``_ZN<len><namespace><len><name>I<args>E...``: the nested name
     ending in ``_kernel`` and its template arguments (f: fp32,
     13__nv_bfloat16: bf16, Li<n>E: an int)."""
-    import re
-
     sym = line.split("'")[1] if "'" in line else line
     pos = 3 if sym.startswith("_ZN") else len(sym)
     while pos < len(sym) and sym[pos].isdigit():
@@ -896,9 +900,9 @@ def _launch_plan(cfg):
 # norm. Seen on an H100: <= 7e-7 of each loss, 2.5e-5 of the norm.
 TRAIN_RTOL, TRAIN_ATOL, GRAD_NORM_RTOL = 1e-4, 1e-5, 1e-3
 WARMUP_STEPS, TIMED_STEPS = 2, 4
-# K3 launches per training step: one for the det and one for the map
-# matrices of every decoder layer (targets/matching.py: assign_many)
-MATCH_PROBLEMS = 2
+# K3 launches per training step: one for the det and the map matrices of
+# every decoder layer together (targets/matching.py: assign_many)
+MATCH_LAUNCHES = 1
 # rounds of one fp32 and one bf16 step in turn, after the warm-up steps
 PAIRED_ROUNDS = 3
 
@@ -975,9 +979,10 @@ def phase_train(card: str):
                 fail(f"train: {kname} launched {n} times, expected {want}")
         n = launches["lsa_assign"]
         say(f"[train] {name} lsa_assign: {n} launches over {n_steps} steps = {n / n_steps:g}/step "
-            f"(expected {MATCH_PROBLEMS}: the det and the map matrices, every layer stacked)")
-        if n != n_steps * MATCH_PROBLEMS:
-            fail(f"train: lsa_assign launched {n} times, expected {n_steps * MATCH_PROBLEMS}")
+            f"(expected {MATCH_LAUNCHES}: the det and the map matrices, every layer stacked, "
+            f"in one launch)")
+        if n != n_steps * MATCH_LAUNCHES:
+            fail(f"train: lsa_assign launched {n} times, expected {n_steps * MATCH_LAUNCHES}")
         del model, opt, step
         torch.cuda.empty_cache()
         return launches
@@ -1071,11 +1076,13 @@ def _planted_problems(g, dev):
     """Seeded costs for K3 on the card: a coarse integer grid (exact ties
     everywhere) with NaN and +-inf entries planted, one all-invalid matrix,
     [6, 32, 900] and [6, 24, 100] as a stage-2 step's det and map
-    matrices, and 32 valid rows for 12 columns (tiny()'s det anchors)."""
+    matrices, 32 valid rows for 12 columns (tiny()'s det anchors), and
+    [2, 64, 1000], whose costs do not fit shared memory (kernels.lsa_plan):
+    K3 reads them from global memory, two columns a thread."""
     import torch
 
     out = []
-    for n, R, C in ((6, 32, 900), (6, 24, 100), (4, 32, 12)):
+    for n, R, C in ((6, 32, 900), (6, 24, 100), (4, 32, 12), (2, 64, 1000)):
         cost = torch.randint(0, 6, (n, R, C), generator=g, device=dev).float()
         flat = cost.view(-1)
         idx = torch.randint(0, flat.numel(), (3, 8), generator=g, device=dev)
@@ -1196,98 +1203,161 @@ def count_step_syncs(tag, step, batch, card):
     return sites
 
 
-def phase_match(card: str):
-    """K3: the cost matrices of a stage-2 fp32 step at bs=1 and bs=2 and the
-    planted cases, K3 against ``assign_plain`` on the card (bit for bit) and
-    against scipy on the host (totals); K3's device time and time per call,
-    the plain version's, scipy's with the copy and its bound; the step's synchronizing calls by call site, none of them the
-    matcher's; ``assign_many`` under ``set_sync_debug_mode("error")``."""
+# K3's operations term: fp64 operations a padded column costs in one inner
+# iteration (the reduced cost's two subtractions, its comparison with minv,
+# the argmin's comparison, the dual update's add or subtract), over the H100
+# SXM's fp64 rate outside the tensor cores (NVIDIA's data sheet, 700 W)
+K3_OPS_PER_COLUMN = 5
+FP64_FLOP_PER_S = 34e12
+
+
+def _k3_bound(problems, iterations):
+    """K3's bound on ``problems`` whose matrices took ``iterations`` (one
+    list per problem, one count per matrix) -> ((ms, by), bytes, fp64 ops):
+    the cost, mask and out once over the HBM rate, or the fp64 operations
+    those iterations need over the fp64 rate, the larger."""
+    nbytes = sum(_nbytes(c, m) + m.numel() * 4 for c, m in problems)
+    ops = sum(K3_OPS_PER_COLUMN * (c.shape[1] + c.shape[2] + 1) * sum(it)
+              for (c, _), it in zip(problems, iterations))
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP64_FLOP_PER_S * 1e3
+    return ((tb, "bytes") if tb >= to else (to, "operations")), nbytes, ops
+
+
+def _iters(counts):
+    return f"{min(counts)}/{statistics.median(counts):g}/{max(counts)}"
+
+
+def step_problems(cfg, bs_list=(1, 2)):
+    """The det and map cost matrices of one stage-2 fp32 training step at
+    each bs, as the step hands them to ``assign_many`` -> ({bs: problems},
+    {bs: K3 launches in that step}, the step, {bs: batch})."""
     import torch
 
-    from hipad_torch.configs.model import stage2
     from hipad_torch.data import synthetic
     from hipad_torch.losses import hipad_loss
     from hipad_torch.models.detector import HiPAD
     from hipad_torch.ops import kernels
-    from hipad_torch.targets import matching
     from hipad_torch.train.optim import AdamW
     from hipad_torch.train.train_step import make_train_step
     from hipad_torch.weights import init_random
 
     dev = torch.device(DEVICE)
-    cfg = stage2()
     model = init_random(HiPAD(cfg, device=dev), SEED)
-    opt = AdamW(model.named_parameters())
-    step = make_train_step(cfg, model, opt)
-    seen = []
-    assign_many = matching.assign_many
+    step = make_train_step(cfg, model, AdamW(model.named_parameters()))
+    seen, launches, batches = {}, {}, {}
+    assign_many = hipad_loss.matching.assign_many
 
     def recording(problems):
-        seen.append([(c.detach().float().contiguous().clone(), m.bool().contiguous().clone())
-                     for c, m in problems])
+        seen[bs] = [(c.detach().float().contiguous().clone(), m.bool().contiguous().clone())
+                    for c, m in problems]
         return assign_many(problems)
 
-    batches = {}
     hipad_loss.matching.assign_many = recording
     try:
-        for bs in (1, 2):
+        for bs in bs_list:
             batches[bs] = {k: torch.as_tensor(v, device=dev)
                            for k, v in synthetic.make_batch(cfg, bs, seed=SEED).items()}
             before = kernels.lsa_assign.launches
             step(None, batches[bs], torch.Generator(device=dev).manual_seed(SEED))
             torch.cuda.synchronize()
-            per_step = kernels.lsa_assign.launches - before
-            say(f"[match] stage2 fp32 step bs={bs}: {per_step} K3 launches "
-                f"({', '.join(str(tuple(c.shape)) for c, _ in seen[-1])})")
-            if per_step != len(seen[-1]) or per_step != MATCH_PROBLEMS:
-                fail(f"[match] bs={bs}: {per_step} K3 launches for {len(seen[-1])} problems")
+            launches[bs] = kernels.lsa_assign.launches - before
     finally:
         hipad_loss.matching.assign_many = assign_many
+    return seen, launches, step, batches
+
+
+def phase_match(card: str):
+    """K3: the cost matrices of a stage-2 fp32 step at bs=1 and bs=2 and the
+    planted cases (one above the shared-memory staging limit), K3 against
+    ``assign_plain`` on the card (bit for bit) and against
+    scipy on the host (totals), with the inner iterations each matrix takes;
+    the step's problems in one launch; K3's device time per step and per
+    iteration, time per call, the plain version's, scipy's with the copy and
+    its bound; the step's synchronizing calls by call site, none of them the
+    matcher's; ``assign_many`` under ``set_sync_debug_mode("error")``."""
+    import torch
+
+    from hipad_torch.configs.model import stage2
+    from hipad_torch.ops import kernels
+    from hipad_torch.targets import matching
+
+    dev = torch.device(DEVICE)
+    seen, launches, step, batches = step_problems(stage2())
+    for bs, probs in seen.items():
+        say(f"[match] stage2 fp32 step bs={bs}: {launches[bs]} K3 launch(es) for "
+            f"{len(probs)} problems ({', '.join(str(tuple(c.shape)) for c, _ in probs)})")
+        if launches[bs] != MATCH_LAUNCHES or len(probs) != 2:
+            fail(f"[match] bs={bs}: {launches[bs]} K3 launches for {len(probs)} problems, "
+                 f"expected {MATCH_LAUNCHES} for 2")
     cases = [(f"step bs={bs} {kind} {tuple(c.shape)}", c, m)
-             for bs, probs in zip((1, 2), seen) for kind, (c, m) in zip(("det", "map"), probs)]
+             for bs, probs in seen.items() for kind, (c, m) in zip(("det", "map"), probs)]
     cases += _planted_problems(torch.Generator(device=dev).manual_seed(SEED), dev)
-    rec = _Rec()
+    refs, iterations = {}, {}
     for what, cost, mask in cases:
-        cols = kernels.lsa_assign(cost, mask)
-        ref = matching.assign_plain(cost, mask)
+        cols, threads, staged, smem = kernels.lsa_plan(*cost.shape[1:])
+        iterations[what] = []
+        refs[what] = ref = matching.assign_plain(cost, mask, iterations[what])
+        got = kernels.lsa_assign([(cost, mask)])[0]
         torch.cuda.synchronize()
-        if not torch.equal(cols, ref):
-            fail(f"[match] {what}: K3 differs from assign_plain in "
-                 f"{int((cols != ref).sum())} rows")
+        if not torch.equal(got, ref):
+            fail(f"[match] {what}: K3 differs from assign_plain in {int((got != ref).sum())} "
+                 f"rows")
         gap = _check_against_scipy(what, cost, mask, ref)
-        say(f"[match] {what}: K3 equals assign_plain bit for bit; valid "
-            f"rows {int(mask.sum())}, assigned {int((ref >= 0).sum())}; total vs scipy "
-            f"rel gap {gap:.2e} (tol {MATCH_TOTAL_RTOL:g}) ok")
+        say(f"[match] {what}: K3 equals assign_plain bit for bit; costs in "
+            f"{'shared' if staged else 'global'} memory ({smem} B a block, {threads} threads x "
+            f"{cols} column(s)); valid rows {int(mask.sum())}, assigned "
+            f"{int((ref >= 0).sum())}; inner iterations per matrix min/median/max "
+            f"{_iters(iterations[what])}; total vs scipy rel gap {gap:.2e} "
+            f"(tol {MATCH_TOTAL_RTOL:g}) ok")
+    for bs, probs in seen.items():
+        got = matching.assign_many(probs)
+        keys = [f"step bs={bs} {kind} {tuple(c.shape)}" for kind, (c, _) in zip(("det", "map"),
+                                                                                 probs)]
+        if not all(torch.equal(g_, refs[k]) for g_, k in zip(got, keys)):
+            fail(f"[match] bs={bs}: the step's problems in one launch differ from assign_plain")
+        say(f"[match] bs={bs}: det and map in one launch (assign_many) equal assign_plain "
+            f"bit for bit")
 
-    # times at bs=1, summed over the step's two problems as the step calls them
-    for kind, (cost, mask) in zip(("det", "map"), seen[0]):
-        def k3(c=cost, m=mask):
-            return kernels.lsa_assign(c, m)
+    # times at bs=1: the step's one launch
+    probs = seen[1]
+    keys = [f"step bs=1 {kind} {tuple(c.shape)}" for kind, (c, _) in zip(("det", "map"), probs)]
+    its = [iterations[k] for k in keys]
+    chain = max(max(it) for it in its)
 
-        dev_ms = _device_ms([k3, k3])
-        call_ms = _timed([k3, k3])
-        plain_ms = cuda_time_ms(lambda: matching.assign_plain(cost, mask), 3)
-        host = []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            _scipy_cols(cost, mask)
-            host.append((time.perf_counter() - t0) * 1e3)
-        scipy_ms = statistics.median(host)
-        rec.ms += min(dev_ms)
-        rec.per_call_ms += min(call_ms)
-        rec.plain_ms += plain_ms
-        rec.library_ms += scipy_ms
-        b = bound(_nbytes(cost, mask) + mask.numel() * 4, 0)
-        rec.add_bound(b)
-        say(f"[match] K3 {kind} {tuple(cost.shape)} on {card}: kernel {min(dev_ms):.4f} ms "
-            f"({QUEUED}, the better of two); per call {min(call_ms):.4f} ms; plain (syncs each iteration: CUDA events around one "
-            f"call, median of 3) {plain_ms:.2f} ms; scipy with the device-to-host copy (host "
-            f"clock, median of 5) {scipy_ms:.3f} ms; bound {b[0]:.5f} ms ({b[1]}: cost, mask "
-            f"and out once)")
-    say(f"[match] K3 per step (det + map, bs=1): kernel {rec.ms:.4f} ms, per call "
-        f"{rec.per_call_ms:.4f} ms, plain {rec.plain_ms:.2f} ms, scipy with the copy "
-        f"{rec.library_ms:.3f} ms, bound {rec.bound_ms:.5f} ms")
+    def k3(problems):
+        return lambda: matching.assign_many(problems)
+
+    dev_ms = _device_ms([k3(probs), k3(probs)])
+    call_ms = _timed([k3(probs), k3(probs)])
+    alone = [min(_device_ms([k3([p]), k3([p])])) for p in probs]
+    plain_ms = sum(cuda_time_ms(lambda c=c, m=m: matching.assign_plain(c, m), 3)
+                   for c, m in probs)
+    host = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for c, m in probs:
+            _scipy_cols(c, m)
+        host.append((time.perf_counter() - t0) * 1e3)
+    (bms, by), nbytes, ops = _k3_bound(probs, its)
+    rec = _Rec()
+    rec.ms = min(dev_ms)
+    rec.per_call_ms = min(call_ms)
+    rec.plain_ms = plain_ms
+    rec.library_ms = statistics.median(host)
+    rec.add_bound((bms, by))
+    say(f"[match] K3 per stage-2 step (bs=1: det {tuple(probs[0][0].shape)} and map "
+        f"{tuple(probs[1][0].shape)} in one launch) on {card}: {rec.ms:.4f} ms ({QUEUED}, the "
+        f"better of two); the longest chain {chain} inner iterations (det {_iters(its[0])}, map "
+        f"{_iters(its[1])} per matrix): {rec.ms / chain * 1e3:.3f} us an iteration; det alone "
+        f"{alone[0]:.4f} ms, map alone {alone[1]:.4f} ms (one launch each); per call "
+        f"{rec.per_call_ms:.4f} ms")
+    say(f"[match] K3 plain (syncs each iteration: CUDA events around one call per problem, "
+        f"median of 3) {plain_ms:.2f} ms; scipy with the device-to-host copy (host clock, "
+        f"median of 5) {rec.library_ms:.3f} ms; bound {bms:.6f} ms ({by}: {nbytes} B of cost, "
+        f"mask and out over {HBM_BYTES_PER_S / 1e12:g} TB/s; {ops:.4g} fp64 operations, "
+        f"{K3_OPS_PER_COLUMN} per padded column of each iteration, over "
+        f"{FP64_FLOP_PER_S / 1e12:g} TFLOP/s)")
 
     sites = count_step_syncs("ours:", step, batches[1], card)
     mine = [s for s in sites if "targets/matching.py" in s or "ops/kernels.py" in s]
@@ -1296,12 +1366,12 @@ def phase_match(card: str):
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        matching.assign_many(seen[1])
+        matching.assign_many(seen[2])
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     say("[syncs] assign_many on the card ran under set_sync_debug_mode('error') without raising")
-    del model, opt, step
+    del step
     torch.cuda.empty_cache()
     return {"lsa_assign": rec}
 
@@ -2574,7 +2644,7 @@ def _options_train(card: str):
     finally:
         matching.assign_many = assign_many
     want = {k: n_deform * v for k, v in per_call.items()}
-    want["lsa_assign"] = MATCH_PROBLEMS
+    want["lsa_assign"] = MATCH_LAUNCHES
     say("[options] A's step launches on the card: " + ", ".join(
         f"{k} {launches[k]} (expected {v})" for k, v in want.items()))
     for kname, n in launches.items():
@@ -2854,24 +2924,31 @@ def phase_gather(card: str):
             fail(f"{kernel.name} disagrees with its plain version")
         flat = table.reshape(-1, gather.ROW)
         sel = idx[::stride].contiguous()
-        fns = [lambda: gather.gather_rows_plain(table, idx, stride),
-               lambda: fn(idx, table), lambda: fn(idx, table),
-               lambda: gather.gather_rows_plain(table, idx, stride),
-               lambda: torch.index_select(flat, 0, sel)]
-        dev_ms, call = _times(fns)
+        def plain():
+            return gather.gather_rows_plain(table, idx, stride)
+
+        def kern():
+            return fn(idx, table)
+
+        def library():
+            return torch.index_select(flat, 0, sel)
+
+        dev_ms, call = _times([plain, kern, library, library, kern, plain])
         rec = _Rec()
         rec.err = float((got.float() - ref.float()).abs().max())
-        rec.add_times(dev_ms, call)
+        rec.ms, rec.per_call_ms = min(dev_ms[1], dev_ms[4]), min(call[1], call[4])
+        rec.plain_ms, rec.library_ms = min(dev_ms[0], dev_ms[5]), min(dev_ms[2], dev_ms[3])
         uniq = int(torch.unique(sel).numel())
         row_bytes = gather.ROW * table.element_size()
         rec.add_bound(bound(uniq * row_bytes + _nbytes(got) + _nbytes(sel), 0.0))
         recs[kernel.name] = rec
         say(f"[gather] {kernel.name} on {card}: device time kernel {rec.ms:.4f} ms, plain "
             f"{rec.plain_ms:.4f} ms, torch.index_select (the same function) "
-            f"{rec.library_ms:.4f} ms ({TIMES}); each call with its Python "
-            f"launch, CUDA events, "
-            f"median of 20: kernel {min(call[1], call[2]):.4f} ms, plain "
-            f"{min(call[0], call[3]):.4f} ms, index_select {call[4]:.4f} ms; bound "
+            f"{rec.library_ms:.4f} ms ({QUEUED}, in turns plain/kernel/index_select/"
+            f"index_select/kernel/plain: the kernel "
+            f"{'at or below' if rec.ms <= rec.library_ms else 'ABOVE'} index_select); each "
+            f"call with its Python launch, CUDA events, median of 20: kernel {rec.per_call_ms:.4f} ms, plain {min(call[0], call[5]):.4f} ms, "
+            f"index_select {min(call[2], call[3]):.4f} ms; bound "
             f"{rec.bound_ms:.4f} ms (bytes: {uniq} distinct "
             f"table rows of {row_bytes} B read, {_nbytes(got) / 1e6:.2f} MB written, the "
             f"indices; the {_nbytes(table) / 1e6:.2f} MB table fits in the 50 MB L2, so the "
@@ -2901,7 +2978,7 @@ def _other_tree(other: str):
     spec.loader.exec_module(pkg)
     return {m: importlib.import_module(f"other_hipad_torch.{m}") for m in (
         "ops.kernels", "ops.sampling", "configs.model", "models.detector", "postprocess",
-        "train.optim", "train.train_step", "agent.core")}
+        "train.optim", "train.train_step", "agent.core", "targets.matching")}
 
 
 def _their_coarse(kernels, acc, maps, pts, wts, levels):
@@ -2928,12 +3005,48 @@ def _their_coarse(kernels, acc, maps, pts, wts, levels):
     return out
 
 
+def _compare_k3_and_gathers(tree, cfg):
+    """``compare_against``'s cases for K3 (a stage-2 fp32 step's det and map
+    problems at bs=1, through each tree's ``assign_many``) and P2-P4 (the
+    probe tool's shapes and data), each held bit for bit."""
+    import numpy as np
+    import torch
+
+    from hipad_torch.ops import gather, kernels
+    from hipad_torch.targets import matching
+    from hipad_torch.tools import probe_gather
+
+    probs = step_problems(cfg, (1,))[0][1]
+    iterations = [[] for _ in probs]
+    for (c, m), it in zip(probs, iterations):
+        matching.assign_plain(c, m, it)
+    chain = max(max(it) for it in iterations)
+    their_many = tree["targets.matching"].assign_many
+    cases = [(f"K3 a stage-2 step's det and map at bs=1, the longest chain {chain} inner "
+              f"iterations (bit for bit)", lambda: their_many(probs),
+              lambda: matching.assign_many(probs))]
+    theirs = tree["ops.kernels"]
+    rng = np.random.RandomState(0)
+    rows = rng.randn(probe_gather.N, gather.ROW).astype(np.float32)
+    idx = torch.as_tensor(rng.randint(0, probe_gather.N, probe_gather.M).astype(np.int32),
+                          device=DEVICE)
+    for which, name in (("A", "gather_rows_f32"), ("D", "gather_rows_bf16"),
+                        ("C", "gather_rows_f32_every8")):
+        flat = gather.make_table(which, rows, DEVICE).reshape(-1, gather.ROW)
+        ours = getattr(kernels, name)
+        cases.append((f"{ours.probe} {name} (bit for bit)",
+                      lambda f=flat, k=getattr(theirs, name): k(f, idx),
+                      lambda f=flat, k=ours: k(f, idx)))
+    return cases
+
+
 def compare_against(other: str, cfg, card: str):
-    """The sampler kernels of the checkout at ``other`` against this tree's,
-    at phase 3 and 3b's shapes (bs=1, fp32): device time in turns
-    theirs/ours/ours/theirs, and the largest difference of their outputs.
-    K1 is held as the coarse levels of one deformable call (the other
-    tree's launches and glue), and the whole sampler call as well."""
+    """The kernels of the checkout at ``other`` against this tree's, at
+    phase 3 and 3b's shapes (bs=1, fp32), K3 at phase 5f's and P2-P4 at
+    phase 8's: device time in turns theirs/ours/ours/theirs, and the largest
+    difference of their outputs. K1 is held as the coarse levels of one
+    deformable call (the other tree's launches and glue), and the whole
+    sampler call as well."""
     import torch
 
     from hipad_torch.ops import kernels, sampling
@@ -2978,6 +3091,7 @@ def compare_against(other: str, cfg, card: str):
     cases.append(("sampler call (deformable_samples_topk_flat: K2, K1 and their glue)",
                   lambda: their_sampler(fmaps, pts, wts, **topk),
                   lambda: sampling.deformable_samples_topk_flat(fmaps, pts, wts, **topk)))
+    cases += _compare_k3_and_gathers(tree, cfg)
     for what, old_fn, new_fn in cases:
         a, b = old_fn(), new_fn()
         diff = max(_max_err(u, v)[0] for u, v in zip(_tensors(a), _tensors(b)))
@@ -2986,9 +3100,12 @@ def compare_against(other: str, cfg, card: str):
         t = (_device_ms if queued else _timed)([old_fn, new_fn, new_fn, old_fn])
         old, new = min(t[0], t[3]), min(t[1], t[2])
         how = QUEUED if queued else "CUDA events around each of 20 calls, median"
+        chain = re.search(r"longest chain (\d+)", what)
+        per_iter = (f"; per inner iteration theirs {old / int(chain[1]) * 1e3:.3f} us, ours "
+                    f"{new / int(chain[1]) * 1e3:.3f} us" if chain else "")
         say(f"[compare] {what} fp32 on {card}: theirs {old:.4f} ms, ours {new:.4f} ms "
-            f"({new / old:.3f}x; {how}, in turns theirs/ours/ours/theirs); outputs differ by "
-            f"{diff:.3e} (scale {scale:.3e}, {diff / scale:.1e} of it)")
+            f"({new / old:.3f}x; {how}, in turns theirs/ours/ours/theirs){per_iter}; outputs "
+            f"differ by {diff:.3e} (scale {scale:.3e}, {diff / scale:.1e} of it)")
         if not diff <= KERNEL_RTOL * scale:
             fail(f"{what}: the two trees disagree by more than {KERNEL_RTOL:g} of scale")
         if "bit for bit" in what and not all(torch.equal(u, v) for u, v in zip(
@@ -3165,7 +3282,7 @@ def main():
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--against", metavar="DIR",
-                    help="time another checkout's sampler kernels against this tree's")
+                    help="time another checkout's kernels and paths against this tree's")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke runs on a CUDA card only")

@@ -1,5 +1,5 @@
-// K3: exact linear-sum assignment of a batch of cost matrices, one block per
-// matrix.
+// K3: exact linear-sum assignment of every cost matrix of a training step,
+// one block per matrix, all the step's problems (det and map) in one launch.
 //
 // Replaces hipad_tpu/targets/matching.py:36 (_lsa_single) and :116
 // (assign): JAX solves every matching of the training step inside the
@@ -26,39 +26,93 @@
 // bit.
 //
 // What bounds it on this card: neither bytes nor operations but the serial
-// chain of augmenting iterations. A matrix of R rows takes R outer steps,
-// each a few inner iterations, and every inner iteration is a pass over the
-// row's N = C + R + 1 columns, a min-reduction over them and a dual update,
-// with a barrier between each. PERF.md's bound (the cost bytes read once
-// over 3.35 TB/s) is far below what that chain allows. Design: the column
-// state (v, minv fp64; p, way int32; used) and u live in shared memory (at
-// most about 23 KB at stage 2: N = 933), cost rows are read from global
-// memory, where the step's matrices stay in L2. A column belongs to thread
-// j % kThreads throughout, so marking a column used and updating its
-// state needs no barrier; the (value, index) argmin is a warp shuffle
-// reduction, then one across the block's eight warps. One warp a matrix
-// (__syncwarp in place of __syncthreads) was measured and not taken: it
-// was about four times slower on a stage-2 step's det matrices (PERF.md).
+// chain of inner iterations. A matrix of R rows takes R outer steps, each a
+// few inner iterations; every inner iteration is a pass over the row's
+// N = C + R + 1 columns, an argmin over them and a dual update, and the
+// next iteration's row is the argmin's. A stage-2 step's det matrices take
+// a few hundred iterations each, and the step waits for the slowest block.
+// Design, to shorten each link of that chain:
+//   (a) the sanitised costs are staged in shared memory once, by cp.async
+//       (115,200 B for a det matrix), so no global read is left on an
+//       iteration's path; the wrapper reads them from global memory as
+//       before where R*C*4 and the state do not fit (kernels.lsa_plan);
+//   (b) a column belongs to one thread for the whole solve (1, 2 or 4 a
+//       thread, a template argument), so v, minv and used live in
+//       registers, and so do the row the column holds and that row's u
+//       while the row stays there: a new row resets them in registers, and
+//       the dual update makes no shared load. Only u and p, which every
+//       thread reads, and way, which the augmenting walk reads, are in
+//       shared memory;
+//   (c) one barrier an inner iteration: each warp reduces its (value,
+//       column) pairs, lane 0 writes them to a slot, and after the barrier
+//       lane w of every warp reads slot w and reduces again, so every
+//       thread holds the argmin without a second barrier. A warp's argmin
+//       is three redux.sync minima over an order-preserving 64-bit key of
+//       the value (its high word, its low word, then the column among the
+//       lanes that hold the minimum): five butterfly rounds of shuffles
+//       took half as long again (PERF.md). The slots are double-buffered:
+//       iteration k+1 writes the other buffer while a late thread may
+//       still read iteration k's. The dual update needs no
+//       barrier: u[p[j]] is written by the owner of column j alone, and
+//       the next iteration reads u of a row whose column is still unused.
+//       Two barriers an outer row frame the augmenting walk;
+//   (d) the problems of a step come in one launch (a Batch by value, no
+//       copy to the card): blocks 0..n_det-1 take det, the rest map, so
+//       the map blocks finish under the det ones.
+// What is left is instruction issue: every warp runs every iteration's pass
+// and both argmin levels, at up to 32 warps a block. Half the warps with
+// two columns a thread were slower on a stage-2 step (PERF.md), so a thread
+// takes one column up to 1024 columns.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include <climits>
 #include <cstdint>
 
 namespace {
 
 constexpr float kClip = 1e3f;
 constexpr float kPad = 3e4f;
+constexpr int kMaxThreads = 1024;
+constexpr int kMaxProblems = 8;
+// shared memory ahead of the state: 2 buffers x 32 warps of an 8-byte key
+// and a 4-byte column
+constexpr int kSlotBytes = 2 * 32 * 8 + 2 * 32 * 4;
 
-// Column j (0 the sentinel, 1..C real, C+1..C+R virtual) of a row of the
-// padded, sanitised matrix, as the plain version builds it.
-__device__ __forceinline__ double padded_cost(const float* __restrict__ row, bool valid,
-                                              int j, int C) {
-  if (j == 0) return 0.0;
-  if (!valid || j > C) return static_cast<double>(kPad);
-  float c = __ldg(row + j - 1);
+struct Problem {
+  const float* cost;     // [n, R, C]
+  const uint8_t* mask;   // [n, R]
+  int32_t* out;          // [n, R]
+  int R, C;
+  int staged;            // 1: the costs are staged in shared memory
+  int first_block;       // the block of this problem's first matrix
+};
+
+struct Batch {
+  Problem prob[kMaxProblems];
+  int count;
+};
+
+// Bytes of shared memory before the staged costs (kernels.lsa_plan repeats
+// this): the slots, u (fp64) and the row mask per row, p and way (int32)
+// per padded column, rounded up to 16.
+__host__ __device__ constexpr int state_bytes(int R, int C) {
+  return (kSlotBytes + 8 * R + 8 * (C + R + 1) + R + 15) / 16 * 16;
+}
+
+// The cost as the plain version reads it, but +0 for -0: the two compare
+// equal, and with no -0 among the costs no -0 arises in the duals or the
+// reduced costs either (x - y and x + y give -0 only from a -0), so the
+// argmin's keys need no sign fix.
+__device__ __forceinline__ float sanitised(float c) {
   if (isnan(c)) c = kClip;
-  c = fminf(fmaxf(c, -kClip), kClip);
-  return static_cast<double>(c);
+  return fminf(fmaxf(c, -kClip), kClip) + 0.0f;
+}
+
+// A barrier of this block's first `threads` threads: the warps past a
+// small matrix's columns have returned.
+__device__ __forceinline__ void sync_active(int threads) {
+  asm volatile("bar.sync 1, %0;" ::"r"(threads) : "memory");
 }
 
 // (value, index) of the smaller, the lower index on equal values.
@@ -69,129 +123,245 @@ __device__ __forceinline__ void take_min(double& val, int& idx, double v2, int i
   }
 }
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+// An unsigned key in the order of the doubles (no NaN and no -0 here, see
+// sanitised), so equal values have equal keys and the column decides.
+__device__ __forceinline__ unsigned long long order_key(double x) {
+  const long long b = __double_as_longlong(x);
+  return b < 0 ? ~static_cast<unsigned long long>(b)
+               : static_cast<unsigned long long>(b) | (1ull << 63);
+}
 
-__global__ void __launch_bounds__(kThreads)
-lsa_assign_kernel(const float* __restrict__ cost, const uint8_t* __restrict__ mask,
-                  int32_t* __restrict__ out, int R, int C) {
+__device__ __forceinline__ double key_value(unsigned long long k) {
+  return __longlong_as_double(static_cast<long long>((k >> 63) ? k & ~(1ull << 63) : ~k));
+}
+
+__device__ __forceinline__ void warp_argmin_redux(unsigned long long& key, int& idx) {
+  const unsigned hi = static_cast<unsigned>(key >> 32), lo = static_cast<unsigned>(key);
+  const unsigned mh = __reduce_min_sync(0xffffffffu, hi);
+  const unsigned ml = __reduce_min_sync(0xffffffffu, hi == mh ? lo : 0xffffffffu);
+  const unsigned mi = __reduce_min_sync(0xffffffffu, hi == mh && lo == ml
+                                                         ? static_cast<unsigned>(idx)
+                                                         : 0xffffffffu);
+  key = (static_cast<unsigned long long>(mh) << 32) | ml;
+  idx = static_cast<int>(mi);
+}
+
+// The block's (delta, column): the argmin of every thread's (best, bj), in
+// every thread, after one barrier.
+__device__ __forceinline__ int block_argmin(double best, int bj, unsigned long long* key,
+                                            int* col, int lane, int warp, int threads,
+                                            double& delta) {
+  unsigned long long k = order_key(best);
+  warp_argmin_redux(k, bj);
+  if (lane == 0) {
+    key[warp] = k;
+    col[warp] = bj;
+  }
+  sync_active(threads);
+  k = key[lane];  // the slots of absent warps hold the largest key
+  bj = col[lane];
+  warp_argmin_redux(k, bj);
+  delta = key_value(k);
+  return bj;
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+// Copy a matrix's R*C costs into shared memory, every copy in flight at
+// once, then sanitise what this thread copied (invalid rows: PAD).
+__device__ void stage_costs(float* cs, const float* cg, const uint8_t* mb, int R, int C,
+                            int tid, int threads) {
+  const int total = R * C;
+  const int step = (reinterpret_cast<uintptr_t>(cg) % 16 == 0 && total % 4 == 0) ? 4 : 1;
+  for (int e = step * tid; e < total; e += step * threads) {
+    if (step == 4) {
+      cp_async16(cs + e, cg + e);
+    } else {
+      cp_async4(cs + e, cg + e);
+    }
+  }
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  for (int e0 = step * tid; e0 < total; e0 += step * threads) {
+    for (int e = e0; e < e0 + step; ++e) cs[e] = mb[e / C] ? sanitised(cs[e]) : kPad;
+  }
+}
+
+template <int K>
+__global__ void __launch_bounds__(kMaxThreads, 1) lsa_assign_kernel(const Batch batch) {
+  Problem P = batch.prob[0];
+#pragma unroll
+  for (int q = 1; q < kMaxProblems; ++q) {
+    if (q < batch.count && static_cast<int>(blockIdx.x) >= batch.prob[q].first_block) {
+      P = batch.prob[q];
+    }
+  }
+  const int R = P.R, C = P.C, N = C + R + 1;
+  const int threads = ((N + K - 1) / K + 31) / 32 * 32;  // this matrix's threads
+  const int tid = threadIdx.x;
+  if (tid >= threads) return;
+  const int lane = tid & 31, warp = tid >> 5;
+  const long long m = static_cast<long long>(blockIdx.x) - P.first_block;
+  const float* cg = P.cost + m * R * C;
+  const uint8_t* mb = P.mask + m * R;
+  int32_t* ob = P.out + m * R;
+
   extern __shared__ __align__(16) unsigned char smem[];
-  const int N = C + R + 1;
-  double* v = reinterpret_cast<double*>(smem);
-  double* minv = v + N;
-  double* u = minv + N;
+  unsigned long long* slot_key = reinterpret_cast<unsigned long long*>(smem);  // [2][32]
+  int* slot_col = reinterpret_cast<int*>(smem + 2 * 32 * 8);                    // [2][32]
+  double* u = reinterpret_cast<double*>(smem + kSlotBytes);
   int* p = reinterpret_cast<int*>(u + R);  // row held by column j, -1 free
   int* way = p + N;
-  unsigned char* used = reinterpret_cast<unsigned char*>(way + N);
-  __shared__ double red_val[kWarps];
-  __shared__ int red_idx[kWarps];
+  uint8_t* valid = reinterpret_cast<uint8_t*>(way + N);
+  float* cs = reinterpret_cast<float*>(smem + state_bytes(R, C));
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const float* cb = cost + static_cast<long long>(blockIdx.x) * R * C;
-  const uint8_t* mb = mask + static_cast<long long>(blockIdx.x) * R;
-  int32_t* ob = out + static_cast<long long>(blockIdx.x) * R;
-
-  for (int j = tid; j < N; j += kThreads) {
-    v[j] = 0.0;
-    p[j] = -1;
+  for (int r = tid; r < R; r += threads) {
+    u[r] = 0.0;
+    valid[r] = mb[r] != 0;
   }
-  for (int r = tid; r < R; r += kThreads) u[r] = 0.0;
-  __syncthreads();
+  for (int j = tid; j < N; j += threads) p[j] = j == 0 ? 0 : -1;  // row 0 enters at column 0
+  for (int w = tid; w < 2 * 32; w += threads) {
+    slot_key[w] = ~0ull;
+    slot_col[w] = INT_MAX;
+  }
+  if (P.staged) stage_costs(cs, cg, mb, R, C, tid, threads);
+  sync_active(threads);
 
+  // registers of column tid + k*threads: v, minv, and the row it holds
+  // with that row's u, which only this thread changes while the row's
+  // column stays put (until the augmenting walk)
+  double v[K], minv[K], urow[K];
+  int prow[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) v[k] = 0.0;
   for (int i = 0; i < R; ++i) {
-    for (int j = tid; j < N; j += kThreads) {
-      minv[j] = CUDART_INF;
-      used[j] = 0;
-      way[j] = 0;
+    unsigned used = 0;  // bit k: column tid + k*threads
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int j = tid + k * threads;
+      minv[k] = CUDART_INF;
+      prow[k] = j < N ? p[j] : -1;
+      urow[k] = prow[k] >= 0 ? u[prow[k]] : 0.0;
     }
-    if (tid == 0) p[0] = i;  // row i enters through the sentinel column
-    __syncthreads();
-    int j0 = 0;
+    int j0 = 0, i0 = i, buf = 0;
     while (true) {
-      const int i0 = p[j0];
-      const bool valid = mb[i0] != 0;
-      const float* row = cb + static_cast<long long>(i0) * C;
       const double ui0 = u[i0];
+      const float* srow = cs + i0 * C;
+      const float* grow = cg + static_cast<long long>(i0) * C;
+      const bool vi0 = P.staged || valid[i0];
       double best = CUDART_INF;
-      int bj = N;
-      for (int j = tid; j < N; j += kThreads) {
-        if (j == j0) used[j] = 1;
-        if (!used[j]) {
-          const double cur = padded_cost(row, valid, j, C) - ui0 - v[j];
-          if (cur < minv[j]) {
-            minv[j] = cur;
+      int bj = INT_MAX;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int j = tid + k * threads;
+        if (j == j0) used |= 1u << k;
+        if (j < N && !((used >> k) & 1u)) {
+          double c = kPad;  // a virtual column, or an invalid row read from global memory
+          if (j <= C) {
+            if (P.staged) {
+              c = srow[j - 1];
+            } else if (vi0) {
+              c = sanitised(__ldg(grow + j - 1));
+            }
+          }
+          const double cur = c - ui0 - v[k];
+          if (cur < minv[k]) {
+            minv[k] = cur;
             way[j] = j0;
           }
-          take_min(best, bj, minv[j], j);
+          take_min(best, bj, minv[k], j);
         }
       }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        take_min(best, bj, __shfl_xor_sync(0xffffffffu, best, o),
-                 __shfl_xor_sync(0xffffffffu, bj, o));
-      }
-      if (lane == 0) {
-        red_val[tid >> 5] = best;
-        red_idx[tid >> 5] = bj;
-      }
-      __syncthreads();
-      best = red_val[0];
-      bj = red_idx[0];
-#pragma unroll
-      for (int w = 1; w < kWarps; ++w) take_min(best, bj, red_val[w], red_idx[w]);
-      const double delta = best;
+      double delta;
+      j0 = block_argmin(best, bj, slot_key + 32 * buf, slot_col + 32 * buf, lane, warp, threads,
+                        delta);
+      i0 = p[j0];
       // dual update: the used columns' rows gain delta, the used columns
       // lose it, the others' tentative distances shrink by it
-      for (int j = tid; j < N; j += kThreads) {
-        if (used[j]) {
-          const int r = p[j];
-          if (r >= 0) u[r] += delta;
-          v[j] -= delta;
-        } else {
-          minv[j] -= delta;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (tid + k * threads < N) {
+          if ((used >> k) & 1u) {
+            urow[k] += delta;
+            u[prow[k]] = urow[k];
+            v[k] -= delta;
+          } else {
+            minv[k] -= delta;
+          }
         }
       }
-      __syncthreads();
-      j0 = bj;
-      if (p[j0] == -1) break;
+      buf ^= 1;
+      if (i0 == -1) break;
     }
+    sync_active(threads);  // every thread is done reading p for row i
     if (tid == 0) {  // augment: walk the alternating path back to the sentinel
       while (j0 != 0) {
         const int j1 = way[j0];
         p[j0] = p[j1];
         j0 = j1;
       }
-      p[0] = -1;
+      p[0] = i + 1;  // the next row enters through the sentinel column
     }
-    __syncthreads();
+    sync_active(threads);
   }
 
-  for (int r = tid; r < R; r += kThreads) ob[r] = -1;
-  __syncthreads();
-  for (int j = 1 + tid; j < N; j += kThreads) {
+  // every row holds exactly one of the columns 1..N-1
+  for (int j = 1 + tid; j < N; j += threads) {
     const int r = p[j];
-    if (r >= 0) ob[r] = (mb[r] != 0 && j - 1 < C) ? j - 1 : -1;
+    if (r >= 0) ob[r] = (valid[r] && j - 1 < C) ? j - 1 : -1;
   }
+}
+
+template <int K>
+int launch(const Batch& batch, int blocks, int threads, int smem, cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        lsa_assign_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  lsa_assign_kernel<K><<<blocks, threads, smem, stream>>>(batch);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// cost [n, R, C] fp32, mask [n, R] bool (one byte each), out [n, R] int32,
-// all contiguous. Returns cudaGetLastError() after the launch.
-extern "C" int hipad_lsa_assign(const void* cost, const void* mask, void* out, int n, int R,
-                                int C, void* stream) {
-  if (n <= 0 || R <= 0) return 0;
-  const int N = C + R + 1;
-  const size_t smem = static_cast<size_t>(N) * (2 * sizeof(double) + 2 * sizeof(int) + 1) +
-                      static_cast<size_t>(R) * sizeof(double);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        lsa_assign_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+// `count` problems (1..8), each cost[q] [n[q], R[q], C[q]] fp32, mask[q]
+// [n[q], R[q]] bool (one byte each), out[q] [n[q], R[q]] int32, all
+// contiguous and on one device, n and R above 0; staged[q] 1 where the
+// costs fit shared memory. One launch of cols columns a thread (1, 2 or 4),
+// `threads` threads and `smem` bytes of dynamic shared memory a block
+// (kernels.lsa_plan). The arrays are host memory, read here. Returns
+// cudaGetLastError() after the launch.
+extern "C" int hipad_lsa_assign(int count, const void* const* cost, const void* const* mask,
+                                void* const* out, const int* n, const int* R, const int* C,
+                                const int* staged, int cols, int threads, int smem,
+                                void* stream) {
+  if (count < 1 || count > kMaxProblems) return static_cast<int>(cudaErrorInvalidValue);
+  Batch batch{};
+  batch.count = count;
+  int blocks = 0;
+  for (int q = 0; q < count; ++q) {
+    batch.prob[q] = Problem{static_cast<const float*>(cost[q]),
+                            static_cast<const uint8_t*>(mask[q]), static_cast<int32_t*>(out[q]),
+                            R[q], C[q], staged[q], blocks};
+    blocks += n[q];
   }
-  lsa_assign_kernel<<<n, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(cost), static_cast<const uint8_t*>(mask),
-      static_cast<int32_t*>(out), R, C);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (cols) {
+    case 1: return launch<1>(batch, blocks, threads, smem, st);
+    case 2: return launch<2>(batch, blocks, threads, smem, st);
+    case 4: return launch<4>(batch, blocks, threads, smem, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -6,8 +6,9 @@ L1, the winner-take-all motion loss on the last det matching, and the
 multi-granularity plan alignment losses, each summed over decoder layers.
 GT comes padded with masks; masked selection is a multiply by the mask.
 
-The Hungarian matchings of all layers of both tasks are solved on the host
-from ONE device-to-host copy (``targets.matching.assign_many``). The
+The Hungarian matchings of all layers of both tasks are solved together by
+``targets.matching.assign_many``: on the card in one K3 launch, with nothing
+copied to the host and no wait for it (on the CPU, its plain version). The
 auxiliary plan regularisers (``losses/plan_aux.py``) weigh 0 in both
 shipped configs (``PLAN_BOUND_W``, ``PLAN_COL_W``, ``PLAN_DIR_W``); set one
 above 0 to add its loss.
@@ -283,7 +284,8 @@ def compute_losses(cfg, outputs: Dict, data: Dict,
                    depth_preds: Optional[Sequence[torch.Tensor]] = None,
                    group=None) -> Dict[str, torch.Tensor]:
     """Every task loss the config turns on. The det and map matchings of all
-    layers are solved together, from one copy to the host. ``group`` (a
+    layers are solved together, in one ``assign_many`` call (det's columns
+    first). ``group`` (a
     ``torch.distributed`` process group, or None) makes each loss this
     process's share of the loss of the group's global batch
     (``losses/common.py``)."""

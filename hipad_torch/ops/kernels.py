@@ -188,9 +188,9 @@ def _bind(lib: ctypes.CDLL, seconds: float, log: str) -> Library:
     lib.hipad_patch_sample_bwd.argtypes = ([p] * 8 + [i] * 10 + [p] * 5 + [i] + [p] * 4
                                            + [i] * 6 + [p])
     lib.hipad_patch_sample_bwd.restype = i
-    lib.hipad_row_gather.argtypes = [p] * 3 + [i] * 3 + [p]
+    lib.hipad_row_gather.argtypes = [p] * 3 + [i] * 4 + [p]
     lib.hipad_row_gather.restype = i
-    lib.hipad_lsa_assign.argtypes = [p] * 3 + [i] * 3 + [p]
+    lib.hipad_lsa_assign.argtypes = [i] + [p] * 7 + [i] * 3 + [p]
     lib.hipad_lsa_assign.restype = i
     return Library(lib=lib, path=BUILD_DIR / LIB_NAME, build_seconds=seconds, log=log)
 
@@ -493,11 +493,21 @@ class PatchSampleBwd:
         return dmaps, dx, dy, dw
 
 
+_GATHER_ROWS_PER_BLOCK = 4  # csrc/row_gather.cu: two warps a row, 256 threads a block
+
+
+def row_gather_geometry(n_out: int) -> tuple:
+    """P2-P4's launch for ``n_out`` output rows -> ``(rows a block,
+    blocks)``: two warps a row, four rows a block, the last block ragged."""
+    return _GATHER_ROWS_PER_BLOCK, -(-n_out // _GATHER_ROWS_PER_BLOCK)
+
+
 class RowGather:
     """P2-P4 (``csrc/row_gather.cu``): ``out[i] = table[idx[stride * i]]``
     over whole rows; replaces one of the Pallas gather probes of
     ``tools/probe_pallas_gather.py``. One instance per probe, each with its
-    table dtype, its stride and its own launch count. Plain version:
+    table dtype, its stride and its own launch count; its grid comes from
+    :func:`row_gather_geometry`. Plain version:
     ``ops/gather.py:gather_rows_plain``."""
 
     def __init__(self, name: str, probe: str, dtype: torch.dtype, stride: int):
@@ -524,21 +534,50 @@ class RowGather:
         lib = library().lib
         with torch.cuda.device(dev):
             err = lib.hipad_row_gather(table.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                                       n_out, self.stride, row_bytes, _stream(dev))
+                                       n_out, self.stride, row_bytes,
+                                       row_gather_geometry(n_out)[1], _stream(dev))
         _launched(k, err)
         self.launches += 1
         return out
 
 
-def lsa_smem_bytes(R: int, C: int) -> int:
-    """Shared memory of one block of K3: v, minv (fp64), p, way (int32) and
-    used (one byte) per padded column, u (fp64) per row."""
-    return (C + R + 1) * (2 * 8 + 2 * 4 + 1) + R * 8
+# K3 (csrc/lsa_assign.cu): columns a thread, threads a block at most, the
+# problems one launch takes, and the shared memory ahead of the state
+# (kSlotBytes: two buffers of 32 warps' 8-byte key and 4-byte column)
+_LSA_COLS = (1, 2, 4)
+_LSA_MAX_THREADS = 1024
+_LSA_MAX_PROBLEMS = 8
+_LSA_SLOT_BYTES = 2 * 32 * 12
+
+
+def lsa_plan(R: int, C: int) -> tuple:
+    """K3's block for one ``[R, C]`` matrix (``N = C + R + 1`` padded
+    columns) -> ``(cols, threads, staged, smem)``: ``cols`` columns a thread
+    (1, 2 or 4: the fewest that ``N`` fits at 1024 threads), ``threads`` a
+    multiple of 32, ``staged`` whether the costs go to shared memory, and the
+    block's bytes of dynamic shared memory: the state (``u`` and the row
+    mask per row, ``p`` and ``way`` per column, the reduction slots), plus
+    ``R*C*4`` bytes of costs where that fits the 232,448 a block may take;
+    else the kernel reads the costs from global memory. Raises
+    ``ValueError`` where ``N`` needs more than 4 columns a thread or the
+    state alone does not fit."""
+    N = C + R + 1
+    fits = [c for c in _LSA_COLS if N <= c * _LSA_MAX_THREADS]
+    _check(bool(fits), f"K3: [{R}, {C}] has {N} padded columns, more than "
+                       f"{_LSA_COLS[-1]} a thread of {_LSA_MAX_THREADS}")
+    cols = fits[0]
+    threads = -(-N // (32 * cols)) * 32
+    state = (_LSA_SLOT_BYTES + 8 * R + 8 * N + R + 15) // 16 * 16
+    _check(state <= _SMEM_PER_BLOCK, f"K3: [{R}, {C}] needs {state} B of shared memory for "
+                                     f"its state, more than {_SMEM_PER_BLOCK}")
+    staged = state + 4 * R * C <= _SMEM_PER_BLOCK
+    return cols, threads, staged, state + 4 * R * C if staged else state
 
 
 class LsaAssign:
     """K3 (``csrc/lsa_assign.cu``): the exact assignment of every ``[R, C]``
-    cost matrix of a batch, one block per matrix; replaces
+    cost matrix of up to 8 problems in one launch, one block per matrix
+    (:func:`lsa_plan` sizes each block); replaces
     ``hipad_tpu/targets/matching.py:_lsa_single`` with ``assign``. Plain
     version: ``targets/matching.py:assign_plain``, equal bit for bit."""
 
@@ -547,31 +586,45 @@ class LsaAssign:
     def __init__(self):
         self.launches = 0
 
-    def __call__(self, cost: torch.Tensor, row_mask: torch.Tensor) -> torch.Tensor:
-        """cost ``[n, R, C]`` fp32, row_mask ``[n, R]`` bool -> col4row
-        ``[n, R]`` int32 on the card: the column of each row, -1 for an
-        invalid row and for a row left without a real column (more valid
-        rows than columns)."""
+    def __call__(self, problems: Sequence) -> list:
+        """``(cost [n, R, C] fp32, row_mask [n, R] bool)`` pairs, contiguous,
+        on one card -> col4row ``[n, R]`` int32 of each, on the card: the
+        column of each row, -1 for an invalid row and for a row left without
+        a real column (more valid rows than columns). One launch for all
+        (none where every problem is empty)."""
         k = "K3 lsa_assign"
-        _check(cost.is_cuda, f"{k}: takes CUDA tensors, got {cost.device}")
-        dev = cost.device
-        _check(cost.dim() == 3 and row_mask.shape == cost.shape[:2],
-               f"{k}: cost must be [n, R, C] and row_mask [n, R], got {tuple(cost.shape)}, "
-               f"{tuple(row_mask.shape)}")
-        n, R, C = cost.shape
-        _check(lsa_smem_bytes(R, C) <= _SMEM_PER_BLOCK,
-               f"{k}: [{R}, {C}] needs {lsa_smem_bytes(R, C)} B of shared memory a block, "
-               f"more than {_SMEM_PER_BLOCK}")
-        _check_tensor("cost", cost, dev, (torch.float32,), k, align=4)
-        _check_tensor("row_mask", row_mask, dev, (torch.bool,), k, align=1)
-        out = torch.empty(n, R, dtype=torch.int32, device=dev)
+        _check(0 < len(problems) <= _LSA_MAX_PROBLEMS,
+               f"{k}: takes 1..{_LSA_MAX_PROBLEMS} problems a launch, got {len(problems)}")
+        _check(problems[0][0].is_cuda, f"{k}: takes CUDA tensors, got {problems[0][0].device}")
+        dev = problems[0][0].device
+        outs, todo = [], []
+        for cost, row_mask in problems:
+            _check(cost.dim() == 3 and row_mask.shape == cost.shape[:2],
+                   f"{k}: cost must be [n, R, C] and row_mask [n, R], got "
+                   f"{tuple(cost.shape)}, {tuple(row_mask.shape)}")
+            _check_tensor("cost", cost, dev, (torch.float32,), k, align=4)
+            _check_tensor("row_mask", row_mask, dev, (torch.bool,), k, align=1)
+            n, R, C = cost.shape
+            out = torch.empty(n, R, dtype=torch.int32, device=dev)
+            outs.append(out)
+            if n * R:
+                todo.append((cost, row_mask, out, lsa_plan(R, C)))
+        if not todo:
+            return outs
+        cols = max(plan[0] for *_, plan in todo)
+        threads = max(-(-(c.shape[1] + c.shape[2] + 1) // (32 * cols)) * 32 for c, *_ in todo)
+        smem = max(plan[3] for *_, plan in todo)
+        q = len(todo)
+        ptrs = [(ctypes.c_void_p * q)(*(t[i].data_ptr() for t in todo)) for i in range(3)]
+        ints = [(ctypes.c_int * q)(*v) for v in (
+            [t[0].shape[0] for t in todo], [t[0].shape[1] for t in todo],
+            [t[0].shape[2] for t in todo], [int(t[3][2]) for t in todo])]
         lib = library().lib
         with torch.cuda.device(dev):
-            err = lib.hipad_lsa_assign(cost.data_ptr(), row_mask.data_ptr(), out.data_ptr(),
-                                       n, R, C, _stream(dev))
+            err = lib.hipad_lsa_assign(q, *ptrs, *ints, cols, threads, smem, _stream(dev))
         _launched(k, err)
         self.launches += 1
-        return out
+        return outs
 
 
 coarse_sample = CoarseSample()

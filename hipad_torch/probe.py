@@ -33,6 +33,7 @@ FAMILIES = (  # first match wins, on the lower-cased kernel name
     ("K2 patch_sample", ("patch_sample_kernel",)),
     ("K2-bwd patch_sample_bwd", ("patch_sample_bwd",)),
     ("P2-P4 row_gather", ("row_gather",)),
+    ("K3 lsa_assign", ("lsa_assign",)),
     ("convolution", ("conv", "cudnn", "implicit", "winograd", "dgrad", "wgrad", "fprop")),
     ("GEMM", ("gemm", "cutlass", "xmma", "sm90", "cublas")),
     ("attention", ("attention", "fmha", "flash")),

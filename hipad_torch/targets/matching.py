@@ -9,16 +9,18 @@ problem feasible for any row count, and the exact shortest-augmenting-path
 Jonker-Volgenant algorithm adds the rows one by one. Rows assigned to a
 virtual column come back as -1, as do invalid rows.
 
-A CUDA tensor goes to K3 (``ops/kernels.py:lsa_assign``, one block per
-matrix): the result stays on the card and nothing waits for the host. A CPU
-tensor takes :func:`assign_plain`, the same algorithm step by step in
-torch. Both keep the duals in float64 and take the lowest column on ties,
-so they give the same ``col4row`` bit for bit on the same costs.
+CUDA tensors go to K3 (``ops/kernels.py:lsa_assign``, one block per
+matrix): :func:`assign_many` hands every problem of a training step (the
+det and the map matrices of all layers) to one launch, the result stays on
+the card and nothing waits for the host. CPU tensors take
+:func:`assign_plain`, the same algorithm step by step in torch. Both keep
+the duals in float64 and take the lowest column on ties, so they give the
+same ``col4row`` bit for bit on the same costs.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -38,14 +40,17 @@ def _padded(cost: torch.Tensor, row_mask: torch.Tensor) -> torch.Tensor:
                      dim=-1).double()
 
 
-def _lsa_single(cost_p: torch.Tensor) -> torch.Tensor:
+def _lsa_single(cost_p: torch.Tensor, iterations: Optional[list] = None) -> torch.Tensor:
     """One padded ``[R, N]`` float64 matrix (column 0 the sentinel) -> ``p
-    [N]``: the row held by each column, -1 where free."""
+    [N]``: the row held by each column, -1 where free. ``iterations``, a
+    list, gets the number of inner iterations (argmins) the solve took
+    appended: the length of K3's serial chain on this matrix."""
     R, N = cost_p.shape
     inf = torch.tensor(float("inf"), dtype=torch.float64, device=cost_p.device)
     u = torch.zeros(R, dtype=torch.float64, device=cost_p.device)
     v = torch.zeros(N, dtype=torch.float64, device=cost_p.device)
     p = torch.full((N,), -1, dtype=torch.long, device=cost_p.device)
+    count = 0
     for i in range(R):
         p[0] = i  # row i enters through the sentinel column
         minv = inf.expand(N).clone()
@@ -53,6 +58,7 @@ def _lsa_single(cost_p: torch.Tensor) -> torch.Tensor:
         way = torch.zeros(N, dtype=torch.long, device=cost_p.device)
         j0 = 0
         while True:
+            count += 1
             used[j0] = True
             i0 = int(p[j0])
             cur = torch.where(used, inf, cost_p[i0] - u[i0] - v)  # reduced costs
@@ -76,18 +82,22 @@ def _lsa_single(cost_p: torch.Tensor) -> torch.Tensor:
             p[j0] = p[j1]
             j0 = j1
         p[0] = -1
+    if iterations is not None:
+        iterations.append(count)
     return p
 
 
-def assign_plain(cost: torch.Tensor, row_mask: torch.Tensor) -> torch.Tensor:
+def assign_plain(cost: torch.Tensor, row_mask: torch.Tensor,
+                 iterations: Optional[list] = None) -> torch.Tensor:
     """K3's plain version: cost ``[n, R, C]``, row_mask ``[n, R]`` bool ->
-    col4row ``[n, R]`` int32 on ``cost``'s device, one matrix at a time."""
+    col4row ``[n, R]`` int32 on ``cost``'s device, one matrix at a time;
+    ``iterations`` as in :func:`_lsa_single`, one count per matrix."""
     n, R, C = cost.shape
     cost_p = _padded(cost, row_mask)
     out = torch.full((n, R), -1, dtype=torch.int32, device=cost.device)
     cols = torch.arange(-1, C + R, device=cost.device)
     for b in range(n):
-        p = _lsa_single(cost_p[b])
+        p = _lsa_single(cost_p[b], iterations)
         held = p >= 0
         out[b, p[held]] = cols[held].int()
     return torch.where(row_mask.bool() & (out < C), out, -1).int()
@@ -97,17 +107,23 @@ def assign(cost: torch.Tensor, row_mask: torch.Tensor) -> torch.Tensor:
     """cost ``[n, R, C]``, row_mask ``[n, R]`` -> col4row ``[n, R]`` int32 on
     ``cost``'s device: the column of each row; -1 for invalid rows and for
     valid rows left without a real column (more valid rows than ``C``)."""
-    if cost.is_cuda:
-        from ..ops import kernels
-
-        return kernels.lsa_assign(cost.detach().float().contiguous(),
-                                  row_mask.bool().contiguous())
-    if cost.device.type != "cpu":
-        raise ValueError(f"assign: takes CPU or CUDA tensors, got {cost.device}")
-    return assign_plain(cost, row_mask)
+    return assign_many([(cost, row_mask)])[0]
 
 
 def assign_many(problems: Sequence) -> List[torch.Tensor]:
     """Several ``(cost [n_i, R_i, C_i], row_mask [n_i, R_i])`` problems ->
-    their col4row tensors, one :func:`assign` each."""
-    return [assign(cost, mask) for cost, mask in problems]
+    their col4row tensors, in order: on the card in one K3 launch (the
+    kernel raises unless every problem lies on that card), on the CPU one
+    :func:`assign_plain` each."""
+    if not problems:
+        return []
+    if problems[0][0].is_cuda:
+        from ..ops import kernels
+
+        return kernels.lsa_assign([(c.detach().float().contiguous(), m.bool().contiguous())
+                                   for c, m in problems])
+    for cost, _ in problems:
+        if cost.device.type != "cpu":
+            raise ValueError(f"assign_many: takes problems all on the CPU or all on one card, "
+                             f"got {cost.device} after {problems[0][0].device}")
+    return [assign_plain(cost, mask) for cost, mask in problems]

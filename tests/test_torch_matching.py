@@ -25,6 +25,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 # the totals of two optimal assignments, summed in float64 from the same
 # fp32 costs in another order: |diff| <= TOTAL_RTOL * sum |assigned costs|
 TOTAL_RTOL = 1e-9
+BLOCK_SMEM = 232_448  # 227 KB, what one H100 block may opt in to
 
 
 def _sanitised(cost):
@@ -124,6 +125,67 @@ def test_stage2_step_shapes(kind, shape):
     _check_optimal(cost, mask, got)
 
 
+def test_assign_many_det_and_map_in_one_call_equals_jax_per_problem():
+    """A det-shaped and a map-shaped problem in one ``assign_many`` call (on
+    the card: one K3 launch) -> each problem's col4row, in order, equal to
+    JAX's ``assign`` on that problem alone."""
+    rng = np.random.default_rng(7)
+    problems = []
+    for shape in ((2, 32, 900), (2, 24, 100)):
+        cost = rng.uniform(0, 20, shape).astype(np.float32)
+        mask = rng.uniform(size=shape[:2]) < 0.6
+        problems.append((cost, mask))
+    got = tmatching.assign_many([(torch.from_numpy(c), torch.from_numpy(m))
+                                 for c, m in problems])
+    assert len(got) == 2
+    for (cost, mask), cols in zip(problems, got):
+        assert cols.dtype == torch.int32 and cols.shape == mask.shape
+        np.testing.assert_array_equal(cols.numpy(), np.asarray(
+            jmatching.assign(jnp.asarray(cost), jnp.asarray(mask))))
+        _check_optimal(cost, mask, cols.numpy())
+
+
+def test_plain_version_counts_inner_iterations():
+    """Counted by hand from the algorithm's steps. [[0, 1], [0, 5]]: row 0
+    takes column 0 in one iteration; row 1 reaches column 0 (reduced cost
+    0, held by row 0), then from row 0 the free column 1 (reduced cost 1):
+    two iterations, 3 in all, and the path moves row 0 to column 1.
+    [[0, 5], [5, 0]]: one iteration a row, 2 in all."""
+    cost = torch.tensor([[[0.0, 1.0], [0.0, 5.0]], [[0.0, 5.0], [5.0, 0.0]]])
+    mask = torch.ones(2, 2, dtype=torch.bool)
+    iterations = []
+    cols = tmatching.assign_plain(cost, mask, iterations)
+    assert iterations == [3, 2]
+    np.testing.assert_array_equal(cols.numpy(), [[1, 0], [0, 1]])
+    p = tmatching._lsa_single(tmatching._padded(cost, mask)[0])
+    assert p.tolist() == [-1, 1, 0, -1, -1]
+
+
+@pytest.mark.parametrize("shape, cols, threads, staged", [
+    ((32, 900), 1, 960, True),    # a stage-2 det matrix: 115,200 B of costs staged
+    ((24, 100), 1, 128, True),    # a stage-2 map matrix
+    ((64, 1000), 2, 544, False),  # 256,000 B of costs: read from global memory
+    ((40, 3000), 4, 768, False),  # 3,041 columns, four a thread, from global memory
+])
+def test_lsa_plan_stages_costs_where_they_fit(shape, cols, threads, staged):
+    R, C = shape
+    got = kernels.lsa_plan(R, C)
+    assert got[:3] == (cols, threads, staged)
+    state = (768 + 8 * R + 8 * (C + R + 1) + R + 15) // 16 * 16
+    assert got[3] == state + (4 * R * C if staged else 0)
+    assert got[3] <= BLOCK_SMEM
+    assert staged == (state + 4 * R * C <= BLOCK_SMEM)
+    assert (C + R + 1) <= cols * threads < (C + R + 1) + 32 * cols
+
+
+@pytest.mark.parametrize("shape", [(32, 5000), (2000, 2500)])
+def test_lsa_plan_refuses_what_a_block_cannot_hold(shape):
+    """More than 4,096 padded columns: four columns a thread of 1024 is the
+    most the kernel holds in registers."""
+    with pytest.raises(ValueError, match="K3"):
+        kernels.lsa_plan(*shape)
+
+
 def test_assign_on_the_cpu_takes_the_plain_route(monkeypatch):
     """A CPU tensor runs ``assign_plain``; K3 is never called for it, and
     ``assign_many`` solves each problem as ``assign`` does."""
@@ -144,7 +206,7 @@ def test_assign_on_the_cpu_takes_the_plain_route(monkeypatch):
     np.testing.assert_array_equal(a.numpy(), plain(torch.from_numpy(cost),
                                                    torch.from_numpy(mask)).numpy())
     with pytest.raises(ValueError, match="CUDA"):
-        kernels.lsa_assign(torch.from_numpy(cost), torch.from_numpy(mask))
+        kernels.lsa_assign([(torch.from_numpy(cost), torch.from_numpy(mask))])
 
 
 _NO_SCIPY = r"""

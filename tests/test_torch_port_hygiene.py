@@ -253,7 +253,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         kernels.patch_sample_bwd_lk(fine, cam, x, x, w, torch.zeros(1, 3, 32), 2, lvl)
     with pytest.raises(ValueError, match="CUDA"):
-        kernels.lsa_assign(torch.zeros(2, 3, 5), torch.ones(2, 3, dtype=torch.bool))
+        kernels.lsa_assign([(torch.zeros(2, 3, 5), torch.ones(2, 3, dtype=torch.bool))])
     for k in kernels.KERNELS:
         assert k.launches == 0, k.name
 

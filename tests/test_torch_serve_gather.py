@@ -79,3 +79,17 @@ def test_row_gather_wrappers_refuse_cpu_tensors():
         with pytest.raises(ValueError, match="CUDA"):
             k(table.to(k.dtype), idx)
         assert k.launches == 0
+
+
+@pytest.mark.parametrize("n_out", [
+    8192,  # P2 and P3: every one of the probe tool's 8,192 indices
+    1024,  # P4: every 8th index
+    1023,  # a ragged count: the last block holds 3 rows
+    1,
+])
+def test_row_gather_geometry(n_out):
+    """Two warps a row, four rows a 256-thread block: the blocks cover the
+    output rows once, the last one possibly ragged."""
+    rows, blocks = kernels.row_gather_geometry(n_out)
+    assert rows == 4
+    assert (blocks - 1) * rows < n_out <= blocks * rows
