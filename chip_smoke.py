@@ -21,7 +21,14 @@ Phases, one printed line (or a few) each; any failure exits non-zero:
      of the plain version at the same shapes, every gradient output, fp32
      and bf16 maps, coordinates on the hat weights' kinks included; K1-bwd
      also at bs=2 and on ``stage2_r101_2x()``'s 44x80 and 88x160 maps (the
-     latter, 14,080 cells, in bands of rows); timed the same way;
+     latter, 14,080 cells, in bands of rows); timed the same way. Each
+     wrapper's two routes (``ops/kernels.py``: the atomic design and the
+     deterministic one, K1-bwd's ``owned`` and K2-bwd's ``pull``) each
+     against the plain version and launched twice on the same inputs: the
+     deterministic route's outputs held equal bit for bit, the atomic
+     route's difference printed; then the wrapper's call under
+     ``torch.use_deterministic_algorithms(True)``, twice, held bit for bit
+     to the deterministic route; the two routes timed in turns;
   4. the serving path: ``stage2()`` with seeded random weights, bs=1, 2
      warm-up and 8 timed frames with the banks chained and a new image per
      frame, in fp32 and then under bf16 autocast; finite outputs; every
@@ -33,15 +40,23 @@ Phases, one printed line (or a few) each; any failure exits non-zero:
      random weights, dropout 0.1 and GridMask on, 2 warm-up and 4 timed
      steps with the banks chained, fp32 and then bf16 autocast; finite
      losses and gradient norm, step time, peak memory, every kernel's launch
-     count against the op program's; then 3 rounds of one fp32 and one bf16
-     step in turn, which compare the two on the host clock; then step 0
-     without dropout and GridMask on the card and on the CPU plain path,
-     loss by loss;
+     count against the op program's; then, under torch's deterministic
+     flag, one fp32 and one bf16 step twice from one saved state
+     (parameters, AdamW state, banks, generator): losses, every gradient
+     leaf, the parameters after the update and the new banks held equal bit
+     for bit, and the step with the flag off and on in turns with one
+     profiled step of each (device busy, launches); then 2 rounds of one
+     fp32 and one bf16 step in turn, which compare the two on the host
+     clock; then step 0 without dropout and GridMask on the card and on the
+     CPU plain path, loss by loss;
   5f. (right after 5) K3, the batched assignment solver: the det and map
      cost matrices of a stage-2 fp32 step at bs=1 and bs=2, and seeded
      costs with exact ties, NaN and +-inf entries, an all-invalid matrix,
      more valid rows than columns and a matrix too large to stage in
-     shared memory; K3 against ``assign_plain`` on the
+     shared memory; 9 problems of mixed shapes in one ``assign_many`` call
+     (more than the 8 a launch takes, register and strip kernels), and
+     ``[8, 64, 6000]`` (N = 6,065) and ``[1, 32, 20000]`` (N = 20,033), past
+     the registers' 2,048 padded columns; K3 against ``assign_plain`` on the
      card, bit for bit, and against scipy on the host (totals), with each
      matrix's inner iterations; one K3 launch per step; K3's device time
      per step and per iteration of the longest chain, time per call, the
@@ -50,10 +65,11 @@ Phases, one printed line (or a few) each; any failure exits non-zero:
      (``torch.cuda.set_sync_debug_mode("warn")``), none of them the
      matcher's, and ``assign_many`` under ``set_sync_debug_mode("error")``;
   5b. the training CLI, ``python -m hipad_torch.tools.train`` (its
-     ``main``), at stage 2 in bf16: 4 optimizer steps of 2 micro-batches
-     unbroken (launches per step, step time, peak memory), then ``--resume``
-     from its step-2 checkpoint: the restored state bit for bit, step 3's
-     metrics and update against the unbroken run's;
+     ``main``, which runs under torch's deterministic flag), at stage 2 in
+     bf16: 4 optimizer steps of 2 micro-batches unbroken (launches per step,
+     step time, peak memory), then ``--resume`` from its step-2 checkpoint:
+     the restored state, the parameters after step 3 and steps 3 and 4's
+     metrics held bit for bit against the unbroken run's;
   5e. (right after 5b, on its step-4 checkpoint) the open-loop eval over a
      ``tools/make_synthetic_val.py`` split with seeded 1600x900 JPEGs: the
      runner in fp32, streaming (frame 0 against a direct forward +
@@ -75,8 +91,10 @@ Phases, one printed line (or a few) each; any failure exits non-zero:
      and on the CPU plain path with every selection recorded (keypoints,
      sorts, top-k): a pick that differs is printed with its score gap and
      fails above the tolerance, and the outputs are held key by key where
-     the selections agree; then stage2 and serving frames in turns
-     (informational);
+     the selections agree; under torch's deterministic flag, frames 0 and 1
+     (fp32) and frame 0 (bf16) each twice from the same banks, held bit for
+     bit; then
+     stage2 and serving frames in turns (informational);
   7. the agent: ``AgentCore(stage2_serving_det())`` in fp32 over the fake
      simulator's 6 x 1600x900 uint8 cameras, JPEG q20 and the native
      resize/crop, 2 warm-up and 10 ticks; every control finite and clipped;
@@ -108,7 +126,8 @@ Phases, one printed line (or a few) each; any failure exits non-zero:
      expansion (5,781 joint queries) and C = ``stage2(sampler="reference")``,
      each kernel's launches against the op program and frame 0 against the
      CPU plain path as in phase 6 (B and C at 2 decoder layers there); and
-     one training step of A against the CPU, loss by loss.
+     one training step of A against the CPU, loss by loss, on the card with
+     torch's deterministic flag off and on (K2-bwd-lk's two routes).
 
 The line before the last is a JSON object with one entry per kernel (its
 device time and its time per call, its plain version's, the bound the card's
@@ -116,7 +135,10 @@ peaks set for the bytes and operations these inputs need, the nearest
 library call's, its launches on its own path and on every path that ran
 it); the last is ``{"ok": true,
 "device": {...}}``. There is no CPU fallback: without a CUDA device the
-script exits non-zero and prints no result.
+script exits non-zero and prints no result. ``CUBLAS_WORKSPACE_CONFIG`` is
+set to ``:4096:8`` (where the environment has no value) before torch is
+imported: torch's deterministic flag needs it before the first cuBLAS
+handle.
 
 With ``--against DIR`` (a checkout of another commit, such as the parent
 unpacked by ``git archive``) it builds that checkout's kernels into its own
@@ -131,6 +153,7 @@ training step, by call site.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -139,6 +162,10 @@ import statistics
 import subprocess
 import sys
 import time
+
+# torch's deterministic flag, which [kernels-bwd], [train], [train-cli] and
+# [serve] turn on, needs this before the first cuBLAS handle exists
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
@@ -655,6 +682,115 @@ def _check_grads(what, got, ref, bf16_first, tag="[kernels-bwd]"):
     return worst
 
 
+@contextlib.contextmanager
+def flag(on: bool):
+    """torch's deterministic flag (``torch.use_deterministic_algorithms``) set
+    to ``on`` inside, its earlier state restored after."""
+    import torch
+
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(on)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+
+
+def _bits_equal(a, b) -> bool:
+    """Two outputs (tensors, or tuples of tensors and lists of them) equal
+    bit for bit: same shapes, dtypes and values, NaN nowhere."""
+    import torch
+
+    ta, tb = _tensors(a), _tensors(b)
+    return len(ta) == len(tb) and all(x.dtype == y.dtype and torch.equal(x, y)
+                                      for x, y in zip(ta, tb))
+
+
+def _bwd_routes(tag, what, kernel, args, ref, bf16_first):
+    """Each route of a backward wrapper (``kernel.routes``) on ``args``: its
+    gradients against autograd of the plain version (``ref``) at
+    ``_check_grads``' tolerances, and a second launch on the same inputs,
+    held bit for bit for a route that adds no atomics and printed for an
+    atomic one; then the wrapper's own call under torch's deterministic
+    flag, twice: the route the flag selects, which must add no atomics, bit
+    for bit equal to itself and to that route's launch above (under the
+    flag ``torch.empty`` fills its memory with NaN, so an element the kernel
+    leaves unwritten shows) -> {the route's row in the kernel table: its
+    largest error}."""
+    import torch
+
+    worst, outs = {}, {}
+    for route in kernel.routes:
+        a = kernel.launch(route, *args)
+        b = kernel.launch(route, *args)
+        torch.cuda.synchronize()
+        worst[_row(kernel, route)] = _check_grads(f"{what} route {route.name}", a, ref,
+                                                  bf16_first, tag)
+        same = _bits_equal(a, b)
+        diff = max(float((x.float() - y.float()).abs().max())
+                   for x, y in zip(_tensors(a), _tensors(b)))
+        say(f"{tag} {what} route {route.name} ({'atomic' if route.atomic else 'deterministic'}):"
+            f" two launches on the same inputs {'equal bit for bit' if same else 'differ'} "
+            f"(largest difference {diff:.3e})")
+        if not same and not route.atomic:
+            fail(f"{what}: the {route.name} route's two launches differ")
+        outs[route.name] = a
+    with flag(True):
+        chosen = kernel.route()
+        a, b = kernel(*args), kernel(*args)
+    torch.cuda.synchronize()
+    ok = not chosen.atomic and _bits_equal(a, b) and _bits_equal(a, outs[chosen.name])
+    say(f"{tag} {what} under torch.use_deterministic_algorithms(True): route {chosen.name}, two "
+        f"calls equal bit for bit and equal to that route's launch above "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{what}: the route the deterministic flag selects ({chosen.name}) does not repeat "
+             f"itself bit for bit")
+    return worst
+
+
+def _row(kernel, route) -> str:
+    """The kernel table's row of a wrapper's route: the wrapper's own for its
+    first route, ``<wrapper>_<route>`` for another."""
+    return kernel.name if route == kernel.routes[0] else kernel.others[route.name].name
+
+
+def _route_times(tag, what, kernel, args, card):
+    """The device time of each of a wrapper's two routes on ``args``, in
+    turns (first, second, second, first; flag off, so no NaN fill), and its
+    time per call -> {route's row: (device ms, per-call ms)}; printed with
+    the second over the first."""
+    a, b = kernel.routes
+    fns = [lambda: kernel.launch(a, *args), lambda: kernel.launch(b, *args),
+           lambda: kernel.launch(b, *args), lambda: kernel.launch(a, *args)]
+    ms, call = _device_ms(fns), _timed(fns)
+    t = {_row(kernel, a): (min(ms[0], ms[3]), min(call[0], call[3])),
+         _row(kernel, b): (min(ms[1], ms[2]), min(call[1], call[2]))}
+    ta, tb = t[_row(kernel, a)][0], t[_row(kernel, b)][0]
+    say(f"{tag} {what} routes on {card}: {a.name} {ta:.4f} ms, {b.name} {tb:.4f} ms, "
+        f"{b.name} / {a.name} {tb / ta:.3f} ({QUEUED}, in turns {a.name}/{b.name}/{b.name}/"
+        f"{a.name}; the whole call of each route)")
+    return t
+
+
+def _route_recs(kernel, rec, errs, times):
+    """The kernel-table records of a wrapper's routes: ``rec`` (its first
+    route's, timed against the plain version and the library call) and, for
+    its other route, a record with that route's error and times and ``rec``'s
+    plain, library and bound (the same function on the same inputs)."""
+    out = {kernel.name: rec}
+    rec.err = max(rec.err, errs[kernel.name])
+    for route in kernel.routes[1:]:
+        name = _row(kernel, route)
+        r = out[name] = _Rec()
+        r.err = errs[name]
+        r.ms, r.per_call_ms = times[name]
+        r.plain_ms, r.library_ms = rec.plain_ms, rec.library_ms
+        r.bound_ms, r.bound_by = rec.bound_ms, rec.bound_by
+    return out
+
+
 def phase_kernels_bwd(cfg, card: str):
     """K1-bwd and K2-bwd at phase 3's shapes against torch.autograd.grad of
     the plain versions, fp32 and bf16 maps; K1-bwd also at bs=2 and on the
@@ -671,6 +807,7 @@ def phase_kernels_bwd(cfg, card: str):
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     k1, k2 = _Rec(), _Rec()
+    k1_errs, k1_times, k2_errs, k2_times = {}, {}, {}, {}
 
     f32, bf16 = torch.float32, torch.bfloat16
     r101 = stage2_r101_2x()
@@ -685,15 +822,24 @@ def phase_kernels_bwd(cfg, card: str):
             leaves = [t.detach().clone().requires_grad_() for t in (fm, px, py, wg)]
             out = sampling.interp_matmul_camsum(*leaves, bs, cams)
             ref = torch.autograd.grad(out, leaves, gout, retain_graph=True)
-            got = kernels.interp_sample_camsum_bwd(fm, px, py, wg, gout, bs, cams)
+            args = (fm, px, py, wg, gout, bs, cams)
+            got = kernels.interp_sample_camsum_bwd(*args)
             torch.cuda.synchronize()
             if got[0].dtype != dtype:
                 fail(f"K1-bwd returned d fm in {got[0].dtype} for a {dtype} map")
             band = smem // (w * ct * 4)
-            k1.err = max(k1.err, _check_grads(
-                f"K1-bwd level {lvl} ({h}x{w}) {str(dtype)[6:]} bs={bs} (tiles of {ct} "
-                f"channels in {-(-h // band)} band(s) of {band} rows, clusters of {s}, "
-                f"{smem} B)", got, ref, dtype == bf16))
+            what = (f"K1-bwd level {lvl} ({h}x{w}) {str(dtype)[6:]} bs={bs} (tiles of {ct} "
+                    f"channels in {-(-h // band)} band(s) of {band} rows, clusters of {s}, "
+                    f"{smem} B)")
+            for name, err in _bwd_routes("[kernels-bwd]", what, kernels.interp_sample_camsum_bwd,
+                                         args, ref, dtype == bf16).items():
+                k1_errs[name] = max(k1_errs.get(name, 0.0), err)
+            if timed:  # both coarse levels: one main-path call of K1-bwd's routes
+                for name, (ms, call) in _route_times("[kernels-bwd]", what,
+                                                     kernels.interp_sample_camsum_bwd, args,
+                                                     card).items():
+                    t0 = k1_times.get(name, (0.0, 0.0))
+                    k1_times[name] = (t0[0] + ms, t0[1] + call)
             if timed or (c is r101 and lvl == 1):
                 grid = torch.stack([(px + 0.5) / w * 2 - 1, (py + 0.5) / h * 2 - 1], -1)[:, None]
                 lib_in = [fm.permute(0, 3, 1, 2).detach().clone().requires_grad_(),
@@ -736,11 +882,15 @@ def phase_kernels_bwd(cfg, card: str):
         out = sampling.patch_sample_plain(lm, cam, lx, ly, lw, cam_k)
         ref = torch.autograd.grad(out, lm + [lx, ly, lw], gout, retain_graph=True)
         ref = (ref[:len(lm)],) + tuple(ref[len(lm):])
-        dmaps, dx, dy, dw = kernels.patch_sample_bwd(maps, cam, x, y, w, gout, cam_k)
+        args = (maps, cam, x, y, w, gout, cam_k)
+        dmaps, dx, dy, dw = kernels.patch_sample_bwd(*args)
         torch.cuda.synchronize()
-        k2.err = max(k2.err, _check_grads(
-            f"K2-bwd {str(dtype)[6:]}", ([d.to(dtype) for d in dmaps], dx, dy, dw), ref, bf16))
+        what = f"K2-bwd {str(dtype)[6:]}"
+        for name, err in _bwd_routes("[kernels-bwd]", what, kernels.patch_sample_bwd, args, ref,
+                                     bf16).items():
+            k2_errs[name] = max(k2_errs.get(name, 0.0), err)
         if not bf16:
+            k2_times = _route_times("[kernels-bwd]", what, kernels.patch_sample_bwd, args, card)
             cams = maps[0].shape[1]
             lib_in = [[m.reshape(bs * cams, *m.shape[2:]).permute(0, 3, 1, 2).detach().clone()
                        .requires_grad_(),
@@ -763,7 +913,8 @@ def phase_kernels_bwd(cfg, card: str):
                 f"{k2.library_ms:.4f} ms ({TIMES}); per call {k2.per_call_ms:.4f} ms; bound "
                 f"{k2.bound_ms:.4f} ms ({k2.bound_by}: {taps} taps, {map_bytes / 1e6:.2f} of "
                 f"{_nbytes(*maps) / 1e6:.2f} MB of maps read)")
-    return {"interp_sample_camsum_bwd": k1, "patch_sample_bwd": k2}
+    return {**_route_recs(kernels.interp_sample_camsum_bwd, k1, k1_errs, k1_times),
+            **_route_recs(kernels.patch_sample_bwd, k2, k2_errs, k2_times)}
 
 
 def _flat(tree, prefix=""):
@@ -878,18 +1029,23 @@ def phase_slice(cfg, card: str):
     return launches
 
 
-def _launch_plan(cfg):
+def _launch_plan(cfg, deterministic=False):
     """(deformable calls per forward, launches of each kernel per call): K1
     once for all coarse levels, K2 once for all fine levels, K1-bwd once per
     coarse level and K2-bwd once; with ``sampler_level_k`` below the number
-    of fine levels, K2's and K2-bwd's level-k variants in their place."""
+    of fine levels, K2's and K2-bwd's level-k variants in their place. With
+    ``deterministic`` (torch's flag on) the backward wrappers' deterministic
+    routes, K1-bwd's ``owned`` and K2-bwd's ``pull``, in place of their
+    atomic ones."""
     n_deform = cfg.operation_order.count("deformable") * len(cfg.query_select)
     coarse = len([l for l in cfg.sampler_matmul_levels if l < cfg.num_levels])
     fine = [l for l in range(cfg.num_levels) if l not in cfg.sampler_matmul_levels]
     lk = "_lk" if cfg.sampler_level_k is not None and 0 < cfg.sampler_level_k < len(fine) else ""
     k2 = int(bool(fine))
+    owned, pull = ("_owned", "_pull") if deterministic else ("", "")
     return n_deform, {"coarse_sample": int(coarse > 0), f"patch_sample{lk}": k2,
-                      "interp_sample_camsum_bwd": coarse, f"patch_sample_bwd{lk}": k2}
+                      f"interp_sample_camsum_bwd{owned}": coarse,
+                      f"patch_sample_bwd{lk}{pull}": k2}
 
 
 # Card step vs CPU step (plain path), stage 2 at drop_out 0 without GridMask:
@@ -904,7 +1060,7 @@ WARMUP_STEPS, TIMED_STEPS = 2, 4
 # every decoder layer together (targets/matching.py: assign_many)
 MATCH_LAUNCHES = 1
 # rounds of one fp32 and one bf16 step in turn, after the warm-up steps
-PAIRED_ROUNDS = 3
+PAIRED_ROUNDS = 2
 
 
 def phase_train(card: str):
@@ -989,6 +1145,8 @@ def phase_train(card: str):
 
     launches = run_steps(torch.float32)
     run_steps(torch.bfloat16)
+    for dtype in (torch.float32, torch.bfloat16):
+        _step_repeats(card, cfg, dtype, build, step_batch, timed=dtype == torch.float32)
 
     # The host clock of one card varies over a call and from machine to
     # machine, so fp32 and bf16 are compared step by step: two models
@@ -1066,6 +1224,118 @@ def phase_train(card: str):
     return launches
 
 
+def _step_state(model, opt, banks, gen):
+    """A copy on the card of what a step starts from: parameters and
+    buffers, AdamW's state, the banks and the generator's state."""
+    from hipad_torch.models.instance_bank import map_banks
+
+    return ({k: v.detach().clone() for k, v in model.state_dict().items()}, opt.state_dict(),
+            map_banks(lambda t: t.detach().clone(), banks), gen.get_state())
+
+
+def _step_outputs(model, metrics):
+    """Copies of a step's losses, every gradient leaf and the parameters
+    after its update."""
+    return ({k: v.detach().clone() for k, v in metrics.items()},
+            {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None},
+            {n: p.detach().clone() for n, p in model.named_parameters()})
+
+
+# [train]'s steps in turns with the deterministic flag off and on
+FLAG_ROUNDS = 2
+
+
+def _step_repeats(card, cfg, dtype, build, step_batch, timed):
+    """Under torch's deterministic flag, one stage-2 step (the config's
+    dropout and GridMask) from a saved state (parameters, AdamW's state,
+    the banks and the generator after a first step), run twice: its losses,
+    every gradient leaf and the parameters after the update held equal bit
+    for bit. With ``timed``, then the step with the flag off and on in turns
+    (host clock), and one profiled step of each: device busy and launches."""
+    import torch
+
+    from hipad_torch.models.instance_bank import map_banks
+    from hipad_torch.train.train_step import make_train_step
+
+    dev = torch.device(DEVICE)
+    name = str(dtype)[6:]
+    model, opt = build(cfg, dev)
+    step = make_train_step(cfg, model, opt, dtype=dtype)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    with flag(True):
+        banks, _ = step(None, step_batch(0), gen)
+        saved = _step_state(model, opt, banks, gen)
+        runs = []
+        for _ in range(2):
+            params, opt_state, bank_copy, gen_state = saved
+            model.load_state_dict(params)
+            opt.load_state_dict(opt_state)
+            gen.set_state(gen_state)
+            new_banks, metrics = step(map_banks(torch.clone, bank_copy), step_batch(1), gen)
+            runs.append(_step_outputs(model, metrics) + (new_banks,))
+    torch.cuda.synchronize()
+    (m0, g0, p0, b0), (m1, g1, p1, b1) = runs
+    parts = {"losses": (m0, m1), "gradient leaves": (g0, g1), "parameters after the update":
+             (p0, p1)}
+    for what, (a, b) in parts.items():
+        differ = [k for k in a if not torch.equal(a[k], b[k])]
+        if differ or set(a) != set(b):
+            fail(f"[train] {name} step under the deterministic flag, twice from one state: "
+                 f"{len(differ)} of {len(a)} {what} differ ({differ[:5]})")
+    if not _bits_equal(tuple(_tensors_of_banks(b0)), tuple(_tensors_of_banks(b1))):
+        fail(f"[train] {name} step under the deterministic flag: the new banks differ")
+    say(f"[train] stage2 bs=1 {name} step under torch.use_deterministic_algorithms(True), twice "
+        f"from one saved state (parameters, AdamW state, banks, generator) on {card}: "
+        f"{len(m0)} losses, {len(g0)} gradient leaves, {len(p0)} parameters after the update "
+        f"and the new banks equal bit for bit (total_loss {float(m0['total_loss']):.6f}, "
+        f"grad_norm {float(m0['grad_norm']):.6f})")
+    del runs, saved, m0, g0, p0, m1, g1, p1
+    if not timed:
+        del model, opt, step
+        torch.cuda.empty_cache()
+        return
+
+    ms = {False: [], True: []}
+    for i in range(FLAG_ROUNDS * 2):
+        on = (i % 4) in (1, 2)  # off, on, on, off, ...
+        with flag(on):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            banks, _ = step(banks, step_batch(2 + i), gen)
+            torch.cuda.synchronize()
+            ms[on].append((time.perf_counter() - t) * 1e3)
+    prof, names = {}, {False: {}, True: {}}
+    for on in (False, True):
+        with flag(on):
+            prof[on] = _profiled(lambda: step(banks, step_batch(9), gen), names[on])
+    say(f"[train] {name} step with the flag off / on in turns ({FLAG_ROUNDS} rounds each, host "
+        f"clock, sync per step): off median {statistics.median(ms[False]):.2f} ms "
+        f"[{min(ms[False]):.2f}, {max(ms[False]):.2f}], on {statistics.median(ms[True]):.2f} ms "
+        f"[{min(ms[True]):.2f}, {max(ms[True]):.2f}]; one profiled step each (torch.profiler): "
+        f"off {prof[False][0]} launches, {prof[False][1]:.2f} ms device busy; on "
+        f"{prof[True][0]} launches, {prof[True][1]:.2f} ms device busy")
+    rows = sorted(((names[True].get(k, [0, 0.0])[1] - names[False].get(k, [0, 0.0])[1],
+                    names[True].get(k, [0])[0] - names[False].get(k, [0])[0], k)
+                   for k in set(names[False]) | set(names[True])),
+                  key=lambda r: -abs(r[0]))
+    say(f"[train] {name} the flag's largest changes by kernel (on - off, the profiled steps): "
+        + "; ".join(f"{dn:+d} launches {dms:+.3f} ms {k[:90]}" for dms, dn, k in rows[:12]))
+    fills = [r for r in rows if "FillFunctor" in r[2]]
+    say(f"[train] {name} of them the fills of torch.empty under the flag "
+        f"(torch.utils.deterministic.fill_uninitialized_memory): "
+        f"{sum(r[1] for r in fills):+d} launches, {sum(r[0] for r in fills):+.3f} ms")
+    del model, opt, step
+    torch.cuda.empty_cache()
+
+
+def _tensors_of_banks(banks):
+    import dataclasses
+
+    return [getattr(getattr(banks, n), f.name) for n in ("det", "ego", "plan")
+            for f in dataclasses.fields(getattr(banks, n))]
+
+
 # K3 against scipy: the totals of two optimal assignments summed in float64
 # from the same fp32 costs in other orders: |diff| <= MATCH_TOTAL_RTOL * sum
 # |assigned costs|.
@@ -1093,6 +1363,44 @@ def _planted_problems(g, dev):
         mask[0] = False
         mask[-1] = True
         out.append((f"planted [{n}, {R}, {C}]", cost, mask))
+    return out
+
+
+# [match]'s calls past K3's old limits: 9 problems of mixed shapes in one
+# assign_many call (the register kernel's and the strip kernel's, more than
+# the 8 a launch takes), and two matrices past 4,096 padded columns
+MIXED_SHAPES = ((2, 5, 7), (1, 32, 900), (3, 12, 40), (1, 40, 3000), (2, 24, 100),
+                (1, 64, 1000), (2, 8, 2100), (1, 3, 3), (2, 16, 700))
+LARGE_SHAPES = ((8, 64, 6000), (1, 32, 20000))
+
+
+def _large_problems(g, dev):
+    """-> (what, problems) pairs: the 9 mixed problems (integer costs with
+    exact ties, NaN and +-inf planted, 70% of rows valid), then one call
+    each of ``[8, 64, 6000]`` (N = 6,065: the strip kernel, its state in
+    shared memory; continuous costs) and ``[1, 32, 20000]`` (N = 20,033:
+    its state in global memory; integer costs)."""
+    import torch
+
+    def problem(shape, ties):
+        n, R, C = shape
+        if ties:
+            cost = torch.randint(0, 6, shape, generator=g, device=dev).float()
+            flat = cost.view(-1)
+            idx = torch.randint(0, flat.numel(), (3, 4), generator=g, device=dev)
+            flat[idx[0]] = float("nan")
+            flat[idx[1]] = float("inf")
+            flat[idx[2]] = -float("inf")
+        else:
+            cost = torch.rand(shape, generator=g, device=dev) * 20
+        mask = torch.rand(n, R, generator=g, device=dev) < 0.7
+        mask[-1, 0] = True
+        return cost, mask
+
+    out = [(f"{len(MIXED_SHAPES)} mixed problems in one call",
+            [problem(sh, True) for sh in MIXED_SHAPES])]
+    for sh, ties in zip(LARGE_SHAPES, (False, True)):
+        out.append((f"{list(sh)} (N = {sh[1] + sh[2] + 1})", [problem(sh, ties)]))
     return out
 
 
@@ -1294,7 +1602,7 @@ def phase_match(card: str):
     cases += _planted_problems(torch.Generator(device=dev).manual_seed(SEED), dev)
     refs, iterations = {}, {}
     for what, cost, mask in cases:
-        cols, threads, staged, smem = kernels.lsa_plan(*cost.shape[1:])
+        cols, threads, staged, smem, _ = kernels.lsa_plan(*cost.shape[1:])
         iterations[what] = []
         refs[what] = ref = matching.assign_plain(cost, mask, iterations[what])
         got = kernels.lsa_assign([(cost, mask)])[0]
@@ -1317,6 +1625,32 @@ def phase_match(card: str):
             fail(f"[match] bs={bs}: the step's problems in one launch differ from assign_plain")
         say(f"[match] bs={bs}: det and map in one launch (assign_many) equal assign_plain "
             f"bit for bit")
+
+    # past K3's old limits: more than 8 problems a call, more than 4,096
+    # padded columns a matrix
+    for what, probs in _large_problems(torch.Generator(device=dev).manual_seed(SEED + 3), dev):
+        before = kernels.lsa_assign.launches
+        got = matching.assign_many(probs)
+        torch.cuda.synchronize()
+        n_launch = kernels.lsa_assign.launches - before
+        its, worst = [], 0.0
+        for i, ((cost, mask), cols) in enumerate(zip(probs, got)):
+            ref = matching.assign_plain(cost, mask, its)
+            if not torch.equal(cols, ref):
+                fail(f"[match] {what} problem {i} {tuple(cost.shape)}: K3 differs from "
+                     f"assign_plain in {int((cols != ref).sum())} rows")
+            worst = max(worst, _check_against_scipy(f"{what} problem {i}", cost, mask, ref))
+        plans = [kernels.lsa_plan(*c.shape[1:]) for c, _ in probs]
+        ms = min(_device_ms([lambda p=probs: matching.assign_many(p)] * 2))
+        say(f"[match] {what}: {', '.join(str(tuple(c.shape)) for c, _ in probs)}; K3 equals "
+            f"assign_plain bit for bit on each, in the caller's order; totals vs scipy rel gap "
+            f"<= {worst:.2e} (tol {MATCH_TOTAL_RTOL:g}); {n_launch} K3 launch(es) (plans "
+            f"{', '.join(f'cols={q.cols} smem={q.smem} scratch={q.scratch}' for q in plans)}); "
+            f"inner iterations per matrix min/median/max {_iters(its)}; {ms:.4f} ms on {card} "
+            f"({QUEUED}, the better of two)")
+        if n_launch != len(kernels.lsa_launches(plans)):
+            fail(f"[match] {what}: {n_launch} K3 launches, expected "
+                 f"{len(kernels.lsa_launches(plans))}")
 
     # times at bs=1: the step's one launch
     probs = seen[1]
@@ -1359,6 +1693,27 @@ def phase_match(card: str):
         f"{K3_OPS_PER_COLUMN} per padded column of each iteration, over "
         f"{FP64_FLOP_PER_S / 1e12:g} TFLOP/s)")
 
+    # the register kernel against the strip kernel on the step's problems
+    # (kernels.lsa_plan sends matrices to the strips above 2,048 columns)
+    plan = kernels.lsa_plan
+
+    def strips(R, C):
+        state = (9 * R + 25 * (C + R + 1) + 15) // 16 * 16
+        return kernels.LsaPlan(0, 1024, False, 768 + state, 0)
+
+    kernels.lsa_plan = strips
+    try:
+        got = matching.assign_many(probs)
+        if not all(torch.equal(g_, refs[k]) for g_, k in zip(got, keys)):
+            fail("[match] the strip kernel differs from assign_plain on the step's problems")
+        strip_ms = _device_ms([k3(probs), k3(probs)])
+    finally:
+        kernels.lsa_plan = plan
+    reg_ms = _device_ms([k3(probs)])[0]
+    say(f"[match] the step's problems (bs=1) through the strip kernel, forced: "
+        f"{min(strip_ms):.4f} ms against the register kernel's {reg_ms:.4f} ms on {card} "
+        f"({QUEUED}); bit for bit with assign_plain")
+
     sites = count_step_syncs("ours:", step, batches[1], card)
     mine = [s for s in sites if "targets/matching.py" in s or "ops/kernels.py" in s]
     if mine:
@@ -1376,15 +1731,6 @@ def phase_match(card: str):
     return {"lsa_assign": rec}
 
 CLI_STEPS, CLI_ACCUM, CLI_RESUME_AT = 4, 2, 2
-# parameters after the first step past --resume against the unbroken run's:
-# |update_resumed - update_unbroken| <= CLI_UPDATE_RTOL * |update_unbroken|,
-# norms over every parameter, update = parameters after the step - before.
-# Both start from bit-equal state; only the backward kernels' reduction
-# order differs. A moment or count that did not come back moves this step's
-# AdamW update by half its norm or more (zero moments: about 0.64 * sign(g)
-# per element; count 0 for 2: the bias corrections change m-hat by 2.7x and
-# v-hat by 3x), so the bound is ten times under the smallest such fault.
-CLI_UPDATE_RTOL = 5e-2
 
 
 def _kernel_counts():
@@ -1429,20 +1775,18 @@ def _train_state(model, opt, banks, gen):
 def phase_train_cli(card: str):
     """``python -m hipad_torch.tools.train`` (its ``main``, in this process)
     at stage-2 width on the card, bf16 autocast (the CLI's compute dtype),
-    global batch 1 with 2 micro-batches per step. The unbroken run of 4
-    steps gives the launches per optimizer step, step time and peak memory;
-    then ``--resume`` from the unbroken run's own step-2 checkpoint runs
-    steps 3 and 4 in another work dir. Held, in this process: the state the
-    resume restored (parameters, buffers, AdamW's moments and count, banks,
-    generator) equals the unbroken run's state at step 2 bit for bit; step
-    3's metrics equal the unbroken run's within phase 5's card-against-CPU
-    step tolerance; the parameters after step 3 follow the unbroken run's
-    update within CLI_UPDATE_RTOL. Step 4's metrics are printed, not held:
-    the backward kernels' reductions change order from run to run, the
-    update turns that into parameter differences, and near-tied Hungarian
-    matches then flip. The CPU test ``tests/test_torch_train_cli.py`` holds
-    resume bit for bit. -> (the unbroken run's launches, its work dir, whose
-    step-4 checkpoint ``[eval]`` evaluates)."""
+    global batch 1 with 2 micro-batches per step; the CLI runs under torch's
+    deterministic flag, so the run repeats itself bit for bit. The unbroken
+    run of 4 steps gives the launches per optimizer step, step time and
+    peak memory; then ``--resume`` from the unbroken run's own step-2
+    checkpoint runs steps 3 and 4 in another work dir. Held, in this
+    process, bit for bit: the state the resume restored (parameters,
+    buffers, AdamW's moments and count, banks, generator) against the
+    unbroken run's state at step 2; the parameters after step 3 against
+    the unbroken run's; and steps 3 and 4's metrics (every loss,
+    ``total_loss``, ``grad_norm``) against the unbroken run's. ->
+    (the unbroken run's launches, its work dir, whose step-4 checkpoint
+    ``[eval]`` evaluates)."""
     import shutil
 
     import torch
@@ -1509,7 +1853,7 @@ def phase_train_cli(card: str):
            if not math.isfinite(v)]
     if bad:
         fail(f"train-cli: non-finite {bad}")
-    n_deform, per_call = _launch_plan(stage2())
+    n_deform, per_call = _launch_plan(stage2(), deterministic=True)  # the CLI sets the flag
     for name, per in per_call.items():
         want = CLI_STEPS * CLI_ACCUM * n_deform * per
         say(f"[train-cli] {name}: {launches[name]} launches over {CLI_STEPS} optimizer steps = "
@@ -1541,39 +1885,28 @@ def phase_train_cli(card: str):
         f"({len(got['mu'])} tensors each), count {got['count']}, {len(got['banks'])} bank "
         f"tensors ({CLI_ACCUM} bank slices), the generator's state")
 
-    def compare(what, got, ref, hold):
-        worst, at = 0.0, ""
-        for k, r in ref.items():
-            rtol, atol = (GRAD_NORM_RTOL, 0.0) if k == "grad_norm" else (TRAIN_RTOL, TRAIN_ATOL)
-            err, tol = abs(got[k] - r), rtol * abs(r) + atol
-            if err / tol >= worst:
-                worst, at = err / tol, k
-            if hold and not err <= tol:
-                fail(f"train-cli: {what} {k} {got[k]:.6f} against the unbroken run's {r:.6f} "
-                     f"(tol {tol:.3e})")
-        say(f"[train-cli] {what} against the unbroken run: largest error / phase 5's "
-            f"tolerance {worst:.3f} ({at}); total_loss {got['total_loss']:.6f} against "
-            f"{ref['total_loss']:.6f}{'' if hold else ' (after an update: not held)'}")
-
-    i = CLI_RESUME_AT
-    compare(f"step {i + 1}, the first after --resume", rest["metrics"][0], whole["metrics"][i],
-            True)
-    # the update of that step, from the bit-equal parameters of step 2
     if len(kept.get("after", [])) != 2:
         fail(f"train-cli: AdamW's count reached {CLI_RESUME_AT + 1} in "
              f"{len(kept.get('after', []))} of the two runs")
     if not torch.equal(got["params"], saved["params"]):
         fail("train-cli: the restored parameters, flat, differ from the unbroken run's")
-    d_ref, d_res = (a.cpu() - saved["params"] for a in kept["after"])
-    rel = float((d_res - d_ref).norm() / d_ref.norm())
-    say(f"[train-cli] parameters after step {i + 1}: |update after --resume - unbroken update| "
-        f"= {rel:.3e} of |unbroken update| {float(d_ref.norm()):.4e} (tol {CLI_UPDATE_RTOL:g}); "
-        f"largest element difference {float((d_res - d_ref).abs().max()):.3e}, largest update "
-        f"element {float(d_ref.abs().max()):.3e} {'ok' if rel <= CLI_UPDATE_RTOL else 'FAIL'}")
-    if not rel <= CLI_UPDATE_RTOL:
-        fail(f"train-cli: the update of the first step after --resume differs from the unbroken "
-             f"run's by {rel:.3e} of its norm")
-    compare(f"step {i + 2} after --resume", rest["metrics"][1], whole["metrics"][i + 1], False)
+    after = [a.cpu() for a in kept["after"]]
+    if not torch.equal(*after):
+        fail(f"train-cli: the parameters after step {CLI_RESUME_AT + 1} differ from the "
+             f"unbroken run's in {int((after[0] != after[1]).sum())} elements (largest "
+             f"{float((after[0] - after[1]).abs().max()):.3e})")
+    say(f"[train-cli] parameters after step {CLI_RESUME_AT + 1}, the first after --resume: "
+        f"{after[0].numel()} values equal to the unbroken run's bit for bit (update norm "
+        f"{float((after[0] - saved['params']).norm()):.4e})")
+    for i, (a, b) in enumerate(zip(rest["metrics"], whole["metrics"][CLI_RESUME_AT:])):
+        differ = [k for k in b if a.get(k) != b[k]]
+        if differ or set(a) != set(b):
+            fail(f"train-cli: step {CLI_RESUME_AT + 1 + i} after --resume differs from the "
+                 f"unbroken run's in {differ[:5]}: " + ", ".join(
+                     f"{k} {a.get(k)!r} against {b[k]!r}" for k in differ[:3]))
+        say(f"[train-cli] step {CLI_RESUME_AT + 1 + i} after --resume equals the unbroken run's "
+            f"bit for bit: {len(b)} metrics (total_loss {b['total_loss']!r}, grad_norm "
+            f"{b['grad_norm']!r})")
     kept.clear()
     shutil.rmtree(f"{work}/resumed", ignore_errors=True)
     torch.cuda.empty_cache()
@@ -1909,8 +2242,8 @@ def phase_eval(card: str, ckpt: str):
         fail(f"eval: loader training: non-finite {bad}, {len(res['metrics'])} steps, "
              f"{len(res['evals'])} evals")
     frames = LOADER_STEPS + LOADER_EVAL_FRAMES  # forwards: one per step, one per eval frame
-    for name, per in per_call.items():
-        want = (frames if not name.endswith("_bwd") else LOADER_STEPS) * n_deform * per
+    for name, per in _launch_plan(cfg, deterministic=True)[1].items():  # the CLI sets the flag
+        want = (frames if "_bwd" not in name else LOADER_STEPS) * n_deform * per
         if loader_launches[name] != want:
             fail(f"eval: loader training launched {name} {loader_launches[name]} times, "
                  f"expected {want}")
@@ -2287,6 +2620,27 @@ def phase_serving(card: str):
                 fail(f"serving: {kname} launched {counts[kname]} times, expected {want}")
         launches = launches or counts
 
+    # under torch's deterministic flag: frame 0 from cold banks and frame 1
+    # from frame 0's, each twice, bit for bit (forward only: K1 and K2 write
+    # each output once and need no other route)
+    with flag(True):
+        for dtype, n in ((torch.float32, 2), (torch.bfloat16, 1)):
+            banks0 = None
+            for i in range(n):
+                runs = [frame(model, dtype, i, banks0) for _ in range(2)]
+                (dec_a, banks_a), (dec_b, banks_b) = runs
+                keys = sorted(dec_a)
+                if not (_bits_equal(tuple(dec_a[k] for k in keys), tuple(dec_b[k] for k in keys))
+                        and _bits_equal(tuple(_tensors_of_banks(banks_a)),
+                                        tuple(_tensors_of_banks(banks_b)))):
+                    fail(f"[serve] {str(dtype)[6:]} frame {i} under the deterministic flag "
+                         f"differs between two runs from the same banks")
+                banks0 = banks_a
+            say(f"[serve] {str(dtype)[6:]} frame 0 (cold){' and 1 (on its banks)' if n > 1 else ''}"
+                f" under torch.use_deterministic_algorithms(True), each twice from the same "
+                f"banks: post-processed outputs ({len(keys)} arrays) and banks equal bit for bit")
+        del runs, banks0
+
     # frame 0 on the card, then on the CPU plain path with the card's picks
     _frame0_against_cpu("[serve]", cfg, model, *frame_inputs(0))
 
@@ -2379,6 +2733,7 @@ def _options_kernels(cfg, card: str):
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     fwd, bwd = _Rec(), _Rec()
+    bwd_errs, bwd_times = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         for renorm in (True, False):
             maps, cam, x, y, w, cam_k, lvl = _lk_inputs(cfg, g, dev, dtype, renorm)
@@ -2405,13 +2760,17 @@ def _options_kernels(cfg, card: str):
             out = sampling.patch_sample_plain(lm, cam, lx, ly, lw, cam_k, lvl)
             ref_g = torch.autograd.grad(out, lm + [lx, ly, lw], gout, retain_graph=True)
             ref_g = (ref_g[:len(lm)],) + tuple(ref_g[len(lm):])
-            dmaps, dx, dy, dw = kernels.patch_sample_bwd_lk(maps, cam, x, y, w, gout, cam_k, lvl)
+            args = (maps, cam, x, y, w, gout, cam_k, lvl)
+            dmaps, dx, dy, dw = kernels.patch_sample_bwd_lk(*args)
             torch.cuda.synchronize()
-            bwd.err = max(bwd.err, _check_grads(
-                f"K2-bwd-lk {what}", ([d.to(dtype) for d in dmaps], dx, dy, dw), ref_g,
-                dtype == torch.bfloat16, "[options]"))
+            for name, err in _bwd_routes("[options]", f"K2-bwd-lk {what}",
+                                         kernels.patch_sample_bwd_lk, args, ref_g,
+                                         dtype == torch.bfloat16).items():
+                bwd_errs[name] = max(bwd_errs.get(name, 0.0), err)
             if dtype != torch.float32:
                 continue
+            bwd_times = _route_times("[options]", f"K2-bwd-lk {what}",
+                                     kernels.patch_sample_bwd_lk, args, card)
             lib = _lk_grid_sample(maps, x, y, lvl)
             t = fwd.add_times(*_times([
                 lambda: sampling.patch_sample_plain(maps, cam, x, y, w, cam_k, lvl),
@@ -2445,7 +2804,8 @@ def _options_kernels(cfg, card: str):
                 f"({TIMES}); per call {bwd.per_call_ms:.4f} ms; bound {bwd.bound_ms:.4f} ms "
                 f"({bwd.bound_by}: {taps} taps, {map_bytes / 1e6:.2f} MB of maps read)")
             del out, lm, ref_g
-    return {"patch_sample_lk": fwd, "patch_sample_bwd_lk": bwd}
+    return {"patch_sample_lk": fwd,
+            **_route_recs(kernels.patch_sample_bwd_lk, bwd, bwd_errs, bwd_times)}
 
 
 def _options_reference_route(card: str):
@@ -2618,9 +2978,10 @@ def _options_train(card: str):
         return cols
 
     matching.assign_many = recording
-    results, card_calls, launches = [], None, None
+    results, card_calls, launches = [], None, []
     try:
-        for device in (dev, torch.device("cpu")):
+        # the card, the card under torch's deterministic flag, the CPU
+        for device, on in ((dev, False), (dev, True), (torch.device("cpu"), False)):
             t0 = time.perf_counter()
             model = HiPAD(cfg, device=device)
             model.load_state_dict(weights)
@@ -2629,13 +2990,16 @@ def _options_train(card: str):
                     m.attn_drop = 0.0
             step = make_train_step(cfg, model, AdamW(model.named_parameters()))
             _reset_counts()
-            with _Selections(card_calls, "[options] A's step", hold=False) as sel:
+            with flag(on), _Selections(None if on else card_calls, "[options] A's step",
+                                       hold=False) as sel:
                 _, metrics = step(None, {k: v.to(device) for k, v in batch.items()},
                                   torch.Generator(device=device))
-            card_calls = sel.calls
-            launches = launches or _kernel_counts()
+            if device.type == "cuda":
+                launches.append(_kernel_counts())
+                card_calls = card_calls or sel.calls
             results.append({k: float(v) for k, v in metrics.items()})
-            say(f"[options] A's training step (drop_out 0, no GridMask, fp32) on {device.type}: "
+            say(f"[options] A's training step (drop_out 0, no GridMask, fp32) on {device.type}"
+                f"{' under torch.use_deterministic_algorithms(True)' if on else ''}: "
                 f"{time.perf_counter() - t0:.1f} s, {len(sel.calls)} selections"
                 + (f", {sel.differ} ranks picked differently by the CPU, largest score gap "
                    f"{sel.worst:.3e} (the CPU took the card's picks; the losses are held)"
@@ -2643,25 +3007,29 @@ def _options_train(card: str):
             del model, step
     finally:
         matching.assign_many = assign_many
-    want = {k: n_deform * v for k, v in per_call.items()}
-    want["lsa_assign"] = MATCH_LAUNCHES
-    say("[options] A's step launches on the card: " + ", ".join(
-        f"{k} {launches[k]} (expected {v})" for k, v in want.items()))
-    for kname, n in launches.items():
-        if n != want.get(kname, 0) or (kname in want and n == 0):
-            fail(f"[options] step: {kname} launched {n} times, expected {want.get(kname, 0)}")
-    differ = [i for i, (a, b) in enumerate(zip(*solved)) if not torch.equal(a, b)]
+    for counts, on in zip(launches, (False, True)):
+        want = {k: n_deform * v for k, v in _launch_plan(cfg, deterministic=on)[1].items()}
+        want["lsa_assign"] = MATCH_LAUNCHES
+        say(f"[options] A's step launches on the card{' under the flag' if on else ''}: "
+            + ", ".join(f"{k} {counts[k]} (expected {v})" for k, v in want.items()))
+        for kname, n in counts.items():
+            if n != want.get(kname, 0) or (kname in want and n == 0):
+                fail(f"[options] step: {kname} launched {n} times, expected "
+                     f"{want.get(kname, 0)}")
+    differ = [i for i, (a, b) in enumerate(zip(solved[0], solved[2])) if not torch.equal(a, b)]
     if differ:
         say(f"[options] the Hungarian assignments differ between card and CPU in problem(s) "
             f"{differ} (0 = det, 1 = map, all layers stacked)")
-    card_m, cpu_m = results
-    for k in sorted(cpu_m):
-        rtol, atol = (GRAD_NORM_RTOL, 0.0) if k == "grad_norm" else (TRAIN_RTOL, TRAIN_ATOL)
-        err, tol = abs(card_m[k] - cpu_m[k]), rtol * abs(cpu_m[k]) + atol
-        say(f"[options] A's step card vs CPU {k}: card {card_m[k]:.6f} cpu {cpu_m[k]:.6f} "
-            f"abs_err {err:.3e} (tol {tol:.3e}) {'ok' if err <= tol else 'FAIL'}")
-        if not err <= tol:
-            fail(f"[options] card and CPU disagree on A's step {k}")
+    cpu_m = results[2]
+    for card_m, what in zip(results[:2], ("card", "card under the flag")):
+        for k in sorted(cpu_m):
+            rtol, atol = (GRAD_NORM_RTOL, 0.0) if k == "grad_norm" else (TRAIN_RTOL, TRAIN_ATOL)
+            err, tol = abs(card_m[k] - cpu_m[k]), rtol * abs(cpu_m[k]) + atol
+            say(f"[options] A's step {what} vs CPU {k}: card {card_m[k]:.6f} cpu "
+                f"{cpu_m[k]:.6f} abs_err {err:.3e} (tol {tol:.3e}) "
+                f"{'ok' if err <= tol else 'FAIL'}")
+            if not err <= tol:
+                fail(f"[options] {what} and CPU disagree on A's step {k}")
     torch.cuda.empty_cache()
     return launches
 
@@ -3118,9 +3486,10 @@ def _launch_counts(kernels_module):
     return {k.name: k.launches for k in kernels_module.KERNELS if k.launches}
 
 
-def _profiled(fn):
+def _profiled(fn, by_name=None):
     """(CUDA kernels launched, device busy ms) of one call of fn, by
-    torch.profiler."""
+    torch.profiler; ``by_name``, a dict, gets each kernel name's [launches,
+    device ms] added."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3131,6 +3500,10 @@ def _profiled(fn):
         fn()
         torch.cuda.synchronize()
     ks = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    for e in ks if by_name is not None else ():
+        n = by_name.setdefault(e.name, [0, 0.0])
+        n[0] += 1
+        n[1] += (e.time_range.end - e.time_range.start) / 1e3
     return len(ks), _merged_busy([(e.time_range.start, e.time_range.end) for e in ks]) / 1e3
 
 
@@ -3275,6 +3648,11 @@ def compare_paths(tree, card: str):
         f"over {len(a) + AGENT_WARMUP} ticks each")
 
 
+# the kernel table's rows whose design adds with float atomics (taken with
+# torch's deterministic flag off)
+ATOMIC_ROWS = ("interp_sample_camsum_bwd", "patch_sample_bwd", "patch_sample_bwd_lk")
+
+
 def main():
     import argparse
 
@@ -3346,6 +3724,13 @@ def main():
                                 "hipad_tpu/ops/sampling.py:530", "options_step"),
         "lsa_assign": ("hipad_torch/csrc/lsa_assign.cu", "hipad_tpu/targets/matching.py:36",
                        "step"),
+        # the deterministic routes beside the atomic ones, taken under torch's flag
+        "interp_sample_camsum_bwd_owned": ("hipad_torch/csrc/interp_sample_bwd.cu",
+                                           "hipad_tpu/ops/sampling.py:252", "train_cli"),
+        "patch_sample_bwd_pull": ("hipad_torch/csrc/patch_sample_bwd.cu",
+                                  "hipad_tpu/ops/sampling.py:649", "train_cli"),
+        "patch_sample_bwd_lk_pull": ("hipad_torch/csrc/patch_sample_bwd.cu",
+                                     "hipad_tpu/ops/sampling.py:649", "options_step_flag"),
     }
     paths = {
         "step": (step_launches, f"phase 5: {WARMUP_STEPS + TIMED_STEPS} chained stage-2 fp32 "
@@ -3372,7 +3757,9 @@ def main():
         "options_frame": (option_frames, f"phase 9: {WARMUP_FRAMES + TIMED_FRAMES} chained fp32 "
                                          "frames of stage2_serving with the level top-k, the "
                                          "attention masks and the per-point embeds (frame A)"),
-        "options_step": (option_step, "phase 9: one fp32 training step of frame A's config"),
+        "options_step": (option_step[0], "phase 9: one fp32 training step of frame A's config"),
+        "options_step_flag": (option_step[1], "phase 9: the same step under "
+                                              "torch.use_deterministic_algorithms(True)"),
     }
     rows = []
     for name, (src, rep, own) in sources.items():
@@ -3383,7 +3770,7 @@ def main():
                      "launches": by_path[own], "launches_of": paths[own][1],
                      "launches_by_path": by_path, "max_abs_err": k[name].err,
                      "ms": k[name].ms, "per_call_ms": k[name].per_call_ms,
-                     "plain_ms": k[name].plain_ms,
+                     "deterministic": name not in ATOMIC_ROWS, "plain_ms": k[name].plain_ms,
                      "bound_ms": k[name].bound_ms, "bound_by": k[name].bound_by,
                      "library_ms": k[name].library_ms})
     say(json.dumps({"kernels": rows}))

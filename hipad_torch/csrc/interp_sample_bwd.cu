@@ -28,11 +28,22 @@
 //    warp and store each once. They do not touch d fm.
 //  * Tile blocks: a cluster of S blocks owns one tile d fm[bc, :, :, c0:c0+Ct]
 //    (Ct channels of one group), each block a copy in shared memory. The
-//    blocks zero their copies, split the samples of batch b among their
-//    warps, and add wxy * wg * go of every tap with a non-zero weight into
-//    their copy by shared-memory atomics, lane = channel on consecutive words.
-//    Then each block sums one S-th of the tile over the cluster's copies
-//    (distributed shared memory) and writes it once, in the map's dtype.
+//    blocks zero their copies, split the samples of batch b among them (a
+//    fixed interleave by cluster rank), and add wxy * wg * go of every tap
+//    with a non-zero weight into their copy, lane = channel on consecutive
+//    words. Then each block sums one S-th of the tile over the cluster's
+//    copies in rank order (distributed shared memory) and writes it once,
+//    in the map's dtype. Two routes for the adds into a copy
+//    (ops/kernels.py: InterpSampleCamsumBwd picks one by
+//    torch.are_deterministic_algorithms_enabled()):
+//    - atomic: the block's samples are split among its 16 warps, which add
+//      by shared-memory atomics in whatever order they arrive, so the sum's
+//      rounding changes from run to run;
+//    - owned (deterministic): warp w owns the cells (y, x) with
+//      (y % 4) * 4 + x % 4 == w, so the four taps of a sample fall to four
+//      warps; every warp reads all of the block's samples in order and adds
+//      only its own tap of each, with plain adds. Each word then has one
+//      writer, which adds in the samples' order: the same bits on every run.
 //
 // So every element of d fm is written exactly once, and the caller needs no
 // zero fill. The tile size (Ct, S, bytes) is chosen by the caller
@@ -189,7 +200,8 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
 // grid (S, C / Ct * bands, bs*cams), cluster (S, 1, 1), kTileThreads
 // threads, Hb*W*Ct floats of dynamic shared memory: the copy of this block
 // of its band of rows [r0, r0 + Hb) (the last band may be shorter).
-template <typename T>
+// kOwned: the deterministic route (see the header).
+template <typename T, bool kOwned>
 __global__ void __launch_bounds__(kTileThreads, 2)
 interp_sample_camsum_bwd_tiles_kernel(const float* __restrict__ px,
                                       const float* __restrict__ py,
@@ -217,7 +229,10 @@ interp_sample_camsum_bwd_tiles_kernel(const float* __restrict__ px,
 
   // 2. scatter: lane l looks at sample m (its coordinates read a round
   // ahead), then the warp adds each live sample's taps, kBatch samples at a
-  // time, lane = channel (lanes >= Ct idle)
+  // time, lane = channel (lanes >= Ct idle). Atomic route: the block's
+  // samples are split among its warps, each adding all four taps of its
+  // samples. Owned route: every warp of the block reads all of the block's
+  // samples and adds only the tap that falls in a cell it owns.
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const bool chan = lane < Ct;
@@ -225,8 +240,8 @@ interp_sample_camsum_bwd_tiles_kernel(const float* __restrict__ px,
   const float* pyb = py + bc * M;
   const float* wgb = wg + bc * M * G + c0 / (C / G);  // the tile's group
   const float* gob = gout + b * M * C + c0 + (chan ? lane : 0);
-  const int stride = S * kTileWarps * 32;
-  int m = (rank * kTileWarps + warp) * 32 + lane;
+  const int stride = kOwned ? S * 32 : S * kTileWarps * 32;
+  int m = (kOwned ? rank : rank * kTileWarps + warp) * 32 + lane;
   float xn = 0.f, yn = 0.f, wn = 0.f;  // sample m's, read one round ahead
   if (m < M) {
     xn = pxb[m];
@@ -242,14 +257,27 @@ interp_sample_camsum_bwd_tiles_kernel(const float* __restrict__ px,
     }
     int x0 = 0, y0 = 0;
     float s00 = 0.f, s01 = 0.f, s10 = 0.f, s11 = 0.f;
-    if (m < M) {
-      // a tap with a non-zero hat weight lies on the map only for p in
-      // (-1, size), and in the band only for y in (r0 - 1, r1) (also false
-      // for NaN)
-      if (w != 0.f && x > -1.f && x < static_cast<float>(W) &&
-          y > static_cast<float>(r0 - 1) && y < static_cast<float>(r1)) {
-        x0 = static_cast<int>(floorf(x));
-        y0 = static_cast<int>(floorf(y));
+    // a tap with a non-zero hat weight lies on the map only for p in
+    // (-1, size), and in the band only for y in (r0 - 1, r1) (also false
+    // for NaN)
+    if (m < M && w != 0.f && x > -1.f && x < static_cast<float>(W) &&
+        y > static_cast<float>(r0 - 1) && y < static_cast<float>(r1)) {
+      x0 = static_cast<int>(floorf(x));
+      y0 = static_cast<int>(floorf(y));
+      if (kOwned) {
+        // only the tap (y0 + di, x0 + dj) in this warp's cells, if any, as
+        // the 00 tap of the cell computed below (the same products as the
+        // atomic route's s_ij)
+        const int di = ((warp >> 2) - y0) & 3;
+        const int dj = ((warp & 3) - x0) & 3;
+        y0 += di;
+        x0 += dj;
+        if (di < 2 && dj < 2) {
+          const float wy = y0 >= r0 && y0 < r1 ? hipad::hat(y - static_cast<float>(y0)) : 0.f;
+          const float wx = x0 >= 0 && x0 < W ? hipad::hat(x - static_cast<float>(x0)) : 0.f;
+          s00 = wy * wx * w;
+        }
+      } else {
         const float wx0 = x0 >= 0 ? hipad::hat(x - static_cast<float>(x0)) : 0.f;
         const float wx1 = x0 + 1 < W ? hipad::hat(x - static_cast<float>(x0 + 1)) : 0.f;
         const float wy0 = y0 >= r0 ? hipad::hat(y - static_cast<float>(y0)) : 0.f;
@@ -279,6 +307,12 @@ interp_sample_camsum_bwd_tiles_kernel(const float* __restrict__ px,
         // taps then have weight 0
         const int cell = __shfl_sync(0xffffffffu, (y0 - r0) * W + x0, sl);
         const float a00 = __shfl_sync(0xffffffffu, s00, sl);
+        if (kOwned) {
+          // this warp alone adds into its cells, lane = channel: the adds
+          // of each word follow the samples' order, whatever the schedule
+          if (src[k] >= 0 && chan && a00 != 0.f) tile[cell * Ct + lane] += a00 * g[k];
+          continue;
+        }
         const float a01 = __shfl_sync(0xffffffffu, s01, sl);
         const float a10 = __shfl_sync(0xffffffffu, s10, sl);
         const float a11 = __shfl_sync(0xffffffffu, s11, sl);
@@ -325,7 +359,7 @@ template <typename T>
 cudaError_t launch(const void* fm, const float* px, const float* py,
                    const float* wg, const float* gout, void* dfm, float* dpx,
                    float* dpy, float* dwg, int bs, int cams, int H, int W,
-                   int C, int G, int M, int Ct, int S, int smem,
+                   int C, int G, int M, int Ct, int S, int smem, bool owned,
                    cudaStream_t st) {
   const long long rows = static_cast<long long>(bs) * M;
   const unsigned blocks = static_cast<unsigned>((rows + kWarps - 1) / kWarps);
@@ -340,7 +374,8 @@ cudaError_t launch(const void* fm, const float* px, const float* py,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  auto* tiles = interp_sample_camsum_bwd_tiles_kernel<T>;
+  auto* tiles = owned ? interp_sample_camsum_bwd_tiles_kernel<T, true>
+                      : interp_sample_camsum_bwd_tiles_kernel<T, false>;
   err = cudaFuncSetAttribute(tiles, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
@@ -368,13 +403,14 @@ cudaError_t launch(const void* fm, const float* px, const float* py,
 // [bs*cams, M, G] fp32; every element of each written here. Tiling: Ct
 // channels per tile (8, 16 or 32, dividing C/G), clusters of S <= 8 blocks,
 // smem = Hb*W*Ct*4 bytes of shared memory per block for bands of Hb rows
-// (Hb = H: the whole map in one tile).
+// (Hb = H: the whole map in one tile). owned != 0: the tile blocks' deterministic
+// route, else the atomic one.
 // Returns the first CUDA error of the two launches, or 0.
 extern "C" int hipad_interp_sample_camsum_bwd(
     const void* fm, int fm_bf16, const void* px, const void* py,
     const void* wg, const void* gout, void* dfm, void* dpx, void* dpy,
     void* dwg, int bs, int cams, int H, int W, int C, int G, int M, int Ct,
-    int S, int smem, void* stream) {
+    int S, int smem, int owned, void* stream) {
   if (Ct < 8 || Ct > kMaxTile || Ct % 8 != 0 || (C / G) % Ct != 0 || S < 1 ||
       S > kMaxCluster || smem <= 0 || smem % (4 * W * Ct) != 0 ||
       smem / (4 * W * Ct) > H) {
@@ -390,8 +426,8 @@ extern "C" int hipad_interp_sample_camsum_bwd(
   float* o_wg = static_cast<float*>(dwg);
   const cudaError_t err =
       fm_bf16 ? launch<__nv_bfloat16>(fm, f_px, f_py, f_wg, f_go, dfm, o_px, o_py, o_wg, bs,
-                                      cams, H, W, C, G, M, Ct, S, smem, st)
+                                      cams, H, W, C, G, M, Ct, S, smem, owned != 0, st)
               : launch<float>(fm, f_px, f_py, f_wg, f_go, dfm, o_px, o_py, o_wg, bs, cams, H,
-                              W, C, G, M, Ct, S, smem, st);
+                              W, C, G, M, Ct, S, smem, owned != 0, st);
   return static_cast<int>(err);
 }

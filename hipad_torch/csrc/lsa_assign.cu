@@ -36,7 +36,7 @@
 //       (115,200 B for a det matrix), so no global read is left on an
 //       iteration's path; the wrapper reads them from global memory as
 //       before where R*C*4 and the state do not fit (kernels.lsa_plan);
-//   (b) a column belongs to one thread for the whole solve (1, 2 or 4 a
+//   (b) a column belongs to one thread for the whole solve (1 or 2 a
 //       thread, a template argument), so v, minv and used live in
 //       registers, and so do the row the column holds and that row's u
 //       while the row stays there: a new row resets them in registers, and
@@ -56,13 +56,17 @@
 //       barrier: u[p[j]] is written by the owner of column j alone, and
 //       the next iteration reads u of a row whose column is still unused.
 //       Two barriers an outer row frame the augmenting walk;
-//   (d) the problems of a step come in one launch (a Batch by value, no
-//       copy to the card): blocks 0..n_det-1 take det, the rest map, so
-//       the map blocks finish under the det ones.
+//   (d) the problems of a step come in one launch (a Batch by value of up
+//       to 8 problems, no copy to the card): blocks 0..n_det-1 take det,
+//       the rest map, so the map blocks finish under the det ones. The
+//       wrapper makes as many launches as more problems need, in order.
 // What is left is instruction issue: every warp runs every iteration's pass
 // and both argmin levels, at up to 32 warps a block. Half the warps with
 // two columns a thread were slower on a stage-2 step (PERF.md), so a thread
-// takes one column up to 1024 columns.
+// takes one column up to 1024 columns. Above 2048 padded columns the strip
+// kernel takes the matrix: its column state lives in shared memory, or in
+// global memory where that does not fit, so any matrix the card's memory
+// holds is solved.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -86,6 +90,7 @@ struct Problem {
   int R, C;
   int staged;            // 1: the costs are staged in shared memory
   int first_block;       // the block of this problem's first matrix
+  unsigned char* state;  // strips: each matrix's state in global memory, or null (shared)
 };
 
 struct Batch {
@@ -98,6 +103,13 @@ struct Batch {
 // per padded column, rounded up to 16.
 __host__ __device__ constexpr int state_bytes(int R, int C) {
   return (kSlotBytes + 8 * R + 8 * (C + R + 1) + R + 15) / 16 * 16;
+}
+
+// Bytes of one matrix's state in the strip kernel (kernels.lsa_plan repeats
+// this): u (fp64) and the row mask per row; v, minv (fp64), p, way (int32)
+// and used per padded column; rounded up to 16.
+__host__ __device__ constexpr long long strip_state_bytes(long long R, long long C) {
+  return (9 * R + 25 * (C + R + 1) + 15) / 16 * 16;
 }
 
 // The cost as the plain version reads it, but +0 for -0: the two compare
@@ -323,6 +335,127 @@ __global__ void __launch_bounds__(kMaxThreads, 1) lsa_assign_kernel(const Batch 
   }
 }
 
+// The strip kernel: N > 1024 * kMaxCols padded columns, more than the
+// registers of a block hold. Each thread takes the columns tid + k * 1024, a
+// strip of them per inner iteration, and every column's v, minv, used, p and
+// way live in memory beside u and the row mask: in shared memory where they
+// fit (P.state null), else in this matrix's slice of P.state in global
+// memory. The costs are read from global memory. The pass, the argmin, the
+// dual update and the augmenting walk are the register kernel's, per column
+// the same operations in the same order, so the result is again
+// assign_plain's bit for bit.
+__global__ void __launch_bounds__(kMaxThreads, 1) lsa_assign_strip_kernel(const Batch batch) {
+  Problem P = batch.prob[0];
+#pragma unroll
+  for (int q = 1; q < kMaxProblems; ++q) {
+    if (q < batch.count && static_cast<int>(blockIdx.x) >= batch.prob[q].first_block) {
+      P = batch.prob[q];
+    }
+  }
+  const int R = P.R, C = P.C, N = C + R + 1;
+  const int threads = blockDim.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const long long m = static_cast<long long>(blockIdx.x) - P.first_block;
+  const float* cg = P.cost + m * R * C;
+  const uint8_t* mb = P.mask + m * R;
+  int32_t* ob = P.out + m * R;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned long long* slot_key = reinterpret_cast<unsigned long long*>(smem);  // [2][32]
+  int* slot_col = reinterpret_cast<int*>(smem + 2 * 32 * 8);                    // [2][32]
+  unsigned char* base = P.state != nullptr ? P.state + m * strip_state_bytes(R, C)
+                                           : smem + kSlotBytes;
+  double* u = reinterpret_cast<double*>(base);
+  double* v = u + R;
+  double* minv = v + N;
+  int* p = reinterpret_cast<int*>(minv + N);  // row held by column j, -1 free
+  int* way = p + N;
+  uint8_t* valid = reinterpret_cast<uint8_t*>(way + N);
+  uint8_t* used = valid + R;
+
+  for (int r = tid; r < R; r += threads) {
+    u[r] = 0.0;
+    valid[r] = mb[r] != 0;
+  }
+  for (int j = tid; j < N; j += threads) {
+    p[j] = j == 0 ? 0 : -1;  // row 0 enters at column 0
+    v[j] = 0.0;
+  }
+  for (int w = tid; w < 2 * 32; w += threads) {
+    slot_key[w] = ~0ull;
+    slot_col[w] = INT_MAX;
+  }
+  sync_active(threads);
+
+  for (int i = 0; i < R; ++i) {
+    for (int j = tid; j < N; j += threads) {
+      minv[j] = CUDART_INF;
+      used[j] = 0;
+    }
+    int j0 = 0, i0 = i, buf = 0;
+    while (true) {
+      const double ui0 = u[i0];
+      const float* grow = cg + static_cast<long long>(i0) * C;
+      const bool vi0 = valid[i0];
+      double best = CUDART_INF;
+      int bj = INT_MAX;
+      for (int j = tid; j < N; j += threads) {
+        if (j == j0) used[j] = 1;
+        if (!used[j]) {
+          double c = kPad;  // a virtual column, or an invalid row
+          if (j <= C && vi0) c = sanitised(__ldg(grow + j - 1));
+          const double cur = c - ui0 - v[j];
+          if (cur < minv[j]) {
+            minv[j] = cur;
+            way[j] = j0;
+          }
+          take_min(best, bj, minv[j], j);
+        }
+      }
+      double delta;
+      j0 = block_argmin(best, bj, slot_key + 32 * buf, slot_col + 32 * buf, lane, warp, threads,
+                        delta);
+      i0 = p[j0];
+      for (int j = tid; j < N; j += threads) {
+        if (used[j]) {
+          u[p[j]] += delta;
+          v[j] -= delta;
+        } else {
+          minv[j] -= delta;
+        }
+      }
+      buf ^= 1;
+      if (i0 == -1) break;
+    }
+    sync_active(threads);  // every thread is done reading p for row i
+    if (tid == 0) {  // augment: walk the alternating path back to the sentinel
+      while (j0 != 0) {
+        const int j1 = way[j0];
+        p[j0] = p[j1];
+        j0 = j1;
+      }
+      p[0] = i + 1;  // the next row enters through the sentinel column
+    }
+    sync_active(threads);
+  }
+
+  for (int j = 1 + tid; j < N; j += threads) {
+    const int r = p[j];
+    if (r >= 0) ob[r] = (valid[r] && j - 1 < C) ? j - 1 : -1;
+  }
+}
+
+int launch_strips(const Batch& batch, int blocks, int smem, cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        lsa_assign_strip_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  lsa_assign_strip_kernel<<<blocks, kMaxThreads, smem, stream>>>(batch);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int K>
 int launch(const Batch& batch, int blocks, int threads, int smem, cudaStream_t stream) {
   if (smem > 48 * 1024) {
@@ -339,14 +472,16 @@ int launch(const Batch& batch, int blocks, int threads, int smem, cudaStream_t s
 // `count` problems (1..8), each cost[q] [n[q], R[q], C[q]] fp32, mask[q]
 // [n[q], R[q]] bool (one byte each), out[q] [n[q], R[q]] int32, all
 // contiguous and on one device, n and R above 0; staged[q] 1 where the
-// costs fit shared memory. One launch of cols columns a thread (1, 2 or 4),
-// `threads` threads and `smem` bytes of dynamic shared memory a block
-// (kernels.lsa_plan). The arrays are host memory, read here. Returns
-// cudaGetLastError() after the launch.
+// costs fit shared memory. One launch of cols columns a thread (1 or 2:
+// the register kernel) or of column strips (cols 0: the strip kernel, 1024
+// threads, each matrix's state in state[q] + m * its bytes where state[q]
+// is not null, else in shared memory), `threads` threads and `smem` bytes
+// of dynamic shared memory a block (kernels.lsa_plan). The arrays are host
+// memory, read here. Returns cudaGetLastError() after the launch.
 extern "C" int hipad_lsa_assign(int count, const void* const* cost, const void* const* mask,
-                                void* const* out, const int* n, const int* R, const int* C,
-                                const int* staged, int cols, int threads, int smem,
-                                void* stream) {
+                                void* const* out, void* const* state, const int* n,
+                                const int* R, const int* C, const int* staged, int cols,
+                                int threads, int smem, void* stream) {
   if (count < 1 || count > kMaxProblems) return static_cast<int>(cudaErrorInvalidValue);
   Batch batch{};
   batch.count = count;
@@ -354,14 +489,16 @@ extern "C" int hipad_lsa_assign(int count, const void* const* cost, const void* 
   for (int q = 0; q < count; ++q) {
     batch.prob[q] = Problem{static_cast<const float*>(cost[q]),
                             static_cast<const uint8_t*>(mask[q]), static_cast<int32_t*>(out[q]),
-                            R[q], C[q], staged[q], blocks};
+                            R[q], C[q], staged[q], blocks,
+                            static_cast<unsigned char*>(state[q])};
     blocks += n[q];
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (cols) {
+    case 0: return threads == kMaxThreads ? launch_strips(batch, blocks, smem, st)
+                                          : static_cast<int>(cudaErrorInvalidValue);
     case 1: return launch<1>(batch, blocks, threads, smem, st);
     case 2: return launch<2>(batch, blocks, threads, smem, st);
-    case 4: return launch<4>(batch, blocks, threads, smem, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,6 +1,10 @@
 """Synthetic frame/batch generation: the port's own copy of
 ``hipad_tpu/data/synthetic.py`` (same numpy RandomState draws, held to the
-original by ``tests/test_torch_port_copies.py``).
+original by ``tests/test_torch_port_copies.py``), but for one thing: the
+ego trajectories' units are drawn in sorted order, where the original
+iterates a set of strings, whose order changes with the process's hash
+seed, so that a batch and the training CLI's ``--synthetic`` run repeat
+from their seed in any process.
 
 Produces batches with exactly the shapes and key conventions the real
 Bench2Drive loader emits (`datasets/pipelines/transform.py:106-166` adaptor
@@ -117,7 +121,7 @@ def make_gt(cfg: HiPADConfig, bs: int, seed: int = 0) -> Dict[str, np.ndarray]:
         "ego_status_mask": np.ones((bs, cfg.ego_status_dims), np.float32),
     }
     units = {t[1] for t in cfg.plan_anchor_types} | {cfg.plan_speed_refer[1]}
-    for unit in units:
+    for unit in sorted(units):  # not the set's order, which follows the hash seed
         key = "gt_ego_spat" if unit.endswith("m") else "gt_ego_fut"
         data[f"{key}_trajs_{unit}"] = (
             rng.randn(bs, cfg.ego_fut_ts, 2).astype(np.float32) * 0.8

@@ -209,7 +209,9 @@ def loss_plan(cfg, plan_out: Dict, data: Dict, group=None):
     """Multi-granularity plan loss."""
     cmd = data["gt_ego_fut_cmd"]
     losses: Dict[str, torch.Tensor] = {}
-    for kind in {t[0] for t in cfg.plan_anchor_types}:
+    # the kinds in the config's order (the JAX package iterates a set of
+    # strings, whose order, and so the sum of total_loss, follows the hash seed)
+    for kind in dict.fromkeys(t[0] for t in cfg.plan_anchor_types):
         losses[f"plan_loss_{kind}_cls"] = 0.0
         losses[f"plan_loss_{kind}_reg"] = 0.0
     for i in range(plan_out["classification"].shape[0]):

@@ -14,10 +14,19 @@ module on hosts without a card or a compiler.
 
 Each wrapper checks device, dtype, shape, contiguity and alignment, raises
 on anything its kernel does not take, allocates its outputs (``torch.empty``;
-``torch.zeros`` for the map gradients K2-bwd adds into), launches on
+``torch.zeros`` for the map gradients an atomic route adds into), launches on
 PyTorch's current stream and raises if the launch reports a CUDA error.
-Each keeps ``launches``, the number of launches it made, so a run can show
-that the main path went through the kernel.
+Each keeps ``launches``, the number of calls that launched its kernel, so a
+run can show that the main path went through the kernel.
+
+Each wrapper also declares its ``routes`` (:class:`Route`): the designs it
+can launch, and whether each adds with float atomics into an output that
+several threads share, which makes the sum's rounding change from run to
+run. A call takes ``route()``: with torch's deterministic flag on
+(``torch.use_deterministic_algorithms(True)``) the first route that adds
+no atomics, else the first route; under the flag a wrapper with no such
+route raises, naming its kernel, as torch's own nondeterministic CUDA ops
+do (:func:`pick_route`).
 """
 
 from __future__ import annotations
@@ -31,7 +40,7 @@ import pathlib
 import shutil
 import subprocess
 import time
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -183,14 +192,17 @@ def _bind(lib: ctypes.CDLL, seconds: float, log: str) -> Library:
     lib.hipad_coarse_sample.restype = i
     lib.hipad_patch_sample.argtypes = [p] * 4 + [i] * 10 + [p] * 5 + [i, p] + [i] * 6 + [p]
     lib.hipad_patch_sample.restype = i
-    lib.hipad_interp_sample_camsum_bwd.argtypes = [p, i] + [p] * 8 + [i] * 10 + [p]
+    lib.hipad_interp_sample_camsum_bwd.argtypes = [p, i] + [p] * 8 + [i] * 11 + [p]
     lib.hipad_interp_sample_camsum_bwd.restype = i
-    lib.hipad_patch_sample_bwd.argtypes = ([p] * 8 + [i] * 10 + [p] * 5 + [i] + [p] * 4
+    lib.hipad_patch_sample_bwd.argtypes = ([p] * 8 + [i] * 10 + [p] * 5 + [i] + [p] * 5
                                            + [i] * 6 + [p])
     lib.hipad_patch_sample_bwd.restype = i
+    lib.hipad_patch_sample_bwd_cells.argtypes = ([p] * 4 + [i] * 10 + [p] * 5 + [i, p]
+                                                 + [i] * 6 + [p])
+    lib.hipad_patch_sample_bwd_cells.restype = i
     lib.hipad_row_gather.argtypes = [p] * 3 + [i] * 4 + [p]
     lib.hipad_row_gather.restype = i
-    lib.hipad_lsa_assign.argtypes = [i] + [p] * 7 + [i] * 3 + [p]
+    lib.hipad_lsa_assign.argtypes = [i] + [p] * 8 + [i] * 3 + [p]
     lib.hipad_lsa_assign.restype = i
     return Library(lib=lib, path=BUILD_DIR / LIB_NAME, build_seconds=seconds, log=log)
 
@@ -303,7 +315,62 @@ def _launched(k: str, err: int):
         raise RuntimeError(f"{k}: launch failed with CUDA error {err}")
 
 
-class CoarseSample:
+@dataclasses.dataclass(frozen=True)
+class Route:
+    """One design a wrapper can launch: ``name``, and ``atomic``: whether it
+    adds with float atomics into an output that several threads share (the
+    sum's rounding then changes from run to run)."""
+
+    name: str
+    atomic: bool
+
+
+def pick_route(kernel: str, routes: Sequence[Route], deterministic: bool) -> Route:
+    """The route a call takes: under torch's deterministic flag the first of
+    ``routes`` that adds no atomics, else the first. Raises RuntimeError,
+    naming ``kernel``, under the flag when every route adds with atomics."""
+    if not deterministic:
+        return routes[0]
+    for r in routes:
+        if not r.atomic:
+            return r
+    raise RuntimeError(f"{kernel} does not have a deterministic implementation, but you set "
+                       f"'torch.use_deterministic_algorithms(True)'")
+
+
+class Launches:
+    """The launch count of a wrapper's second route, a kernel of its own:
+    ``name`` is the wrapper's and the route's."""
+
+    def __init__(self, name: str):
+        self.name, self.launches = name, 0
+
+
+class _Routed:
+    """A wrapper: ``routes``, the first taken without the flag; a call
+    launches ``launch(self.route(), ...)``. Launches of the first route count
+    in ``launches``, those of another in ``others[route.name].launches``."""
+
+    routes: tuple = (Route("one launch", atomic=False),)
+
+    def route(self) -> Route:
+        return pick_route(self.name, self.routes, torch.are_deterministic_algorithms_enabled())
+
+    def __call__(self, *args, **kwargs):
+        return self.launch(self.route(), *args, **kwargs)
+
+    @functools.cached_property
+    def others(self) -> dict:
+        return {r.name: Launches(f"{self.name}_{r.name}") for r in self.routes[1:]}
+
+    def _count(self, route: Route):
+        if route == self.routes[0]:
+            self.launches += 1
+        else:
+            self.others[route.name].launches += 1
+
+
+class CoarseSample(_Routed):
     """K1 (``csrc/interp_sample.cu``): every coarse level's bilinear samples
     summed over cameras and levels and added to ``acc``, in one launch;
     replaces ``hipad_tpu/ops/pallas_interp.py:interp_matmul_pallas`` with the
@@ -316,8 +383,8 @@ class CoarseSample:
     def __init__(self):
         self.launches = 0
 
-    def __call__(self, acc, maps: Sequence[torch.Tensor], points: torch.Tensor,
-                 weights: torch.Tensor, levels: Sequence[int]) -> torch.Tensor:
+    def launch(self, route: Route, acc, maps: Sequence[torch.Tensor], points: torch.Tensor,
+               weights: torch.Tensor, levels: Sequence[int]) -> torch.Tensor:
         """acc ``[bs, M0, C]`` fp32 or None; maps: ``[bs, cams, H_l, W_l, C]``
         fp32|bf16 (one dtype), ``maps[i]`` at index ``levels[i]`` of the
         weights' level axis; points ``[bs, M0, cams, 2]`` fp32 normalised;
@@ -357,11 +424,11 @@ class CoarseSample:
                 points.data_ptr(), weights.data_ptr(), int(weights.dtype == torch.bfloat16),
                 out.data_ptr(), bs, M0, cams, L, C, G, _stream(dev))
         _launched(k, err)
-        self.launches += 1
+        self._count(route)
         return out
 
 
-class InterpSampleCamsumBwd:
+class InterpSampleCamsumBwd(_Routed):
     """K1-bwd (``csrc/interp_sample_bwd.cu``): the adjoint of one coarse
     level of K1 (``ops/sampling.py:interp_matmul_camsum``), called once per
     level by K1's autograd Function; replaces
@@ -369,14 +436,21 @@ class InterpSampleCamsumBwd:
     autograd through ``interp_matmul_camsum``. One call makes two launches:
     the sample blocks (d px, d py, d wg) and the tile blocks (d fm, tiled by
     :func:`k1_bwd_tiling`, in bands of rows for maps of more than 7,264
-    cells)."""
+    cells). The tile blocks' routes: ``atomic`` (a block's warps split its
+    samples and add by shared-memory atomics) and ``owned`` (each warp adds
+    only into the cells it owns, in the samples' order: the same bits on
+    every run)."""
 
     name = "interp_sample_camsum_bwd"
+    ATOMIC = Route("atomic", atomic=True)
+    OWNED = Route("owned", atomic=False)
+    routes = (ATOMIC, OWNED)
 
     def __init__(self):
         self.launches = 0
 
-    def __call__(self, fm, px, py, wg, gout: torch.Tensor, bs: int, cams: int):
+    def launch(self, route: Route, fm, px, py, wg, gout: torch.Tensor, bs: int,
+               cams: int):
         """One level's camera-major inputs (fm ``[bs*cams, H, W, C]`` fp32|bf16;
         px, py ``[bs*cams, M]`` fp32 pixel coordinates; wg ``[bs*cams, M, G]``
         fp32) and ``gout [bs, M, C]`` fp32, the gradient of the level's
@@ -399,13 +473,13 @@ class InterpSampleCamsumBwd:
                 fm.data_ptr(), int(fm.dtype == torch.bfloat16), px.data_ptr(),
                 py.data_ptr(), wg.data_ptr(), gout.data_ptr(), dfm.data_ptr(),
                 dpx.data_ptr(), dpy.data_ptr(), dwg.data_ptr(),
-                bs, cams, H, W, C, G, M, ct, s, smem, _stream(dev))
+                bs, cams, H, W, C, G, M, ct, s, smem, int(not route.atomic), _stream(dev))
         _launched(k, err)
-        self.launches += 1
+        self._count(route)
         return dfm, dpx, dpy, dwg
 
 
-class PatchSample:
+class PatchSample(_Routed):
     """K2 (``csrc/patch_sample.cu``): fine-level patch sampling of
     camera-compacted samples, summed over the kept cameras and the fine
     levels; replaces the ``patch_bilinear_w`` loop of
@@ -421,9 +495,9 @@ class PatchSample:
         self.name, self.takes_levels = name, takes_levels
         self.launches = 0
 
-    def __call__(self, fine_maps: Sequence[torch.Tensor], cam: torch.Tensor,
-                 x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
-                 cam_k: int, lvl=None) -> torch.Tensor:
+    def launch(self, route: Route, fine_maps: Sequence[torch.Tensor], cam: torch.Tensor,
+               x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+               cam_k: int, lvl=None) -> torch.Tensor:
         """fine_maps: ``[bs, cams, H_l, W_l, C]`` fp32|bf16 (one dtype);
         cam ``[bs, M]`` int32; x, y ``[bs, M]`` fp32; w ``[bs, M, n, G]``
         fp32 with ``n`` the number of fine levels, or ``level_k`` for the
@@ -444,53 +518,93 @@ class PatchSample:
                 None if lvl is None else lvl.data_ptr(), n, out.data_ptr(), bs, cams, C, G,
                 M0, cam_k, _stream(x.device))
         _launched(k, err)
-        self.launches += 1
+        self._count(route)
         return out
 
 
-class PatchSampleBwd:
+def contribution_index(keys: torch.Tensor, cells: int) -> tuple:
+    """K2-bwd's deterministic route: ``keys [items]`` int32, the cell each
+    item adds into (``cells`` for an item that adds nothing) -> (``order
+    [items]`` int64, the items by cell and, within a cell, in their own
+    order: a stable sort of the keys; ``starts [cells + 1]`` int32, where
+    each cell's run begins in ``order``, the last entry where the items
+    that add nothing begin)."""
+    sorted_keys, order = torch.sort(keys, stable=True)
+    cell = torch.arange(cells + 1, dtype=keys.dtype, device=keys.device)
+    return order, torch.searchsorted(sorted_keys, cell, out_int32=True)
+
+
+class PatchSampleBwd(_Routed):
     """K2-bwd (``csrc/patch_sample_bwd.cu``): the adjoint of K2 over every
-    fine level and slot in one launch; replaces ``hipad_tpu/ops/sampling.py:
+    fine level and slot; replaces ``hipad_tpu/ops/sampling.py:
     _patch_bilinear_w_bwd`` with ``_dense_fmap_grad``. Plain version:
     autograd through ``ops/sampling.py:patch_sample_plain``. Two instances
     with their own launch counts, as :class:`PatchSample`:
-    ``patch_sample_bwd`` and the level-k variant ``patch_sample_bwd_lk``."""
+    ``patch_sample_bwd`` and the level-k variant ``patch_sample_bwd_lk``.
+
+    Routes: ``atomic`` (one launch, the map gradient added by 16-byte fp32
+    reductions into zeroed buffers) and ``pull`` (the row kernel writes each
+    item's cell, :func:`contribution_index` orders the items by cell, and
+    the cell kernel sums each cell's items in that order and writes it
+    once: the same bits on every run)."""
+
+    ATOMIC = Route("atomic", atomic=True)
+    PULL = Route("pull", atomic=False)
+    routes = (ATOMIC, PULL)
 
     def __init__(self, name: str, takes_levels: bool):
         self.name, self.takes_levels = name, takes_levels
         self.launches = 0
 
-    def __call__(self, fine_maps: Sequence[torch.Tensor], cam, x, y, w,
-                 gout: torch.Tensor, cam_k: int, lvl=None):
+    def launch(self, route: Route, fine_maps: Sequence[torch.Tensor], cam, x, y, w,
+               gout: torch.Tensor, cam_k: int, lvl=None):
         """K2's inputs and ``gout [bs, M0, C]`` fp32, the gradient of its
-        output -> (per-level d maps fp32, d x, d y ``[bs, M]``, d w
-        ``[bs, M, n, G]``)."""
+        output -> (per-level d maps in the maps' dtype, summed in fp32 and
+        rounded once; d x, d y ``[bs, M]``, d w ``[bs, M, n, G]`` fp32)."""
         k = f"K2-bwd {self.name}"
         bs, M0, cams, C, G, n = _check_k2(k, fine_maps, cam, x, y, w, cam_k, lvl,
                                           self.takes_levels)
         _check(gout.shape == (bs, M0, C), f"{k}: gout must be [bs, M0, C], got {tuple(gout.shape)}")
         dev = x.device
         _check_tensor("gout", gout, dev, (torch.float32,), k)
-        dmaps = [torch.zeros(fm.shape, dtype=torch.float32, device=dev) for fm in fine_maps]
-        for i, d in enumerate(dmaps):  # 16-byte reductions
-            _check_tensor(f"d level {i}", d, dev, (torch.float32,), k)
+        cells = sum(fm.shape[0] * fm.shape[1] * fm.shape[2] * fm.shape[3] for fm in fine_maps)
+        _check(cells < 2 ** 31 - 1 and x.numel() * n * 4 < 2 ** 31,
+               f"{k}: {cells} map cells and {x.numel() * n * 4} taps, more than an int32 indexes")
         dx = torch.empty_like(x)
         dy = torch.empty_like(y)
         dw = torch.empty_like(w)
         pad = [0] * (_MAX_LEVELS - len(fine_maps))
         hs, ws = _level_args(fine_maps)
+        bf16 = int(fine_maps[0].dtype == torch.bfloat16)
         lib = library().lib
+        if route.atomic:
+            dmaps = [torch.zeros(fm.shape, dtype=torch.float32, device=dev) for fm in fine_maps]
+            keys = None
+        else:
+            dmaps = [torch.empty_like(fm) for fm in fine_maps]  # every element written
+            keys = torch.empty(x.numel() * n * 4, dtype=torch.int32, device=dev)
+        for i, d in enumerate(dmaps):  # 16-byte accesses
+            _check_tensor(f"d level {i}", d, dev, (d.dtype,), k)
         with torch.cuda.device(dev):
             err = lib.hipad_patch_sample_bwd(
                 *[fm.data_ptr() for fm in fine_maps], *pad,
-                *[d.data_ptr() for d in dmaps], *pad, *hs, *ws, len(fine_maps),
-                int(fine_maps[0].dtype == torch.bfloat16), cam.data_ptr(), x.data_ptr(),
-                y.data_ptr(), w.data_ptr(), None if lvl is None else lvl.data_ptr(), n,
-                gout.data_ptr(), dx.data_ptr(), dy.data_ptr(), dw.data_ptr(), bs, cams, C, G,
-                M0, cam_k, _stream(dev))
-        _launched(k, err)
-        self.launches += 1
-        return dmaps, dx, dy, dw
+                *([d.data_ptr() for d in dmaps] if route.atomic else [0] * len(dmaps)), *pad,
+                *hs, *ws, len(fine_maps), bf16, cam.data_ptr(), x.data_ptr(), y.data_ptr(),
+                w.data_ptr(), None if lvl is None else lvl.data_ptr(), n, gout.data_ptr(),
+                dx.data_ptr(), dy.data_ptr(), dw.data_ptr(),
+                None if keys is None else keys.data_ptr(), bs, cams, C, G, M0, cam_k,
+                _stream(dev))
+            _launched(k, err)
+            if keys is not None:
+                order, starts = contribution_index(keys, cells)
+                err = lib.hipad_patch_sample_bwd_cells(
+                    *[d.data_ptr() for d in dmaps], *pad, *hs, *ws, len(fine_maps), bf16,
+                    starts.data_ptr(), order.data_ptr(), x.data_ptr(), y.data_ptr(),
+                    w.data_ptr(), n, gout.data_ptr(), bs, cams, C, G, M0, cam_k,
+                    _stream(dev))
+                _launched(k, err)
+        self._count(route)
+        return [d.to(fm.dtype) for d, fm in zip(dmaps, fine_maps)], dx, dy, dw
 
 
 _GATHER_ROWS_PER_BLOCK = 4  # csrc/row_gather.cu: two warps a row, 256 threads a block
@@ -502,7 +616,7 @@ def row_gather_geometry(n_out: int) -> tuple:
     return _GATHER_ROWS_PER_BLOCK, -(-n_out // _GATHER_ROWS_PER_BLOCK)
 
 
-class RowGather:
+class RowGather(_Routed):
     """P2-P4 (``csrc/row_gather.cu``): ``out[i] = table[idx[stride * i]]``
     over whole rows; replaces one of the Pallas gather probes of
     ``tools/probe_pallas_gather.py``. One instance per probe, each with its
@@ -514,7 +628,7 @@ class RowGather:
         self.name, self.probe, self.dtype, self.stride = name, probe, dtype, stride
         self.launches = 0
 
-    def __call__(self, table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    def launch(self, route: Route, table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         """table ``[N, row]`` of ``self.dtype`` (rows of a multiple of 16
         bytes); idx ``[M]`` int32 in ``[0, N)`` (not checked: that would need
         a sync) -> ``[ceil(M / stride), row]`` of the table's dtype."""
@@ -537,47 +651,77 @@ class RowGather:
                                        n_out, self.stride, row_bytes,
                                        row_gather_geometry(n_out)[1], _stream(dev))
         _launched(k, err)
-        self.launches += 1
+        self._count(route)
         return out
 
 
-# K3 (csrc/lsa_assign.cu): columns a thread, threads a block at most, the
-# problems one launch takes, and the shared memory ahead of the state
-# (kSlotBytes: two buffers of 32 warps' 8-byte key and 4-byte column)
-_LSA_COLS = (1, 2, 4)
+# K3 (csrc/lsa_assign.cu): columns a thread in registers, threads a block at
+# most, the problems one launch takes, and the shared memory ahead of the
+# state (kSlotBytes: two buffers of 32 warps' 8-byte key and 4-byte column)
+_LSA_COLS = (1, 2)
 _LSA_MAX_THREADS = 1024
 _LSA_MAX_PROBLEMS = 8
 _LSA_SLOT_BYTES = 2 * 32 * 12
 
 
-def lsa_plan(R: int, C: int) -> tuple:
+class LsaPlan(NamedTuple):
     """K3's block for one ``[R, C]`` matrix (``N = C + R + 1`` padded
-    columns) -> ``(cols, threads, staged, smem)``: ``cols`` columns a thread
-    (1, 2 or 4: the fewest that ``N`` fits at 1024 threads), ``threads`` a
-    multiple of 32, ``staged`` whether the costs go to shared memory, and the
-    block's bytes of dynamic shared memory: the state (``u`` and the row
-    mask per row, ``p`` and ``way`` per column, the reduction slots), plus
-    ``R*C*4`` bytes of costs where that fits the 232,448 a block may take;
-    else the kernel reads the costs from global memory. Raises
-    ``ValueError`` where ``N`` needs more than 4 columns a thread or the
-    state alone does not fit."""
+    columns): ``cols`` columns a thread in registers (1 or 2), or 0 for the
+    strip kernel, which keeps every column's state in memory; ``threads`` a
+    block; ``staged``: the costs in shared memory; ``smem`` bytes of
+    dynamic shared memory a block; ``scratch`` bytes of global memory a
+    matrix for the strip kernel's state where it does not fit shared memory
+    (0 where it does)."""
+
+    cols: int
+    threads: int
+    staged: bool
+    smem: int
+    scratch: int
+
+
+def lsa_plan(R: int, C: int) -> LsaPlan:
+    """K3's block for one ``[R, C]`` matrix. Up to 2,048 padded columns a
+    thread holds 1 or 2 columns in registers (the fewest that ``N`` fits at
+    1024 threads), ``threads`` a multiple of 32, and the shared memory holds
+    the state (``u`` and the row mask per row, ``p`` and ``way`` per column,
+    the reduction slots) plus ``R*C*4`` bytes of costs where that fits the
+    232,448 a block may take; else the kernel reads the costs from global
+    memory. Above that the strip kernel takes the matrix at 1024 threads,
+    the costs in global memory and the state (``u`` and the row mask per
+    row; ``v``, ``minv``, ``p``, ``way`` and ``used`` per column) in shared
+    memory where it fits, else in ``scratch`` bytes of global memory."""
     N = C + R + 1
     fits = [c for c in _LSA_COLS if N <= c * _LSA_MAX_THREADS]
-    _check(bool(fits), f"K3: [{R}, {C}] has {N} padded columns, more than "
-                       f"{_LSA_COLS[-1]} a thread of {_LSA_MAX_THREADS}")
+    if not fits:
+        state = (9 * R + 25 * N + 15) // 16 * 16
+        if _LSA_SLOT_BYTES + state <= _SMEM_PER_BLOCK:
+            return LsaPlan(0, _LSA_MAX_THREADS, False, _LSA_SLOT_BYTES + state, 0)
+        return LsaPlan(0, _LSA_MAX_THREADS, False, _LSA_SLOT_BYTES, state)
     cols = fits[0]
     threads = -(-N // (32 * cols)) * 32
     state = (_LSA_SLOT_BYTES + 8 * R + 8 * N + R + 15) // 16 * 16
-    _check(state <= _SMEM_PER_BLOCK, f"K3: [{R}, {C}] needs {state} B of shared memory for "
-                                     f"its state, more than {_SMEM_PER_BLOCK}")
     staged = state + 4 * R * C <= _SMEM_PER_BLOCK
-    return cols, threads, staged, state + 4 * R * C if staged else state
+    return LsaPlan(cols, threads, staged, state + 4 * R * C if staged else state, 0)
 
 
-class LsaAssign:
+def lsa_launches(plans: Sequence[LsaPlan]) -> list:
+    """K3's launches for problems with ``plans`` -> lists of the problems'
+    indices, one list a launch: the register kernel's problems and the strip
+    kernel's apart, each in the callers' order, at most 8 a launch; the
+    launches in the order of their first problem."""
+    kinds = {}
+    for i, plan in enumerate(plans):
+        kinds.setdefault(plan.cols == 0, []).append(i)
+    return sorted((idx[a:a + _LSA_MAX_PROBLEMS] for idx in kinds.values()
+                   for a in range(0, len(idx), _LSA_MAX_PROBLEMS)), key=lambda g: g[0])
+
+
+class LsaAssign(_Routed):
     """K3 (``csrc/lsa_assign.cu``): the exact assignment of every ``[R, C]``
-    cost matrix of up to 8 problems in one launch, one block per matrix
-    (:func:`lsa_plan` sizes each block); replaces
+    cost matrix of any number of problems, one block per matrix
+    (:func:`lsa_plan` sizes each block), up to 8 problems a launch
+    (:func:`lsa_launches`); replaces
     ``hipad_tpu/targets/matching.py:_lsa_single`` with ``assign``. Plain
     version: ``targets/matching.py:assign_plain``, equal bit for bit."""
 
@@ -586,15 +730,15 @@ class LsaAssign:
     def __init__(self):
         self.launches = 0
 
-    def __call__(self, problems: Sequence) -> list:
+    def launch(self, route: Route, problems: Sequence) -> list:
         """``(cost [n, R, C] fp32, row_mask [n, R] bool)`` pairs, contiguous,
-        on one card -> col4row ``[n, R]`` int32 of each, on the card: the
-        column of each row, -1 for an invalid row and for a row left without
-        a real column (more valid rows than columns). One launch for all
-        (none where every problem is empty)."""
+        on one card -> col4row ``[n, R]`` int32 of each, in the callers'
+        order, on the card: the column of each row, -1 for an invalid row
+        and for a row left without a real column (more valid rows than
+        columns). One launch for up to 8 problems of one kernel (none where
+        every problem is empty); nothing waits for the host."""
         k = "K3 lsa_assign"
-        _check(0 < len(problems) <= _LSA_MAX_PROBLEMS,
-               f"{k}: takes 1..{_LSA_MAX_PROBLEMS} problems a launch, got {len(problems)}")
+        _check(len(problems) > 0, f"{k}: takes 1 or more problems, got none")
         _check(problems[0][0].is_cuda, f"{k}: takes CUDA tensors, got {problems[0][0].device}")
         dev = problems[0][0].device
         outs, todo = [], []
@@ -609,21 +753,28 @@ class LsaAssign:
             outs.append(out)
             if n * R:
                 todo.append((cost, row_mask, out, lsa_plan(R, C)))
-        if not todo:
-            return outs
-        cols = max(plan[0] for *_, plan in todo)
-        threads = max(-(-(c.shape[1] + c.shape[2] + 1) // (32 * cols)) * 32 for c, *_ in todo)
-        smem = max(plan[3] for *_, plan in todo)
-        q = len(todo)
-        ptrs = [(ctypes.c_void_p * q)(*(t[i].data_ptr() for t in todo)) for i in range(3)]
-        ints = [(ctypes.c_int * q)(*v) for v in (
-            [t[0].shape[0] for t in todo], [t[0].shape[1] for t in todo],
-            [t[0].shape[2] for t in todo], [int(t[3][2]) for t in todo])]
         lib = library().lib
-        with torch.cuda.device(dev):
-            err = lib.hipad_lsa_assign(q, *ptrs, *ints, cols, threads, smem, _stream(dev))
-        _launched(k, err)
-        self.launches += 1
+        for group in lsa_launches([t[3] for t in todo]):
+            batch = [todo[i] for i in group]
+            plans = [t[3] for t in batch]
+            cols = max(plan.cols for plan in plans)
+            threads = max(-(-(c.shape[1] + c.shape[2] + 1) // (32 * cols)) * 32
+                          for c, *_ in batch) if cols else _LSA_MAX_THREADS
+            smem = max(plan.smem for plan in plans)
+            # the strip kernel's state where shared memory does not hold it
+            scratch = [torch.empty(t[0].shape[0] * t[3].scratch, dtype=torch.uint8, device=dev)
+                       if t[3].scratch else None for t in batch]
+            q = len(batch)
+            ptrs = [(ctypes.c_void_p * q)(*(t[i].data_ptr() for t in batch)) for i in range(3)]
+            ptrs.append((ctypes.c_void_p * q)(*(None if b is None else b.data_ptr()
+                                                for b in scratch)))
+            ints = [(ctypes.c_int * q)(*v) for v in (
+                [t[0].shape[0] for t in batch], [t[0].shape[1] for t in batch],
+                [t[0].shape[2] for t in batch], [int(plan.staged) for plan in plans])]
+            with torch.cuda.device(dev):
+                err = lib.hipad_lsa_assign(q, *ptrs, *ints, cols, threads, smem, _stream(dev))
+            _launched(k, err)
+            self._count(route)
         return outs
 
 
@@ -637,6 +788,9 @@ gather_rows_f32 = RowGather("gather_rows_f32", "P2", torch.float32, 1)
 gather_rows_bf16 = RowGather("gather_rows_bf16", "P3", torch.bfloat16, 1)
 gather_rows_f32_every8 = RowGather("gather_rows_f32_every8", "P4", torch.float32, 8)
 lsa_assign = LsaAssign()
-KERNELS = (coarse_sample, patch_sample, interp_sample_camsum_bwd, patch_sample_bwd,
-           gather_rows_f32, gather_rows_bf16, gather_rows_f32_every8, patch_sample_lk,
-           patch_sample_bwd_lk, lsa_assign)
+WRAPPERS = (coarse_sample, patch_sample, interp_sample_camsum_bwd, patch_sample_bwd,
+            gather_rows_f32, gather_rows_bf16, gather_rows_f32_every8, patch_sample_lk,
+            patch_sample_bwd_lk, lsa_assign)
+# every kernel's launch count: each wrapper's, and the deterministic routes
+# that stand beside the backward wrappers' atomic ones
+KERNELS = WRAPPERS + tuple(c for k in WRAPPERS for c in k.others.values())

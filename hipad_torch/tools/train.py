@@ -9,7 +9,14 @@
 
 It trains on the card (``--device cuda``, the default; ``--device cpu`` for
 tests) under bf16 autocast, the JAX CLI's compute dtype, with fp32
-parameters, gradients and optimizer state.
+parameters, gradients and optimizer state. A run repeats itself bit for bit
+from its ``--seed``, in any process: ``main`` turns on torch's
+deterministic flag (``torch.use_deterministic_algorithms(True)``, which
+sends the sampler's backward kernels to their deterministic routes,
+``ops/kernels.py``) before it touches the card, sets
+``CUBLAS_WORKSPACE_CONFIG=:4096:8`` where the environment has no value (the
+flag needs it before the first cuBLAS handle), and restores the flag's
+earlier state when it returns.
 
 Data: ``--ann-file`` trains on a Bench2Drive info pickle through
 ``Bench2DriveDataset`` and ``TrainLoader`` (each batch slot streams its own
@@ -130,13 +137,20 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     step), "step_ms" (host clock per step), "peak_bytes", "evals" (each
     ``--eval-interval`` summary with its step, rank 0)}``."""
     args = parse_args(argv)
-    world, rank, url = _dist_env() if args.dist_backend else (1, 0, "")
-    device = device_for(args.device, rank)
-    dp = mesh.init(args.dist_backend or "gloo", url, world, rank)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    flag = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True)
     try:
-        return _train(args, dp, device)
+        world, rank, url = _dist_env() if args.dist_backend else (1, 0, "")
+        device = device_for(args.device, rank)
+        dp = mesh.init(args.dist_backend or "gloo", url, world, rank)
+        try:
+            return _train(args, dp, device)
+        finally:
+            mesh.shutdown(dp)
     finally:
-        mesh.shutdown(dp)
+        torch.use_deterministic_algorithms(flag[0], warn_only=flag[1])
 
 
 def _evaluate(model, val, args, step: int, dp: mesh.DataParallel):

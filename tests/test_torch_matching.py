@@ -165,25 +165,125 @@ def test_plain_version_counts_inner_iterations():
     ((32, 900), 1, 960, True),    # a stage-2 det matrix: 115,200 B of costs staged
     ((24, 100), 1, 128, True),    # a stage-2 map matrix
     ((64, 1000), 2, 544, False),  # 256,000 B of costs: read from global memory
-    ((40, 3000), 4, 768, False),  # 3,041 columns, four a thread, from global memory
+    ((40, 3000), 0, 1024, False),  # 3,041 columns: the strip kernel, its state shared
 ])
 def test_lsa_plan_stages_costs_where_they_fit(shape, cols, threads, staged):
     R, C = shape
+    N = C + R + 1
     got = kernels.lsa_plan(R, C)
     assert got[:3] == (cols, threads, staged)
-    state = (768 + 8 * R + 8 * (C + R + 1) + R + 15) // 16 * 16
-    assert got[3] == state + (4 * R * C if staged else 0)
+    if cols:
+        state = (768 + 8 * R + 8 * N + R + 15) // 16 * 16
+        assert got[3] == state + (4 * R * C if staged else 0)
+        assert staged == (state + 4 * R * C <= BLOCK_SMEM)
+        assert N <= cols * threads < N + 32 * cols
+    else:  # u and the row mask per row; v, minv, p, way and used per column
+        assert got[3] == 768 + (9 * R + 25 * N + 15) // 16 * 16 and got.scratch == 0
     assert got[3] <= BLOCK_SMEM
-    assert staged == (state + 4 * R * C <= BLOCK_SMEM)
-    assert (C + R + 1) <= cols * threads < (C + R + 1) + 32 * cols
+
+
+def _diagonal(shape, seed):
+    """Costs whose optimum each row reaches in one step: row r's cheapest
+    column near 1.25 r, apart from the other rows' (spacing 1.25, noise
+    below 0.5), so the plain solver takes R inner iterations."""
+    n, R, C = shape
+    rng = np.random.default_rng(seed)
+    cols = np.arange(C)[None, None, :]
+    rows = np.arange(R)[None, :, None] * (C - 1) / max(R - 1, 1)
+    cost = np.abs(cols - rows) + rng.uniform(0, 0.5, (n, R, C))
+    return cost.astype(np.float32), np.ones((n, R), bool)
 
 
 @pytest.mark.parametrize("shape", [(32, 5000), (2000, 2500)])
-def test_lsa_plan_refuses_what_a_block_cannot_hold(shape):
-    """More than 4,096 padded columns: four columns a thread of 1024 is the
-    most the kernel holds in registers."""
-    with pytest.raises(ValueError, match="K3"):
-        kernels.lsa_plan(*shape)
+def test_lsa_plan_takes_what_registers_cannot_hold(shape):
+    """More than 2,048 padded columns (4,096 before the strip kernel, which
+    refused these): the strip kernel's plan, its state in shared memory,
+    and the plain version's solution, which the kernel equals bit for bit
+    on the card (chip_smoke.py [match]), equal to JAX's ``assign`` and at
+    scipy's optimum."""
+    R, C = shape
+    plan = kernels.lsa_plan(R, C)
+    assert (plan.cols, plan.threads, plan.staged, plan.scratch) == (0, 1024, False, 0)
+    assert plan.smem <= BLOCK_SMEM
+    cost, mask = _diagonal((1, R, C), R)
+    got = _both(cost, mask)
+    np.testing.assert_array_equal(got, np.asarray(jmatching.assign(jnp.asarray(cost),
+                                                                   jnp.asarray(mask))))
+    _check_optimal(cost, mask, got)
+
+
+@pytest.mark.parametrize("shape, smem, scratch", [
+    ((64, 6000), 768 + 152_208, 0),       # N = 6,065: the state in shared memory
+    ((32, 20000), 768, 501_120),          # N = 20,033: the state in global memory
+])
+def test_lsa_plan_past_4096_columns_returns_a_plan(shape, smem, scratch):
+    """K3 refused both before the strip kernel; now the state (9 B a row,
+    25 B a column) goes to shared memory where it fits the 232,448 B a block
+    may take, else to ``scratch`` bytes of global memory a matrix."""
+    R, C = shape
+    plan = kernels.lsa_plan(R, C)
+    assert plan == (0, 1024, False, smem, scratch)
+    assert (9 * R + 25 * (C + R + 1) + 15) // 16 * 16 == (smem - 768 if not scratch
+                                                          else scratch)
+
+
+def _plans(kinds):
+    """Plans of problems whose kernel is the register one (``r``) or the
+    strip one (``s``)."""
+    return [kernels.lsa_plan(*((6, 100) if k == "r" else (8, 3000))) for k in kinds]
+
+
+@pytest.mark.parametrize("kinds, want", [
+    ("r" * 17, [list(range(8)), list(range(8, 16)), [16]]),
+    ("rsrrsr", [[0, 2, 3, 5], [1, 4]]),
+    ("s" + "r" * 9 + "s" * 2, [[0, 10, 11], list(range(1, 9)), [9]]),
+    ("r" * 3 + "s" + "r" * 6, [[0, 1, 2, 4, 5, 6, 7, 8], [3], [9]]),
+])
+def test_lsa_launches_group_problems_in_the_callers_order(kinds, want):
+    """At most 8 problems a launch, the register kernel's and the strip
+    kernel's apart, each launch's problems in the caller's order, the
+    launches in the order of their first problem: every problem once."""
+    got = kernels.lsa_launches(_plans(kinds))
+    assert got == sorted(want, key=lambda g: g[0])
+    assert sorted(i for g in got for i in g) == list(range(len(kinds)))
+    assert all(len(g) <= 8 and g == sorted(g) for g in got)
+
+
+MIXED = [(2, 5, 7), (1, 12, 90), (3, 9, 23), (1, 6, 4200), (2, 24, 100), (1, 3, 3)]
+
+
+@pytest.mark.parametrize("count", [9, 17])
+def test_assign_many_of_mixed_problems_equals_jax_per_problem(count):
+    """9 and 17 problems of mixed shapes (more than K3's 8 a launch, one
+    past 4,096 padded columns) in one ``assign_many`` call -> each problem's
+    col4row, in the caller's order, equal to JAX's ``assign`` on that
+    problem alone."""
+    rng = np.random.default_rng(count)
+    problems = []
+    for i in range(count):
+        shape = MIXED[i % len(MIXED)]
+        cost = rng.uniform(0, 20, shape).astype(np.float32)
+        mask = rng.uniform(size=shape[:2]) < 0.7
+        problems.append((cost, mask))
+    got = tmatching.assign_many([(torch.from_numpy(c), torch.from_numpy(m)) for c, m in problems])
+    assert len(got) == count
+    for (cost, mask), cols in zip(problems, got):
+        assert cols.shape == mask.shape
+        np.testing.assert_array_equal(cols.numpy(), np.asarray(
+            jmatching.assign(jnp.asarray(cost), jnp.asarray(mask))))
+        _check_optimal(cost, mask, cols.numpy())
+
+
+def test_assign_plain_past_4096_columns_equals_jax_assign():
+    """[2, 6, 4200]: 4,207 padded columns, which K3 refused before the
+    strip kernel; the plain version equals JAX's ``assign`` there."""
+    rng = np.random.default_rng(4200)
+    cost = rng.uniform(-5, 50, (2, 6, 4200)).astype(np.float32)
+    mask = np.array([[True] * 6, [True, False] * 3])
+    got = _both(cost, mask)
+    np.testing.assert_array_equal(got, np.asarray(jmatching.assign(jnp.asarray(cost),
+                                                                   jnp.asarray(mask))))
+    _check_optimal(cost, mask, got)
 
 
 def test_assign_on_the_cpu_takes_the_plain_route(monkeypatch):

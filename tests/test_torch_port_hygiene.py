@@ -258,6 +258,40 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         assert k.launches == 0, k.name
 
 
+def test_no_wrapper_adds_with_atomics_under_the_deterministic_flag(monkeypatch):
+    """Every wrapper of ``ops/kernels.py`` declares its routes, and each call
+    launches the one its ``route()`` reads from torch's deterministic flag:
+    under ``torch.use_deterministic_algorithms(True)`` never a route that
+    adds with float atomics into an output several threads share (a wrapper
+    with only such routes raises, naming its kernel), without it the first
+    route. Read from the declared routes, whatever the CUDA sources say."""
+    from hipad_torch.ops import kernels
+
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    try:
+        for k in kernels.WRAPPERS:
+            assert k.routes and all(isinstance(r, kernels.Route) for r in k.routes), k.name
+            seen = []
+            monkeypatch.setattr(k, "launch", lambda route, *a: seen.append(route))
+            torch.use_deterministic_algorithms(False)
+            k("inputs")
+            torch.use_deterministic_algorithms(True)
+            if all(r.atomic for r in k.routes):
+                with pytest.raises(RuntimeError, match=k.name):
+                    k("inputs")
+                continue
+            k("inputs")
+            assert seen[0] == k.routes[0], k.name
+            assert not seen[1].atomic and seen[1] in k.routes, (k.name, seen[1])
+        # every launch count of the kernel table: a wrapper's, or one of its
+        # routes' beside it
+        assert {c.name for c in kernels.KERNELS} == {k.name for k in kernels.WRAPPERS} | {
+            f"{k.name}_{r.name}" for k in kernels.WRAPPERS for r in k.routes[1:]}
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+
+
 @pytest.mark.parametrize("config", ["stage2", "stage2_serving_det", "tiny"])
 def test_launch_plan_counts_one_k1_launch_per_call(config):
     """``chip_smoke.py`` holds each path's launches to its op program: per
