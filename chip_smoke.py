@@ -19,16 +19,16 @@ Phases, one printed line (or a few) each; any failure exits non-zero:
      it, the time of one call with its Python launch path;
   3b. each backward kernel (K1-bwd, K2-bwd) against ``torch.autograd.grad``
      of the plain version at the same shapes, every gradient output, fp32
-     and bf16 maps, coordinates on the hat weights' kinks included; K1-bwd
-     also at bs=2 and on ``stage2_r101_2x()``'s 44x80 and 88x160 maps (the
-     latter, 14,080 cells, in bands of rows); timed the same way. Each
-     wrapper's two routes (``ops/kernels.py``: the atomic design and the
-     deterministic one, K1-bwd's ``owned`` and K2-bwd's ``pull``) each
-     against the plain version and launched twice on the same inputs: the
-     deterministic route's outputs held equal bit for bit, the atomic
-     route's difference printed; then the wrapper's call under
-     ``torch.use_deterministic_algorithms(True)``, twice, held bit for bit
-     to the deterministic route; the two routes timed in turns;
+     and bf16 maps, bs=1 and 2, coordinates on the hat weights' kinks
+     included; K1-bwd also on ``stage2_r101_2x()``'s 44x80 and 88x160 maps;
+     both also on the largest calls of one stage-2 training step, recorded
+     as the step makes them (fp32, and with bf16 maps), their plans printed;
+     timed the same way. Each wrapper has one design, the binned scatter
+     (``csrc/bin_scatter.cuh``), deterministic: called twice on the same
+     inputs, its outputs held equal bit for bit, then twice under
+     ``torch.use_deterministic_algorithms(True)``, held bit for bit to those
+     calls. K1-bwd's record is per launch: one launch a coarse level, its
+     times and bound the mean of the two levels';
   4. the serving path: ``stage2()`` with seeded random weights, bs=1, 2
      warm-up and 8 timed frames with the banks chained and a new image per
      frame, in fp32 and then under bf16 autocast; finite outputs; every
@@ -127,7 +127,7 @@ Phases, one printed line (or a few) each; any failure exits non-zero:
      each kernel's launches against the op program and frame 0 against the
      CPU plain path as in phase 6 (B and C at 2 decoder layers there); and
      one training step of A against the CPU, loss by loss, on the card with
-     torch's deterministic flag off and on (K2-bwd-lk's two routes).
+     torch's deterministic flag off and on.
 
 The line before the last is a JSON object with one entry per kernel (its
 device time and its time per call, its plain version's, the bound the card's
@@ -146,9 +146,15 @@ unpacked by ``git archive``) it builds that checkout's kernels into its own
 through each tree's ``assign_many``) and P2-P4 against this tree's in turns
 (theirs, ours, ours, theirs) at the shapes of phases 3, 3b, 5f and 8, fp32,
 device time, checking that the two agree (K2 without ``lvl``, K3 and P2-P4
-bit for bit); then
-phases 4-7's paths in turns, and each tree's synchronizing calls in one
-training step, by call site.
+bit for bit; the backward kernels within ``KERNEL_RTOL`` of scale, whose
+order of addition may differ); K1-bwd and K2-bwd through each of the other
+tree's routes (``launch(route, ...)`` where its wrappers declare
+``routes``), also at a stage-2 step's own largest calls; then phases
+4-7's paths in turns, and each tree's synchronizing calls in one training
+step, by call site. With ``--profile-routes`` (and ``--against``, the other
+tree first) it profiles one call of each backward design, launch by launch,
+at phase 3b's shapes and a step's largest calls, this tree's binned plans at
+each of ``PROFILE_COUNTS_PER_ITEM``, and stops.
 """
 
 from __future__ import annotations
@@ -368,8 +374,9 @@ def _device_ms(fns, iters=20, reps=5):
 
 
 class _Rec:
-    """Per-kernel numbers for the JSON line; times and bounds summed over the
-    calls one main-path invocation makes (both coarse levels for K1-bwd)."""
+    """Per-kernel numbers for the JSON line, per launch: times and bounds
+    added over the calls timed, then ``per_launch`` divides them by their
+    count (K1-bwd: one launch a coarse level, two timed)."""
 
     def __init__(self):
         self.err = self.ms = self.plain_ms = self.bound_ms = self.library_ms = 0.0
@@ -389,6 +396,10 @@ class _Rec:
     def add_bound(self, ms_by):
         self.bound_ms += ms_by[0]
         self.bound_by = ms_by[1]
+
+    def per_launch(self, n: int):
+        for f in ("ms", "plain_ms", "library_ms", "per_call_ms", "bound_ms"):
+            setattr(self, f, getattr(self, f) / n)
 
 
 def _det_samples(cfg, point_frac=1.0):
@@ -655,12 +666,13 @@ def phase_kernels(cfg, card: str):
 
 # Backward kernel vs autograd of the plain version, fp32 gradients: both sum
 # fp32 products in other orders (over C channels, <= 9 taps and 6 cameras or
-# 2 slots x 2 levels, and over every sample that touches a map cell), and the
-# kernels' map gradients are fp32 atomics whose order changes from run to
-# run: |diff| <= GRAD_RTOL * max|plain| per gradient. With bf16 maps the map
-# gradient is rounded to bf16 on both sides from fp32 values that differ in
-# their last bits, so one bf16 step: GRAD_BF16_RTOL.
-GRAD_RTOL = 1e-4
+# 2 slots x 2 levels, and over every sample that touches a map cell, which
+# the kernels add in their bins' order): |diff| <= GRAD_RTOL * max|plain|
+# per gradient, the forward kernels' tolerance (seen on an H100: <= 6.8e-7
+# of scale). With bf16 maps the map gradient is rounded to bf16 on both
+# sides from fp32 values that differ in their last bits, so one bf16 step:
+# GRAD_BF16_RTOL.
+GRAD_RTOL = KERNEL_RTOL
 GRAD_BF16_RTOL = 8e-3
 
 
@@ -707,97 +719,175 @@ def _bits_equal(a, b) -> bool:
                                       for x, y in zip(ta, tb))
 
 
-def _bwd_routes(tag, what, kernel, args, ref, bf16_first):
-    """Each route of a backward wrapper (``kernel.routes``) on ``args``: its
-    gradients against autograd of the plain version (``ref``) at
-    ``_check_grads``' tolerances, and a second launch on the same inputs,
-    held bit for bit for a route that adds no atomics and printed for an
-    atomic one; then the wrapper's own call under torch's deterministic
-    flag, twice: the route the flag selects, which must add no atomics, bit
-    for bit equal to itself and to that route's launch above (under the
-    flag ``torch.empty`` fills its memory with NaN, so an element the kernel
-    leaves unwritten shows) -> {the route's row in the kernel table: its
-    largest error}."""
+def _bwd_repeats(tag, what, kernel, args, ref, bf16_first):
+    """A backward wrapper on ``args``: its gradients against autograd of the
+    plain version (``ref``) at ``_check_grads``' tolerances, and a second
+    call on the same inputs, held bit for bit; then two calls under torch's
+    deterministic flag, bit for bit equal to each other and to the calls
+    above (under the flag ``torch.empty`` fills its memory with NaN, so an
+    element the kernel leaves unwritten shows) -> its largest error."""
     import torch
 
-    worst, outs = {}, {}
-    for route in kernel.routes:
-        a = kernel.launch(route, *args)
-        b = kernel.launch(route, *args)
-        torch.cuda.synchronize()
-        worst[_row(kernel, route)] = _check_grads(f"{what} route {route.name}", a, ref,
-                                                  bf16_first, tag)
-        same = _bits_equal(a, b)
-        diff = max(float((x.float() - y.float()).abs().max())
-                   for x, y in zip(_tensors(a), _tensors(b)))
-        say(f"{tag} {what} route {route.name} ({'atomic' if route.atomic else 'deterministic'}):"
-            f" two launches on the same inputs {'equal bit for bit' if same else 'differ'} "
-            f"(largest difference {diff:.3e})")
-        if not same and not route.atomic:
-            fail(f"{what}: the {route.name} route's two launches differ")
-        outs[route.name] = a
-    with flag(True):
-        chosen = kernel.route()
-        a, b = kernel(*args), kernel(*args)
+    a = kernel(*args)
+    b = kernel(*args)
     torch.cuda.synchronize()
-    ok = not chosen.atomic and _bits_equal(a, b) and _bits_equal(a, outs[chosen.name])
-    say(f"{tag} {what} under torch.use_deterministic_algorithms(True): route {chosen.name}, two "
-        f"calls equal bit for bit and equal to that route's launch above "
-        f"{'ok' if ok else 'FAIL'}")
+    worst = _check_grads(what, a, ref, bf16_first, tag)
+    same = _bits_equal(a, b)
+    say(f"{tag} {what}: two calls on the same inputs {'equal bit for bit' if same else 'differ'}")
+    if not same:
+        fail(f"{what}: two calls on the same inputs differ")
+    with flag(True):
+        c, d = kernel(*args), kernel(*args)
+    torch.cuda.synchronize()
+    ok = _bits_equal(c, d) and _bits_equal(c, a)
+    say(f"{tag} {what} under torch.use_deterministic_algorithms(True): two calls equal bit for "
+        f"bit and equal to the calls above {'ok' if ok else 'FAIL'}")
     if not ok:
-        fail(f"{what}: the route the deterministic flag selects ({chosen.name}) does not repeat "
-             f"itself bit for bit")
+        fail(f"{what}: under the deterministic flag the calls do not repeat the bits")
     return worst
 
 
-def _row(kernel, route) -> str:
-    """The kernel table's row of a wrapper's route: the wrapper's own for its
-    first route, ``<wrapper>_<route>`` for another."""
-    return kernel.name if route == kernel.routes[0] else kernel.others[route.name].name
+def _plan_text(plan) -> str:
+    """A binned plan in words: bins, segment width per map size, chunks,
+    cells a warp and warps a run of cells."""
+    return (f"{plan.nbins} bins of {'/'.join(str(t.sw) for t in plan.levels)} column(s), "
+            f"{plan.chunks} chunks, {plan.ow} cell(s) a warp, split {plan.split}")
 
 
-def _route_times(tag, what, kernel, args, card):
-    """The device time of each of a wrapper's two routes on ``args``, in
-    turns (first, second, second, first; flag off, so no NaN fill), and its
-    time per call -> {route's row: (device ms, per-call ms)}; printed with
-    the second over the first."""
-    a, b = kernel.routes
-    fns = [lambda: kernel.launch(a, *args), lambda: kernel.launch(b, *args),
-           lambda: kernel.launch(b, *args), lambda: kernel.launch(a, *args)]
-    ms, call = _device_ms(fns), _timed(fns)
-    t = {_row(kernel, a): (min(ms[0], ms[3]), min(call[0], call[3])),
-         _row(kernel, b): (min(ms[1], ms[2]), min(call[1], call[2]))}
-    ta, tb = t[_row(kernel, a)][0], t[_row(kernel, b)][0]
-    say(f"{tag} {what} routes on {card}: {a.name} {ta:.4f} ms, {b.name} {tb:.4f} ms, "
-        f"{b.name} / {a.name} {tb / ta:.3f} ({QUEUED}, in turns {a.name}/{b.name}/{b.name}/"
-        f"{a.name}; the whole call of each route)")
-    return t
+def _clone_args(args):
+    import torch
+
+    return tuple(a.detach().clone() if isinstance(a, torch.Tensor)
+                 else [t.detach().clone() for t in a] if isinstance(a, list) else a
+                 for a in args)
 
 
-def _route_recs(kernel, rec, errs, times):
-    """The kernel-table records of a wrapper's routes: ``rec`` (its first
-    route's, timed against the plain version and the library call) and, for
-    its other route, a record with that route's error and times and ``rec``'s
-    plain, library and bound (the same function on the same inputs)."""
-    out = {kernel.name: rec}
-    rec.err = max(rec.err, errs[kernel.name])
-    for route in kernel.routes[1:]:
-        name = _row(kernel, route)
-        r = out[name] = _Rec()
-        r.err = errs[name]
-        r.ms, r.per_call_ms = times[name]
-        r.plain_ms, r.library_ms = rec.plain_ms, rec.library_ms
-        r.bound_ms, r.bound_by = rec.bound_ms, rec.bound_by
-    return out
+def step_bwd_calls():
+    """The sampler's backward calls of one stage-2 fp32 training step at bs=1
+    (random weights from SEED, the synthetic batch, the config's dropout and
+    GridMask), recorded as the step makes them: the inputs of the largest
+    K1-bwd call of each coarse map size (by samples) and of the largest
+    K2-bwd call (by slots) -> [(what, wrapper name, args)], args cloned."""
+    import torch
+
+    from hipad_torch.configs.model import stage2
+    from hipad_torch.data import synthetic
+    from hipad_torch.models.detector import HiPAD
+    from hipad_torch.ops import kernels
+    from hipad_torch.train.optim import AdamW
+    from hipad_torch.train.train_step import make_train_step
+    from hipad_torch.weights import init_random
+
+    dev = torch.device(DEVICE)
+    cfg = stage2()
+    kept = {}
+    names = ("interp_sample_camsum_bwd", "patch_sample_bwd")
+    wrappers = {n: getattr(kernels, n) for n in names}
+
+    def recording(name):
+        def call(*args):
+            if name == "interp_sample_camsum_bwd":
+                key, size = f"K1-bwd {args[0].shape[1]}x{args[0].shape[2]}", args[1].numel()
+            else:
+                key, size = "K2-bwd", args[2].numel()
+            if key not in kept or size > kept[key][0]:
+                kept[key] = (size, name, _clone_args(args))
+            return wrappers[name](*args)
+        return call
+
+    model = init_random(HiPAD(cfg, device=dev), SEED)
+    step = make_train_step(cfg, model, AdamW(model.named_parameters()))
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in synthetic.make_batch(cfg, 1, seed=SEED).items()}
+    try:
+        for n in names:
+            setattr(kernels, n, recording(n))
+        step(None, batch, torch.Generator(device=dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+    finally:
+        for n, w in wrappers.items():
+            setattr(kernels, n, w)
+    del model, step
+    torch.cuda.empty_cache()
+    return [(f"a stage-2 step's largest {key} call", name, args)
+            for key, (_, name, args) in sorted(kept.items())]
+
+
+def _k1_bwd_ref(args):
+    """Autograd of the plain K1-bwd (``interp_matmul_camsum``) on ``args``."""
+    import torch
+
+    from hipad_torch.ops import sampling
+
+    fm, px, py, wg, gout, bs, cams = args
+    leaves = [t.detach().clone().requires_grad_() for t in (fm, px, py, wg)]
+    out = sampling.interp_matmul_camsum(*leaves, bs, cams)
+    return torch.autograd.grad(out, leaves, gout)
+
+
+def _k2_bwd_ref(args):
+    """Autograd of the plain K2-bwd (``patch_sample_plain``) on ``args``,
+    the map gradients as one list."""
+    import torch
+
+    from hipad_torch.ops import sampling
+
+    maps, cam, x, y, w, gout, cam_k = args[:7]
+    lvl = args[7] if len(args) > 7 else None
+    lm = [m.detach().clone().requires_grad_() for m in maps]
+    lx, ly, lw = (t.detach().clone().requires_grad_() for t in (x, y, w))
+    out = sampling.patch_sample_plain(lm, cam, lx, ly, lw, cam_k, lvl)
+    ref = torch.autograd.grad(out, lm + [lx, ly, lw], gout)
+    return (ref[:len(lm)],) + tuple(ref[len(lm):])
+
+
+def _step_shapes(card: str):
+    """``[kernels-bwd]``'s step shapes: each call of ``step_bwd_calls``,
+    fp32 as recorded and with bf16 maps, against autograd of the plain
+    version, twice bit for bit and under the flag (``_bwd_repeats``), its
+    plan printed; the fp32 call's device time -> the largest error of each
+    wrapper."""
+    import torch
+
+    from hipad_torch.ops import kernels
+
+    worst = {}
+    for what, name, args in step_bwd_calls():
+        kernel = getattr(kernels, name)
+        if name == "interp_sample_camsum_bwd":
+            fm, px = args[0], args[1]
+            plan = kernels.k1_bwd_plan(fm.shape[0], fm.shape[1], fm.shape[2], px.shape[1])
+            shape = f"{fm.shape[0]} maps, {px.shape[1]} samples"
+        else:
+            maps, x = args[0], args[2]
+            plan = kernels.k2_bwd_plan(x.shape[0], maps[0].shape[1], [m.shape[2:4] for m in maps],
+                                       x.shape[1], args[4].shape[2])
+            shape = f"{x.shape[0] * maps[0].shape[1]} maps, {x.shape[1]} slots"
+        for dtype in (torch.float32, torch.bfloat16):
+            a = args
+            if dtype == torch.bfloat16:
+                a = ((args[0].to(dtype),) + args[1:] if name == "interp_sample_camsum_bwd" else
+                     ([m.to(dtype) for m in args[0]],) + args[1:])
+            ref = _k1_bwd_ref(a) if name == "interp_sample_camsum_bwd" else _k2_bwd_ref(a)
+            tag = f"{what} ({shape}; {_plan_text(plan)}) {str(dtype)[6:]}"
+            worst[name] = max(worst.get(name, 0.0),
+                              _bwd_repeats("[kernels-bwd]", tag, kernel, a, ref,
+                                           dtype == torch.bfloat16))
+            del ref
+        dev_ms, call = _times([lambda: kernel(*args)])
+        say(f"[kernels-bwd] {what} ({shape}; {_plan_text(plan)}) fp32 on {card}: kernel "
+            f"{dev_ms[0]:.4f} ms ({QUEUED}); per call {call[0]:.4f} ms")
+    return worst
 
 
 def phase_kernels_bwd(cfg, card: str):
     """K1-bwd and K2-bwd at phase 3's shapes against torch.autograd.grad of
-    the plain versions, fp32 and bf16 maps; K1-bwd also at bs=2 and on the
-    44x80 (16-channel tiles) and 88x160 maps (levels 2 and 1) of
-    ``stage2_r101_2x()``, the latter in bands of rows, fp32. Timed at
-    bs=1 fp32 against the plain backward (the graph built once, retained),
-    and on the 88x160 map."""
+    the plain versions, fp32 and bf16 maps, bs=1 and 2; K1-bwd also on the
+    44x80 and 88x160 maps (levels 2 and 1) of ``stage2_r101_2x()``, fp32;
+    both at a stage-2 step's own largest calls, recorded from a step
+    (``_step_shapes``). Timed at bs=1 fp32 against the plain backward (the
+    graph built once, retained), and on the 88x160 map; K1-bwd's record per
+    launch (the mean of its two coarse levels')."""
     import torch
     import torch.nn.functional as F
 
@@ -807,17 +897,17 @@ def phase_kernels_bwd(cfg, card: str):
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     k1, k2 = _Rec(), _Rec()
-    k1_errs, k1_times, k2_errs, k2_times = {}, {}, {}, {}
+    k1_timed = 0
 
     f32, bf16 = torch.float32, torch.bfloat16
     r101 = stage2_r101_2x()
     for c, dtype, bs, levels in ((cfg, f32, 1, None), (cfg, bf16, 1, None), (cfg, f32, 2, None),
-                                 (r101, f32, 1, (2, 1))):
+                                 (cfg, bf16, 2, None), (r101, f32, 1, (2, 1))):
         timed = c is cfg and dtype == f32 and bs == 1
         for lvl in levels or [l for l in c.sampler_matmul_levels if l < c.num_levels]:
             fm, px, py, wg, bs, cams = _k1_bwd_inputs(c, g, dev, lvl, dtype, bs)
             B, h, w, C = fm.shape
-            ct, s, smem = kernels.k1_bwd_tiling(B, h, w, C, c.num_groups)
+            plan = kernels.k1_bwd_plan(B, h, w, px.shape[1])
             gout = torch.randn(bs, px.shape[1], C, generator=g, device=dev)
             leaves = [t.detach().clone().requires_grad_() for t in (fm, px, py, wg)]
             out = sampling.interp_matmul_camsum(*leaves, bs, cams)
@@ -827,19 +917,10 @@ def phase_kernels_bwd(cfg, card: str):
             torch.cuda.synchronize()
             if got[0].dtype != dtype:
                 fail(f"K1-bwd returned d fm in {got[0].dtype} for a {dtype} map")
-            band = smem // (w * ct * 4)
-            what = (f"K1-bwd level {lvl} ({h}x{w}) {str(dtype)[6:]} bs={bs} (tiles of {ct} "
-                    f"channels in {-(-h // band)} band(s) of {band} rows, clusters of {s}, "
-                    f"{smem} B)")
-            for name, err in _bwd_routes("[kernels-bwd]", what, kernels.interp_sample_camsum_bwd,
-                                         args, ref, dtype == bf16).items():
-                k1_errs[name] = max(k1_errs.get(name, 0.0), err)
-            if timed:  # both coarse levels: one main-path call of K1-bwd's routes
-                for name, (ms, call) in _route_times("[kernels-bwd]", what,
-                                                     kernels.interp_sample_camsum_bwd, args,
-                                                     card).items():
-                    t0 = k1_times.get(name, (0.0, 0.0))
-                    k1_times[name] = (t0[0] + ms, t0[1] + call)
+            what = f"K1-bwd level {lvl} ({h}x{w}) {str(dtype)[6:]} bs={bs} ({_plan_text(plan)})"
+            k1.err = max(k1.err, _bwd_repeats("[kernels-bwd]", what,
+                                              kernels.interp_sample_camsum_bwd, args, ref,
+                                              dtype == bf16))
             if timed or (c is r101 and lvl == 1):
                 grid = torch.stack([(px + 0.5) / w * 2 - 1, (py + 0.5) / h * 2 - 1], -1)[:, None]
                 lib_in = [fm.permute(0, 3, 1, 2).detach().clone().requires_grad_(),
@@ -853,6 +934,7 @@ def phase_kernels_bwd(cfg, card: str):
                     lambda: torch.autograd.grad(out, leaves, gout, retain_graph=True),
                     lambda: torch.autograd.grad(lib_out, lib_in, lib_g, retain_graph=True)])
                 rec = k1 if timed else _Rec()  # the 88x160 map is not on the main path
+                k1_timed += timed
                 t = rec.add_times(dev_ms, call)
                 # reads: the rows it samples and every small input; writes:
                 # all of d fm and the coordinate and weight gradients
@@ -868,9 +950,9 @@ def phase_kernels_bwd(cfg, card: str):
                     f"rows read)")
             del leaves, out, ref, got
 
-    for dtype in (torch.float32, torch.bfloat16):
-        bf16 = dtype == torch.bfloat16
-        maps, cam, x, y, w, cam_k = _k2_inputs(cfg, g, dev, dtype)
+    for dtype, bs in ((f32, 1), (bf16, 1), (f32, 2), (bf16, 2)):
+        timed = dtype == f32 and bs == 1
+        maps, cam, x, y, w, cam_k = _k2_inputs(cfg, g, dev, dtype, bs)
         # every 50th location on a pixel corner of level 0: the kinks
         W0 = maps[0].shape[3]
         x[:, ::50] = ((x[:, ::50] * W0 - 0.5).round() + 0.5) / W0
@@ -885,12 +967,12 @@ def phase_kernels_bwd(cfg, card: str):
         args = (maps, cam, x, y, w, gout, cam_k)
         dmaps, dx, dy, dw = kernels.patch_sample_bwd(*args)
         torch.cuda.synchronize()
-        what = f"K2-bwd {str(dtype)[6:]}"
-        for name, err in _bwd_routes("[kernels-bwd]", what, kernels.patch_sample_bwd, args, ref,
-                                     bf16).items():
-            k2_errs[name] = max(k2_errs.get(name, 0.0), err)
-        if not bf16:
-            k2_times = _route_times("[kernels-bwd]", what, kernels.patch_sample_bwd, args, card)
+        plan = kernels.k2_bwd_plan(bs, maps[0].shape[1], [m.shape[2:4] for m in maps], M,
+                                   len(maps))
+        what = f"K2-bwd {str(dtype)[6:]} bs={bs} ({_plan_text(plan)})"
+        k2.err = max(k2.err, _bwd_repeats("[kernels-bwd]", what, kernels.patch_sample_bwd, args,
+                                          ref, dtype == bf16))
+        if timed:
             cams = maps[0].shape[1]
             lib_in = [[m.reshape(bs * cams, *m.shape[2:]).permute(0, 3, 1, 2).detach().clone()
                        .requires_grad_(),
@@ -913,8 +995,14 @@ def phase_kernels_bwd(cfg, card: str):
                 f"{k2.library_ms:.4f} ms ({TIMES}); per call {k2.per_call_ms:.4f} ms; bound "
                 f"{k2.bound_ms:.4f} ms ({k2.bound_by}: {taps} taps, {map_bytes / 1e6:.2f} of "
                 f"{_nbytes(*maps) / 1e6:.2f} MB of maps read)")
-    return {**_route_recs(kernels.interp_sample_camsum_bwd, k1, k1_errs, k1_times),
-            **_route_recs(kernels.patch_sample_bwd, k2, k2_errs, k2_times)}
+    step = _step_shapes(card)
+    k1.err = max(k1.err, step["interp_sample_camsum_bwd"])
+    k2.err = max(k2.err, step["patch_sample_bwd"])
+    k1.per_launch(k1_timed)
+    say(f"[kernels-bwd] K1-bwd per launch (one a coarse level; the mean of the two levels') on "
+        f"{card}: kernel {k1.ms:.4f} ms, per call {k1.per_call_ms:.4f} ms, bound "
+        f"{k1.bound_ms:.4f} ms")
+    return {"interp_sample_camsum_bwd": k1, "patch_sample_bwd": k2}
 
 
 def _flat(tree, prefix=""):
@@ -1029,29 +1117,26 @@ def phase_slice(cfg, card: str):
     return launches
 
 
-def _launch_plan(cfg, deterministic=False):
+def _launch_plan(cfg):
     """(deformable calls per forward, launches of each kernel per call): K1
     once for all coarse levels, K2 once for all fine levels, K1-bwd once per
-    coarse level and K2-bwd once; with ``sampler_level_k`` below the number
-    of fine levels, K2's and K2-bwd's level-k variants in their place. With
-    ``deterministic`` (torch's flag on) the backward wrappers' deterministic
-    routes, K1-bwd's ``owned`` and K2-bwd's ``pull``, in place of their
-    atomic ones."""
+    coarse level and K2-bwd once (with torch's deterministic flag on or
+    off: one design each); with ``sampler_level_k`` below the number of fine
+    levels, K2's and K2-bwd's level-k variants in their place."""
     n_deform = cfg.operation_order.count("deformable") * len(cfg.query_select)
     coarse = len([l for l in cfg.sampler_matmul_levels if l < cfg.num_levels])
     fine = [l for l in range(cfg.num_levels) if l not in cfg.sampler_matmul_levels]
     lk = "_lk" if cfg.sampler_level_k is not None and 0 < cfg.sampler_level_k < len(fine) else ""
     k2 = int(bool(fine))
-    owned, pull = ("_owned", "_pull") if deterministic else ("", "")
     return n_deform, {"coarse_sample": int(coarse > 0), f"patch_sample{lk}": k2,
-                      f"interp_sample_camsum_bwd{owned}": coarse,
-                      f"patch_sample_bwd{lk}{pull}": k2}
+                      "interp_sample_camsum_bwd": coarse, f"patch_sample_bwd{lk}": k2}
 
 
 # Card step vs CPU step (plain path), stage 2 at drop_out 0 without GridMask:
 # the same fp32 arithmetic in other orders through ResNet-50, the decoder
-# layers and the backward (atomics on the card); the losses are sums over
-# every query, the gradient norm a sum of squares over 98 M gradients.
+# layers and the backward (the card's kernels add in their bins' order); the
+# losses are sums over every query, the gradient norm a sum of squares over
+# 98 M gradients.
 # |diff| <= TRAIN_RTOL * |cpu| + TRAIN_ATOL per loss, GRAD_NORM_RTOL for the
 # norm. Seen on an H100: <= 7e-7 of each loss, 2.5e-5 of the norm.
 TRAIN_RTOL, TRAIN_ATOL, GRAD_NORM_RTOL = 1e-4, 1e-5, 1e-3
@@ -1244,6 +1329,9 @@ def _step_outputs(model, metrics):
 
 # [train]'s steps in turns with the deterministic flag off and on
 FLAG_ROUNDS = 2
+# the launches of K1-bwd's and K2-bwd's calls, by kernel name
+BWD_KERNEL_NAMES = ("interp_sample_camsum_bwd", "patch_sample_bwd", "bin_scan", "bin_base",
+                    "bin_place", "bin_cells")
 
 
 def _step_repeats(card, cfg, dtype, build, step_batch, timed):
@@ -1321,6 +1409,13 @@ def _step_repeats(card, cfg, dtype, build, step_batch, timed):
                   key=lambda r: -abs(r[0]))
     say(f"[train] {name} the flag's largest changes by kernel (on - off, the profiled steps): "
         + "; ".join(f"{dn:+d} launches {dms:+.3f} ms {k[:90]}" for dms, dn, k in rows[:12]))
+    for on in (False, True):  # the sampler's backward kernels in the profiled step
+        mine = sorted(((ms, n, k) for k, (n, ms) in names[on].items()
+                       if any(t in k for t in BWD_KERNEL_NAMES)), reverse=True)
+        say(f"[train] {name} the sampler's backward kernels in the profiled step, flag "
+            f"{'on' if on else 'off'}: {sum(r[0] for r in mine):.3f} ms, "
+            f"{sum(r[1] for r in mine)} launches; "
+            + "; ".join(f"{n} launches {ms:.3f} ms {k[:70]}" for ms, n, k in mine))
     fills = [r for r in rows if "FillFunctor" in r[2]]
     say(f"[train] {name} of them the fills of torch.empty under the flag "
         f"(torch.utils.deterministic.fill_uninitialized_memory): "
@@ -1853,7 +1948,7 @@ def phase_train_cli(card: str):
            if not math.isfinite(v)]
     if bad:
         fail(f"train-cli: non-finite {bad}")
-    n_deform, per_call = _launch_plan(stage2(), deterministic=True)  # the CLI sets the flag
+    n_deform, per_call = _launch_plan(stage2())
     for name, per in per_call.items():
         want = CLI_STEPS * CLI_ACCUM * n_deform * per
         say(f"[train-cli] {name}: {launches[name]} launches over {CLI_STEPS} optimizer steps = "
@@ -2242,7 +2337,7 @@ def phase_eval(card: str, ckpt: str):
         fail(f"eval: loader training: non-finite {bad}, {len(res['metrics'])} steps, "
              f"{len(res['evals'])} evals")
     frames = LOADER_STEPS + LOADER_EVAL_FRAMES  # forwards: one per step, one per eval frame
-    for name, per in _launch_plan(cfg, deterministic=True)[1].items():  # the CLI sets the flag
+    for name, per in _launch_plan(cfg)[1].items():
         want = (frames if "_bwd" not in name else LOADER_STEPS) * n_deform * per
         if loader_launches[name] != want:
             fail(f"eval: loader training launched {name} {loader_launches[name]} times, "
@@ -2622,7 +2717,7 @@ def phase_serving(card: str):
 
     # under torch's deterministic flag: frame 0 from cold banks and frame 1
     # from frame 0's, each twice, bit for bit (forward only: K1 and K2 write
-    # each output once and need no other route)
+    # each output once)
     with flag(True):
         for dtype, n in ((torch.float32, 2), (torch.bfloat16, 1)):
             banks0 = None
@@ -2733,7 +2828,6 @@ def _options_kernels(cfg, card: str):
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     fwd, bwd = _Rec(), _Rec()
-    bwd_errs, bwd_times = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         for renorm in (True, False):
             maps, cam, x, y, w, cam_k, lvl = _lk_inputs(cfg, g, dev, dtype, renorm)
@@ -2763,14 +2857,11 @@ def _options_kernels(cfg, card: str):
             args = (maps, cam, x, y, w, gout, cam_k, lvl)
             dmaps, dx, dy, dw = kernels.patch_sample_bwd_lk(*args)
             torch.cuda.synchronize()
-            for name, err in _bwd_routes("[options]", f"K2-bwd-lk {what}",
-                                         kernels.patch_sample_bwd_lk, args, ref_g,
-                                         dtype == torch.bfloat16).items():
-                bwd_errs[name] = max(bwd_errs.get(name, 0.0), err)
+            bwd.err = max(bwd.err, _bwd_repeats("[options]", f"K2-bwd-lk {what}",
+                                                kernels.patch_sample_bwd_lk, args, ref_g,
+                                                dtype == torch.bfloat16))
             if dtype != torch.float32:
                 continue
-            bwd_times = _route_times("[options]", f"K2-bwd-lk {what}",
-                                     kernels.patch_sample_bwd_lk, args, card)
             lib = _lk_grid_sample(maps, x, y, lvl)
             t = fwd.add_times(*_times([
                 lambda: sampling.patch_sample_plain(maps, cam, x, y, w, cam_k, lvl),
@@ -2804,8 +2895,7 @@ def _options_kernels(cfg, card: str):
                 f"({TIMES}); per call {bwd.per_call_ms:.4f} ms; bound {bwd.bound_ms:.4f} ms "
                 f"({bwd.bound_by}: {taps} taps, {map_bytes / 1e6:.2f} MB of maps read)")
             del out, lm, ref_g
-    return {"patch_sample_lk": fwd,
-            **_route_recs(kernels.patch_sample_bwd_lk, bwd, bwd_errs, bwd_times)}
+    return {"patch_sample_lk": fwd, "patch_sample_bwd_lk": bwd}
 
 
 def _options_reference_route(card: str):
@@ -3008,7 +3098,7 @@ def _options_train(card: str):
     finally:
         matching.assign_many = assign_many
     for counts, on in zip(launches, (False, True)):
-        want = {k: n_deform * v for k, v in _launch_plan(cfg, deterministic=on)[1].items()}
+        want = {k: n_deform * v for k, v in _launch_plan(cfg)[1].items()}
         want["lsa_assign"] = MATCH_LAUNCHES
         say(f"[options] A's step launches on the card{' under the flag' if on else ''}: "
             + ", ".join(f"{k} {counts[k]} (expected {v})" for k, v in want.items()))
@@ -3408,6 +3498,17 @@ def _compare_k3_and_gathers(tree, cfg):
     return cases
 
 
+def _their_routes(wrapper):
+    """(route name, function) of each design a tree's backward wrapper
+    launches: each route it declares, through ``launch(route, ...)`` (the
+    trees where a wrapper could hold several); else (None, the wrapper),
+    its one design."""
+    routes = getattr(wrapper, "routes", None)
+    if not routes:
+        return [(None, wrapper)]
+    return [(r.name, lambda *a, r=r: wrapper.launch(r, *a)) for r in routes]
+
+
 def compare_against(other: str, cfg, card: str):
     """The kernels of the checkout at ``other`` against this tree's, at
     phase 3 and 3b's shapes (bs=1, fp32), K3 at phase 5f's and P2-P4 at
@@ -3435,9 +3536,11 @@ def compare_against(other: str, cfg, card: str):
         args = _k1_bwd_inputs(cfg, g, dev, lvl, torch.float32)
         gout = torch.randn(1, args[1].shape[1], args[0].shape[-1], generator=g, device=dev)
         bwd_args = args[:4] + (gout,) + args[4:]
-        cases.append((f"K1-bwd level {lvl} ({args[0].shape[1]}x{args[0].shape[2]})",
-                      lambda a=bwd_args: theirs.interp_sample_camsum_bwd(*a),
-                      lambda a=bwd_args: kernels.interp_sample_camsum_bwd(*a)))
+        for route, fn in _their_routes(theirs.interp_sample_camsum_bwd):
+            label = f", theirs route {route}" if route else ""
+            cases.append((f"K1-bwd level {lvl} ({args[0].shape[1]}x{args[0].shape[2]}){label}",
+                          lambda a=bwd_args, f=fn: f(*a),
+                          lambda a=bwd_args: kernels.interp_sample_camsum_bwd(*a)))
     k2_args = _k2_inputs(cfg, g, dev, torch.float32)
     maps2, cam, x, y, w, cam_k = k2_args
     W0 = maps2[0].shape[3]
@@ -3447,8 +3550,24 @@ def compare_against(other: str, cfg, card: str):
     cases.append(("K2 (bit for bit)", lambda: theirs.patch_sample(*k2_args),
                   lambda: kernels.patch_sample(*k2_args)))
     bwd2 = (maps2, cam, x, y, w, gout, cam_k)
-    cases.append(("K2-bwd", lambda: theirs.patch_sample_bwd(*bwd2),
-                  lambda: kernels.patch_sample_bwd(*bwd2)))
+    for route, fn in _their_routes(theirs.patch_sample_bwd):
+        label = f", theirs route {route}" if route else ""
+        cases.append((f"K2-bwd{label}", lambda f=fn: f(*bwd2),
+                      lambda: kernels.patch_sample_bwd(*bwd2)))
+    if hasattr(theirs, "patch_sample_bwd_lk"):  # the level-k variant, phase 9's shapes
+        lk = _lk_inputs(cfg, g, dev, torch.float32, True)
+        glk = torch.randn(x.shape[0], x.shape[1] // cam_k, maps2[0].shape[-1], generator=g,
+                          device=dev)
+        bwd_lk = lk[:5] + (glk, cam_k, lk[6])
+        for route, fn in _their_routes(theirs.patch_sample_bwd_lk):
+            label = f", theirs route {route}" if route else ""
+            cases.append((f"K2-bwd-lk{label}", lambda f=fn: f(*bwd_lk),
+                          lambda: kernels.patch_sample_bwd_lk(*bwd_lk)))
+    for what, name, args in step_bwd_calls():
+        for route, fn in _their_routes(getattr(theirs, name)):
+            label = f", theirs route {route}" if route else ""
+            cases.append((f"{what}{label}", lambda f=fn, a=args: f(*a),
+                          lambda n=name, a=args: getattr(kernels, n)(*a)))
     fmaps = list(maps2) + maps  # levels 0-3 of one pyramid
     topk = dict(cam_k=cfg.sampler_cam_k, matmul_levels=cfg.sampler_matmul_levels,
                 cam_renorm=cfg.sampler_cam_renorm)
@@ -3648,9 +3767,144 @@ def compare_paths(tree, card: str):
         f"over {len(a) + AGENT_WARMUP} ticks each")
 
 
-# the kernel table's rows whose design adds with float atomics (taken with
-# torch's deterministic flag off)
-ATOMIC_ROWS = ("interp_sample_camsum_bwd", "patch_sample_bwd", "patch_sample_bwd_lk")
+
+PROFILE_CALLS = 5
+# --profile-routes: the binned plans' counts an item (kernels._BIN_COUNTS_PER_ITEM)
+PROFILE_COUNTS_PER_ITEM = (2, 8, 16, 64)
+
+
+def _k1_profile_bytes(args):
+    """K1-bwd's bytes by launch name: (the binned design's, the earlier
+    designs')."""
+    fm, px, py, wg, gout = args[:5]
+    h, w, C = fm.shape[1:]
+    _, rows = _k1_reads(px, py, wg, h, w, bwd=True)
+    small = _nbytes(px, py, wg, gout)
+    samples = rows * C * 4 + small + _nbytes(px) * 2 + _nbytes(wg)
+    items = px.numel()
+    return ({"samples": samples + items * (4 + 16), "bin_place": items * (4 + 16 + 16),
+             "bin_cells": items * 16 + small + _nbytes(fm)},
+            {"samples": samples, "tiles": small + _nbytes(fm)})
+
+
+def _k2_profile_bytes(args):
+    """K2-bwd's (or K2-bwd-lk's) bytes by launch name: (the binned
+    design's, the earlier designs')."""
+    m, c_, xx, yy, ww, gout = args[:6]
+    lvl = args[7] if len(args) > 7 else None
+    _, map_bytes = _k2_reads(m, c_, xx, yy, ww, True, lvl)
+    taps = xx.numel() * ww.shape[2] * 4
+    cells = sum(t.numel() // t.shape[-1] for t in m)
+    dmaps = _nbytes(*m)
+    small = _nbytes(c_, xx, yy, ww, gout) + (0 if lvl is None else _nbytes(lvl))
+    rows_k = map_bytes + small + _nbytes(xx, yy, ww)
+    return ({"patch_sample_bwd_kernel": rows_k + taps // 4 * (4 + 16),
+             "bin_place": taps // 4 * (4 + 16 + 16), "bin_cells": taps // 4 * 16 + small + dmaps},
+            {"patch_sample_bwd_kernel": rows_k, "cells": (cells + 1) * 4 + taps * 8 + small + dmaps,
+             "sort": taps * (4 + 4 + 8), "search": taps * 4 + (cells + 1) * 8,
+             "fillfunctor": [_nbytes(t) for t in m], "arange": (cells + 1) * 4})
+
+
+def _profile_call(tree, what, name, fn, args, nbytes):
+    """``PROFILE_CALLS`` profiled calls of fn(*args) after a warm-up: each
+    launch's device time (median) and bytes; returns their total."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn(*args)
+    torch.cuda.synchronize()
+    calls = []
+    for _ in range(PROFILE_CALLS):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn(*args)
+            torch.cuda.synchronize()
+        calls.append([(e.name, (e.time_range.end - e.time_range.start) / 1e3)
+                      for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA])
+    n = min(len(c) for c in calls)
+    total = 0.0
+    for i in range(n):
+        launch = calls[0][i][0]
+        ms = statistics.median(c[i][1] for c in calls)
+        total += ms
+        nb = next((v for k, v in nbytes.items() if k in launch.lower()), None)
+        if isinstance(nb, list):  # one entry a launch of that name, in order
+            nb = nb[sum(1 for c in calls[0][:i] if c[0] == launch) % len(nb)]
+        by = (f", {nb / 1e6:.2f} MB, {nb / HBM_BYTES_PER_S * 1e3:.4f} ms at the memory "
+              f"rate ({ms / (nb / HBM_BYTES_PER_S * 1e3):.1f}x)" if nb else "")
+        say(f"[profile] {tree} {what} route {name} launch {i}: {ms:.4f} ms{by}: {launch[:110]}")
+    say(f"[profile] {tree} {what} route {name}: {n} launches, {total:.4f} ms of device time in "
+        f"all")
+    return total
+
+
+def profile_routes(cfg, card: str, kmod, tree: str, step_calls):
+    """``--profile-routes``: one call of each design of a tree's backward
+    wrappers (``kmod``, its ``ops/kernels.py``: each route where it
+    declares them, else its one design, the binned scatter) at phases 3b's
+    and 9's shapes (K1-bwd per coarse level, K2-bwd, K2-bwd-lk) and at a
+    stage-2 step's own largest calls (``step_calls``: ``step_bwd_calls``);
+    fp32, flag off; under torch.profiler, ``PROFILE_CALLS`` calls after a
+    warm-up: every launch inside the call (the kernels' own and torch's:
+    fills, memsets, sort, arange, searchsorted), its device time (median
+    over the calls), and, for the launches named, the bytes it must move
+    (each input read once, each output written once) over the card's memory
+    rate. The binned design is profiled at each of
+    ``PROFILE_COUNTS_PER_ITEM``, its plan printed."""
+    import torch
+
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    cases = []  # (what, wrapper name, args, bytes of the binned design, the earlier designs')
+    for lvl in [l for l in cfg.sampler_matmul_levels if l < cfg.num_levels]:
+        fm, px, py, wg, bs, cams = _k1_bwd_inputs(cfg, g, dev, lvl, torch.float32)
+        gout = torch.randn(bs, px.shape[1], fm.shape[-1], generator=g, device=dev)
+        args = (fm, px, py, wg, gout, bs, cams)
+        cases.append((f"K1-bwd level {lvl} ({fm.shape[1]}x{fm.shape[2]})",
+                      "interp_sample_camsum_bwd", args, *_k1_profile_bytes(args)))
+    maps, cam, x, y, w, cam_k = _k2_inputs(cfg, g, dev, torch.float32)
+    gout = torch.randn(x.shape[0], x.shape[1] // cam_k, maps[0].shape[-1], generator=g,
+                       device=dev)
+    g2 = torch.Generator(device=dev).manual_seed(SEED + 2)
+    lk = _lk_inputs(cfg, g2, dev, torch.float32, True)
+    glk = torch.randn(x.shape[0], x.shape[1] // cam_k, maps[0].shape[-1], generator=g2,
+                      device=dev)
+    for what, name, args in (("K2-bwd", "patch_sample_bwd", (maps, cam, x, y, w, gout, cam_k)),
+                             ("K2-bwd-lk", "patch_sample_bwd_lk",
+                              lk[:5] + (glk, cam_k, lk[6]))):
+        cases.append((what, name, args, *_k2_profile_bytes(args)))
+    for what, name, args in step_calls:
+        cases.append((what, name, args, *(_k1_profile_bytes(args)
+                                           if name == "interp_sample_camsum_bwd"
+                                           else _k2_profile_bytes(args))))
+    say(f"[profile] {tree}: one call of each design, fp32, torch's deterministic flag off, "
+        f"{PROFILE_CALLS} calls profiled after a warm-up, device time per launch (median) on "
+        f"{card}; bytes: each input read once and each output written once, at "
+        f"{HBM_BYTES_PER_S / 1e12:g} TB/s")
+    budget = getattr(kmod, "_BIN_COUNTS_PER_ITEM", None)
+    for what, name, args, binned, earlier in cases:
+        kernel = getattr(kmod, name)
+        for route, fn in _their_routes(kernel):
+            if route is not None:
+                _profile_call(tree, what, route, fn, args, earlier)
+                continue
+            for c in ([budget] if budget is None else PROFILE_COUNTS_PER_ITEM):
+                if budget is not None:
+                    kmod._BIN_COUNTS_PER_ITEM = c
+                try:
+                    plan = (kmod.k1_bwd_plan(args[0].shape[0], args[0].shape[1], args[0].shape[2],
+                                             args[1].shape[1])
+                            if name == "interp_sample_camsum_bwd" else
+                            kmod.k2_bwd_plan(args[2].shape[0], args[0][0].shape[1],
+                                             [m.shape[2:4] for m in args[0]], args[2].shape[1],
+                                             args[4].shape[2]))
+                    total = _profile_call(tree, what, "binned", fn, args, binned)
+                finally:
+                    if budget is not None:
+                        kmod._BIN_COUNTS_PER_ITEM = budget
+                say(f"[profile] {tree} {what} binned at {c} counts an item "
+                    f"({'the default' if c == budget else 'swept'}): {_plan_text(plan)}; "
+                    f"{total:.4f} ms")
 
 
 def main():
@@ -3661,6 +3915,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--against", metavar="DIR",
                     help="time another checkout's kernels and paths against this tree's")
+    ap.add_argument("--profile-routes", action="store_true",
+                    help="profile one call of each backward route, launch by launch (with "
+                         "--against, the other tree's first), and stop")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke runs on a CUDA card only")
@@ -3681,6 +3938,15 @@ def main():
     card = timed("env", phase_env)
     timed("build", phase_build)
     cfg = stage2()
+    if args.profile_routes:
+        from hipad_torch.ops import kernels
+
+        step_calls = step_bwd_calls()
+        if args.against:
+            profile_routes(cfg, card, _other_tree(args.against)["ops.kernels"], "theirs",
+                           step_calls)
+        profile_routes(cfg, card, kernels, "ours", step_calls)
+        return
     if args.against:
         compare_paths(compare_against(args.against, cfg, card), card)
         return
@@ -3724,13 +3990,6 @@ def main():
                                 "hipad_tpu/ops/sampling.py:530", "options_step"),
         "lsa_assign": ("hipad_torch/csrc/lsa_assign.cu", "hipad_tpu/targets/matching.py:36",
                        "step"),
-        # the deterministic routes beside the atomic ones, taken under torch's flag
-        "interp_sample_camsum_bwd_owned": ("hipad_torch/csrc/interp_sample_bwd.cu",
-                                           "hipad_tpu/ops/sampling.py:252", "train_cli"),
-        "patch_sample_bwd_pull": ("hipad_torch/csrc/patch_sample_bwd.cu",
-                                  "hipad_tpu/ops/sampling.py:649", "train_cli"),
-        "patch_sample_bwd_lk_pull": ("hipad_torch/csrc/patch_sample_bwd.cu",
-                                     "hipad_tpu/ops/sampling.py:649", "options_step_flag"),
     }
     paths = {
         "step": (step_launches, f"phase 5: {WARMUP_STEPS + TIMED_STEPS} chained stage-2 fp32 "
@@ -3770,7 +4029,7 @@ def main():
                      "launches": by_path[own], "launches_of": paths[own][1],
                      "launches_by_path": by_path, "max_abs_err": k[name].err,
                      "ms": k[name].ms, "per_call_ms": k[name].per_call_ms,
-                     "deterministic": name not in ATOMIC_ROWS, "plain_ms": k[name].plain_ms,
+                     "plain_ms": k[name].plain_ms,
                      "bound_ms": k[name].bound_ms, "bound_by": k[name].bound_by,
                      "library_ms": k[name].library_ms})
     say(json.dumps({"kernels": rows}))

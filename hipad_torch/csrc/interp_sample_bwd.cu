@@ -16,50 +16,33 @@
 // weight 0 and derivative +-1/2, as the dense reference's iota compare does.
 //
 // What bounds it on this card: the scatter into d fm. Some 11,700 samples x
-// 6 cameras add into maps of only 22x40 and 11x20 cells, some 20 to 85 adds
-// per address, which atomics in device memory would serialise in the L2.
-// Design: one C call, two launches on the caller's stream, each about half
-// of the time, both bound by the latency of their warps' dependent reads.
+// 6 cameras add into maps of only 22x40 and 11x20 cells, some 50 taps per
+// cell, which atomics in device memory would serialise in the L2 and whose
+// order of addition they would leave to the schedule. Design: one C call,
+// five launches on the caller's stream, every element of every output
+// written once, in an order of addition that the inputs alone fix (the same
+// bits on every run, as torch's deterministic flag asks):
 //
 //  * Sample blocks, one warp per (b, m) row as in the forward, the upstream
 //    row in registers for the 6 cameras, whose coordinates the warp reads at
 //    once: read the rows of the four taps (y0 + i, x0 + j) at once (and of
 //    the kinks' outer taps after them), reduce d wg, d px, d py inside the
-//    warp and store each once. They do not touch d fm.
-//  * Tile blocks: a cluster of S blocks owns one tile d fm[bc, :, :, c0:c0+Ct]
-//    (Ct channels of one group), each block a copy in shared memory. The
-//    blocks zero their copies, split the samples of batch b among them (a
-//    fixed interleave by cluster rank), and add wxy * wg * go of every tap
-//    with a non-zero weight into their copy, lane = channel on consecutive
-//    words. Then each block sums one S-th of the tile over the cluster's
-//    copies in rank order (distributed shared memory) and writes it once,
-//    in the map's dtype. Two routes for the adds into a copy
-//    (ops/kernels.py: InterpSampleCamsumBwd picks one by
-//    torch.are_deterministic_algorithms_enabled()):
-//    - atomic: the block's samples are split among its 16 warps, which add
-//      by shared-memory atomics in whatever order they arrive, so the sum's
-//      rounding changes from run to run;
-//    - owned (deterministic): warp w owns the cells (y, x) with
-//      (y % 4) * 4 + x % 4 == w, so the four taps of a sample fall to four
-//      warps; every warp reads all of the block's samples in order and adds
-//      only its own tap of each, with plain adds. Each word then has one
-//      writer, which adds in the samples' order: the same bits on every run.
+//    warp and store each once. They do not touch d fm; they write one item
+//    per (sample, camera) whose taps reach the map with a non-zero weight,
+//    binned by (camera's map, top tap row, segment of the left tap column),
+//    and count the bins.
+//  * The binned scatter of bin_scatter.cuh: a stable counting sort of the
+//    items by bin (two scan launches, a place launch), then a warp per map cell
+//    (per run of 4 on maps whose cells get few taps), lanes on channels, that
+//    sums the taps of its cells in the items' order in fp32 registers and
+//    writes each cell once in the map's dtype (ops/kernels.py: k1_bwd_plan).
+//    Maps of any size take the same path.
 //
-// So every element of d fm is written exactly once, and the caller needs no
-// zero fill. The tile size (Ct, S, bytes) is chosen by the caller
-// (ops/kernels.py: k1_bwd_tiling). A map whose fp32 tile does not fit one
-// block's shared memory even at 8 channels (more than 7,264 cells) is cut
-// into bands of Hb whole rows, Hb = bytes / (W * Ct * 4): each band is a
-// tile of its own, whose blocks read every sample but keep only the taps
-// whose row lies in the band (a sample's two tap rows may straddle two
-// bands, each adding its own). Samples whose taps all lie outside the
-// map (points behind a camera project to ~1e8 px) are range-checked before
-// any int conversion, in both kinds of block.
-#include <cooperative_groups.h>
-
+// Samples whose taps all lie outside the map (points behind a camera
+// project to ~1e8 px) are range-checked before any int conversion, in both
+// kernels.
+#include "bin_scatter.cuh"
 #include "sample_common.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -67,12 +50,6 @@ using hipad::kMaxChunks;
 using hipad::kThreads;
 using hipad::kVec;
 using hipad::kWarps;
-
-constexpr int kTileThreads = 512;
-constexpr int kTileWarps = kTileThreads / 32;
-constexpr int kMaxTile = 32;    // channels of a tile: one lane each
-constexpr int kMaxCluster = 8;  // the portable cluster size
-constexpr int kBatch = 4;       // live samples a warp takes at once
 
 // d px, d py and d wg of one (sample, camera) from one tap (yy, xx) whose row
 // is v, taking the hat weights and derivatives at the tap.
@@ -109,7 +86,8 @@ interp_sample_camsum_bwd_samples_kernel(const T* __restrict__ fm,
                                         float* __restrict__ dpy,
                                         float* __restrict__ dwg, int bs,
                                         int cams, int H, int W, int C, int G,
-                                        int M) {
+                                        int M, hipad::BinScratch bins, int chunks,
+                                        int nseg, int sw) {
   __shared__ float red[kWarps][32 * kMaxChunks];
   const int warp = threadIdx.x >> 5;
   const long long row = static_cast<long long>(blockIdx.x) * kWarps + warp;
@@ -186,181 +164,34 @@ interp_sample_camsum_bwd_samples_kernel(const T* __restrict__ fm,
     }
     hipad::store_group_sums(red[warp], part, dwg + s * G, C, G, lane);
   }
-}
-
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162 h[2] = {__floats2bfloat162_rn(v.x, v.y), __floats2bfloat162_rn(v.z, v.w)};
-  *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(h);
-}
-
-// grid (S, C / Ct * bands, bs*cams), cluster (S, 1, 1), kTileThreads
-// threads, Hb*W*Ct floats of dynamic shared memory: the copy of this block
-// of its band of rows [r0, r0 + Hb) (the last band may be shorter).
-// kOwned: the deterministic route (see the header).
-template <typename T, bool kOwned>
-__global__ void __launch_bounds__(kTileThreads, 2)
-interp_sample_camsum_bwd_tiles_kernel(const float* __restrict__ px,
-                                      const float* __restrict__ py,
-                                      const float* __restrict__ wg,
-                                      const float* __restrict__ gout,
-                                      T* __restrict__ dfm, int cams, int H,
-                                      int W, int C, int G, int M, int Ct,
-                                      int Hb) {
-  extern __shared__ float4 tile4[];
-  float* tile = reinterpret_cast<float*>(tile4);
-  cg::cluster_group cluster = cg::this_cluster();
-  const int S = static_cast<int>(cluster.num_blocks());
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int bands = (H + Hb - 1) / Hb;
-  const int c0 = (blockIdx.y / bands) * Ct;
-  const int r0 = (blockIdx.y % bands) * Hb;  // the band's rows [r0, r1)
-  const int r1 = min(H, r0 + Hb);
-  const long long bc = blockIdx.z;
-  const long long b = bc / cams;
-  const int n4 = (r1 - r0) * W * Ct / 4;
-
-  // 1. zero this block's copy
-  for (int i = threadIdx.x; i < n4; i += kTileThreads) tile4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  __syncthreads();
-
-  // 2. scatter: lane l looks at sample m (its coordinates read a round
-  // ahead), then the warp adds each live sample's taps, kBatch samples at a
-  // time, lane = channel (lanes >= Ct idle). Atomic route: the block's
-  // samples are split among its warps, each adding all four taps of its
-  // samples. Owned route: every warp of the block reads all of the block's
-  // samples and adds only the tap that falls in a cell it owns.
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const bool chan = lane < Ct;
-  const float* pxb = px + bc * M;
-  const float* pyb = py + bc * M;
-  const float* wgb = wg + bc * M * G + c0 / (C / G);  // the tile's group
-  const float* gob = gout + b * M * C + c0 + (chan ? lane : 0);
-  const int stride = kOwned ? S * 32 : S * kTileWarps * 32;
-  int m = (kOwned ? rank : rank * kTileWarps + warp) * 32 + lane;
-  float xn = 0.f, yn = 0.f, wn = 0.f;  // sample m's, read one round ahead
-  if (m < M) {
-    xn = pxb[m];
-    yn = pyb[m];
-    wn = wgb[static_cast<long long>(m) * G];
+  // the items, one per camera of the row: those whose taps can reach the
+  // map with a non-zero weight, binned by (camera's map, top tap row,
+  // segment of the left tap column)
+  for (int cam = lane; cam < cams; cam += 32) {
+    const long long bc = static_cast<long long>(b) * cams + cam;
+    const long long s = bc * M + m;
+    const float x = px[s];
+    const float y = py[s];
+    bool any = false;
+#pragma unroll 8
+    for (int q = 0; q < G; ++q) any |= wg[s * G + q] != 0.f;
+    int key = -1;
+    if (any && x > -1.f && x < static_cast<float>(W) && y > -1.f && y < static_cast<float>(H)) {
+      const int col = max(static_cast<int>(floorf(x)), 0);
+      key = static_cast<int>((bc * (H + 1) + static_cast<int>(floorf(y)) + 1) * nseg + col / sw);
+    }
+    hipad::bin_item(bins.keys, bins.items, bins.hist, chunks, s, key, x, y, static_cast<int>(s),
+                    static_cast<int>(row));
   }
-  for (; m - lane < M; m += stride) {
-    const float x = xn, y = yn, w = wn;
-    if (m + stride < M) {
-      xn = pxb[m + stride];
-      yn = pyb[m + stride];
-      wn = wgb[static_cast<long long>(m + stride) * G];
-    }
-    int x0 = 0, y0 = 0;
-    float s00 = 0.f, s01 = 0.f, s10 = 0.f, s11 = 0.f;
-    // a tap with a non-zero hat weight lies on the map only for p in
-    // (-1, size), and in the band only for y in (r0 - 1, r1) (also false
-    // for NaN)
-    if (m < M && w != 0.f && x > -1.f && x < static_cast<float>(W) &&
-        y > static_cast<float>(r0 - 1) && y < static_cast<float>(r1)) {
-      x0 = static_cast<int>(floorf(x));
-      y0 = static_cast<int>(floorf(y));
-      if (kOwned) {
-        // only the tap (y0 + di, x0 + dj) in this warp's cells, if any, as
-        // the 00 tap of the cell computed below (the same products as the
-        // atomic route's s_ij)
-        const int di = ((warp >> 2) - y0) & 3;
-        const int dj = ((warp & 3) - x0) & 3;
-        y0 += di;
-        x0 += dj;
-        if (di < 2 && dj < 2) {
-          const float wy = y0 >= r0 && y0 < r1 ? hipad::hat(y - static_cast<float>(y0)) : 0.f;
-          const float wx = x0 >= 0 && x0 < W ? hipad::hat(x - static_cast<float>(x0)) : 0.f;
-          s00 = wy * wx * w;
-        }
-      } else {
-        const float wx0 = x0 >= 0 ? hipad::hat(x - static_cast<float>(x0)) : 0.f;
-        const float wx1 = x0 + 1 < W ? hipad::hat(x - static_cast<float>(x0 + 1)) : 0.f;
-        const float wy0 = y0 >= r0 ? hipad::hat(y - static_cast<float>(y0)) : 0.f;
-        const float wy1 = y0 + 1 < r1 ? hipad::hat(y - static_cast<float>(y0 + 1)) : 0.f;
-        s00 = wy0 * wx0 * w;
-        s01 = wy0 * wx1 * w;
-        s10 = wy1 * wx0 * w;
-        s11 = wy1 * wx1 * w;
-      }
-    }
-    unsigned live = __ballot_sync(0xffffffffu,
-                                  s00 != 0.f || s01 != 0.f || s10 != 0.f || s11 != 0.f);
-    while (live != 0u) {
-      int src[kBatch];
-      float g[kBatch];
-#pragma unroll
-      for (int k = 0; k < kBatch; ++k) {
-        src[k] = live != 0u ? __ffs(live) - 1 : -1;
-        live &= live - 1u;
-        const int ms = __shfl_sync(0xffffffffu, m, src[k] < 0 ? 0 : src[k]);
-        g[k] = src[k] >= 0 && chan ? __ldg(gob + static_cast<long long>(ms) * C) : 0.f;
-      }
-#pragma unroll
-      for (int k = 0; k < kBatch; ++k) {
-        const int sl = src[k] < 0 ? 0 : src[k];
-        // the tap's cell in the band; negative for y0 = r0 - 1, whose row-y0
-        // taps then have weight 0
-        const int cell = __shfl_sync(0xffffffffu, (y0 - r0) * W + x0, sl);
-        const float a00 = __shfl_sync(0xffffffffu, s00, sl);
-        if (kOwned) {
-          // this warp alone adds into its cells, lane = channel: the adds
-          // of each word follow the samples' order, whatever the schedule
-          if (src[k] >= 0 && chan && a00 != 0.f) tile[cell * Ct + lane] += a00 * g[k];
-          continue;
-        }
-        const float a01 = __shfl_sync(0xffffffffu, s01, sl);
-        const float a10 = __shfl_sync(0xffffffffu, s10, sl);
-        const float a11 = __shfl_sync(0xffffffffu, s11, sl);
-        if (src[k] >= 0 && chan) {
-          // a zero weight marks a tap outside the map: never dereferenced
-          if (a00 != 0.f) atomicAdd(tile + cell * Ct + lane, a00 * g[k]);
-          if (a01 != 0.f) atomicAdd(tile + (cell + 1) * Ct + lane, a01 * g[k]);
-          if (a10 != 0.f) atomicAdd(tile + (cell + W) * Ct + lane, a10 * g[k]);
-          if (a11 != 0.f) atomicAdd(tile + (cell + W + 1) * Ct + lane, a11 * g[k]);
-        }
-      }
-    }
-  }
-
-  // 3.-4. sum one S-th of the tile over the cluster's copies and write it
-  cluster.sync();
-  const int per = (n4 + S - 1) / S;
-  const int hi = min(n4, (rank + 1) * per);
-  const int ct4 = Ct / 4;
-  for (int i = rank * per + threadIdx.x; i < hi; i += kTileThreads) {
-    float4 v[kMaxCluster];
-#pragma unroll
-    for (int q = 0; q < kMaxCluster; ++q) {
-      if (q < S) v[q] = cluster.map_shared_rank(tile4, q)[i];
-    }
-    float4 acc = v[0];
-#pragma unroll
-    for (int q = 1; q < kMaxCluster; ++q) {
-      if (q < S) {
-        acc.x += v[q].x;
-        acc.y += v[q].y;
-        acc.z += v[q].z;
-        acc.w += v[q].w;
-      }
-    }
-    const int cell = i / ct4;
-    const int c = (i - cell * ct4) * 4;
-    store4(dfm + (bc * H * W + static_cast<long long>(r0) * W + cell) * C + c0 + c, acc);
-  }
-  cluster.sync();  // no block leaves while another reads its copy
 }
 
 template <typename T>
-cudaError_t launch(const void* fm, const float* px, const float* py,
-                   const float* wg, const float* gout, void* dfm, float* dpx,
-                   float* dpy, float* dwg, int bs, int cams, int H, int W,
-                   int C, int G, int M, int Ct, int S, int smem, bool owned,
-                   cudaStream_t st) {
+cudaError_t launch(const void* fm, const float* px, const float* py, const float* wg,
+                   const float* gout, void* dfm, float* dpx, float* dpy, float* dwg, int bs,
+                   int cams, int H, int W, int C, int G, int M, const hipad::BinScratch& bins,
+                   const hipad::BinPlan& plan, cudaStream_t st) {
+  cudaError_t err = hipad::bin_begin(bins, plan, st);
+  if (err != cudaSuccess) return err;
   const long long rows = static_cast<long long>(bs) * M;
   const unsigned blocks = static_cast<unsigned>((rows + kWarps - 1) / kWarps);
   auto* samples = interp_sample_camsum_bwd_samples_kernel<T, kMaxChunks>;
@@ -369,30 +200,15 @@ cudaError_t launch(const void* fm, const float* px, const float* py,
     case 2: samples = interp_sample_camsum_bwd_samples_kernel<T, 2>; break;
     case 3: samples = interp_sample_camsum_bwd_samples_kernel<T, 3>; break;
   }
-  samples<<<blocks, kThreads, 0, st>>>(static_cast<const T*>(fm), px, py, wg, gout, dpx,
-                                       dpy, dwg, bs, cams, H, W, C, G, M);
-  cudaError_t err = cudaGetLastError();
+  const int sw = plan.sw[0];
+  samples<<<blocks, kThreads, 0, st>>>(static_cast<const T*>(fm), px, py, wg, gout, dpx, dpy,
+                                       dwg, bs, cams, H, W, C, G, M, bins, plan.chunks,
+                                       (W + sw - 1) / sw, sw);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-
-  auto* tiles = owned ? interp_sample_camsum_bwd_tiles_kernel<T, true>
-                      : interp_sample_camsum_bwd_tiles_kernel<T, false>;
-  err = cudaFuncSetAttribute(tiles, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  const int Hb = smem / (W * Ct * 4);
-  cfg.gridDim = dim3(S, C / Ct * ((H + Hb - 1) / Hb), bs * cams);
-  cfg.blockDim = dim3(kTileThreads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = S;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, tiles, px, py, wg, gout, static_cast<T*>(dfm), cams, H, W,
-                            C, G, M, Ct, Hb);
+  T* dfms[1] = {static_cast<T*>(dfm)};
+  return hipad::bin_finish<T>(bins, plan, rows * cams, dfms, &H, &W, hipad::K1Geo{}, gout, wg,
+                              C, G, st);
 }
 
 }  // namespace
@@ -400,22 +216,24 @@ cudaError_t launch(const void* fm, const float* px, const float* py,
 // fm [bs*cams, H, W, C] (fp32, or bf16 when fm_bf16 != 0); px, py [bs*cams, M]
 // fp32; wg [bs*cams, M, G] fp32; gout [bs, M, C] fp32. Outputs: dfm
 // [bs*cams, H, W, C] in fm's dtype; dpx, dpy [bs*cams, M] and dwg
-// [bs*cams, M, G] fp32; every element of each written here. Tiling: Ct
-// channels per tile (8, 16 or 32, dividing C/G), clusters of S <= 8 blocks,
-// smem = Hb*W*Ct*4 bytes of shared memory per block for bands of Hb rows
-// (Hb = H: the whole map in one tile). owned != 0: the tile blocks' deterministic
-// route, else the atomic one.
-// Returns the first CUDA error of the two launches, or 0.
+// [bs*cams, M, G] fp32; every element of each written here. keys, items,
+// hist, tot, out, start: the scratch of hipad::BinScratch; plan: the host
+// ints of ops/kernels.py:k1_bwd_plan (one level, tb0 = -1: bin rows are the
+// top tap rows -1 .. H-1). Returns the first CUDA error of the six
+// launches (the counts' zero fill, the sample blocks, the two scans, the
+// placement, the cells), or 0.
 extern "C" int hipad_interp_sample_camsum_bwd(
-    const void* fm, int fm_bf16, const void* px, const void* py,
-    const void* wg, const void* gout, void* dfm, void* dpx, void* dpy,
-    void* dwg, int bs, int cams, int H, int W, int C, int G, int M, int Ct,
-    int S, int smem, int owned, void* stream) {
-  if (Ct < 8 || Ct > kMaxTile || Ct % 8 != 0 || (C / G) % Ct != 0 || S < 1 ||
-      S > kMaxCluster || smem <= 0 || smem % (4 * W * Ct) != 0 ||
-      smem / (4 * W * Ct) > H) {
+    const void* fm, int fm_bf16, const void* px, const void* py, const void* wg,
+    const void* gout, void* dfm, void* dpx, void* dpy, void* dwg, int bs, int cams, int H,
+    int W, int C, int G, int M, void* keys, void* items, void* hist, void* tot, void* out,
+    void* start, const int* plan, void* stream) {
+  hipad::BinPlan p;
+  if (!hipad::read_plan(plan, p) || p.n != 1 || p.tb0[0] != -1 || p.rowbins[0] != H + 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const hipad::BinScratch bins{static_cast<int*>(keys), static_cast<hipad::BinItem*>(items),
+                               static_cast<int*>(hist), static_cast<int*>(tot),
+                               static_cast<hipad::BinItem*>(out), static_cast<int*>(start)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* f_px = static_cast<const float*>(px);
   const float* f_py = static_cast<const float*>(py);
@@ -426,8 +244,8 @@ extern "C" int hipad_interp_sample_camsum_bwd(
   float* o_wg = static_cast<float*>(dwg);
   const cudaError_t err =
       fm_bf16 ? launch<__nv_bfloat16>(fm, f_px, f_py, f_wg, f_go, dfm, o_px, o_py, o_wg, bs,
-                                      cams, H, W, C, G, M, Ct, S, smem, owned != 0, st)
+                                      cams, H, W, C, G, M, bins, p, st)
               : launch<float>(fm, f_px, f_py, f_wg, f_go, dfm, o_px, o_py, o_wg, bs, cams, H,
-                              W, C, G, M, Ct, S, smem, owned != 0, st);
+                              W, C, G, M, bins, p, st);
   return static_cast<int>(err);
 }

@@ -240,17 +240,12 @@ __device__ __forceinline__ float warp_sum(float v) {
 //   dot_c   = sum over this lane's 8 channels of row * go   (per chunk)
 //   part[ch] += wxy * dot_c                (-> d wg of the chunk's group)
 //   dsum    += wg[group] * dot_c           (-> d x, d y through the hats)
-//   drow    += wxy * wg[group] * go        when drow is given and that is not
-//              zero: two 16-byte fp32 reductions per chunk (atomicAdd on
-//              float4, compute capability 9.x), the lane's 8 channels being
-//              contiguous and 32-byte aligned
 template <int NCH>
 __device__ __forceinline__ void tap_backward(const float (&v)[NCH][kVec],
                                              const float (&go)[NCH][kVec],
                                              const float* wg, float wxy,
                                              float (&part)[NCH], float& dsum,
-                                             int C, int gd, int lane,
-                                             float* drow = nullptr) {
+                                             int C, int gd, int lane) {
 #pragma unroll
   for (int ch = 0; ch < NCH; ++ch) {
     const int c0 = (ch * 32 + lane) * kVec;
@@ -261,12 +256,6 @@ __device__ __forceinline__ void tap_backward(const float (&v)[NCH][kVec],
       const float g = wg[c0 / gd];
       part[ch] = fmaf(wxy, dot, part[ch]);
       dsum = fmaf(g, dot, dsum);
-      const float s = wxy * g;
-      if (drow != nullptr && s != 0.f) {
-        float4* d = reinterpret_cast<float4*>(drow + c0);
-        atomicAdd(d, make_float4(s * go[ch][0], s * go[ch][1], s * go[ch][2], s * go[ch][3]));
-        atomicAdd(d + 1, make_float4(s * go[ch][4], s * go[ch][5], s * go[ch][6], s * go[ch][7]));
-      }
     }
   }
 }

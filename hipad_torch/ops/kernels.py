@@ -13,20 +13,17 @@ into one shared library with a C interface, on first use, into
 module on hosts without a card or a compiler.
 
 Each wrapper checks device, dtype, shape, contiguity and alignment, raises
-on anything its kernel does not take, allocates its outputs (``torch.empty``;
-``torch.zeros`` for the map gradients an atomic route adds into), launches on
+on anything its kernel does not take, allocates its outputs and scratch
+(``torch.empty``: every element is written by the kernels), launches on
 PyTorch's current stream and raises if the launch reports a CUDA error.
 Each keeps ``launches``, the number of calls that launched its kernel, so a
 run can show that the main path went through the kernel.
 
-Each wrapper also declares its ``routes`` (:class:`Route`): the designs it
-can launch, and whether each adds with float atomics into an output that
-several threads share, which makes the sum's rounding change from run to
-run. A call takes ``route()``: with torch's deterministic flag on
-(``torch.use_deterministic_algorithms(True)``) the first route that adds
-no atomics, else the first route; under the flag a wrapper with no such
-route raises, naming its kernel, as torch's own nondeterministic CUDA ops
-do (:func:`pick_route`).
+No kernel adds with float atomics into an output that several threads
+share: each sums in an order that its inputs alone fix, so a call gives the
+same bits on every run, with torch's deterministic flag
+(``torch.use_deterministic_algorithms(True)``) on or off, and every wrapper
+has one design.
 """
 
 from __future__ import annotations
@@ -64,54 +61,179 @@ def _forward_smem_bytes(pairs: int, G: int) -> int:
     pair and the pairs' G group weights in fp32, rounded up to 16 bytes."""
     return _WARPS * ((pairs * 4 * 16 + pairs * G * 4 + 15) // 16 * 16)
 
-# K1-bwd's tile blocks (csrc/interp_sample_bwd.cu) on an H100 SXM: 132 SMs,
-# 227 KB of shared memory a block can have, 228 KB an SM shares among its
-# blocks (each also holding 1 KB for the system). Registers allow two blocks
-# of 512 threads an SM (__launch_bounds__(kTileThreads, 2)).
-_SMS = 132
-_SMEM_PER_BLOCK = 232_448
-_SMEM_PER_SM = 233_472
-_SMEM_RESERVED = 1024
-_TILE_BLOCKS_PER_SM = 2
-_TILE_CHANNELS = (32, 16, 8)  # one lane each, the widest that fits first
-_MAX_CLUSTER = 8  # the portable cluster size
+_SMEM_PER_BLOCK = 232_448  # shared memory an H100 block may opt in to (K3's plan)
 
 
-def k1_bwd_tiling(B: int, H: int, W: int, C: int, G: int) -> tuple:
-    """The tiles of K1-bwd's map gradient for ``B = bs*cams`` maps of
-    ``H x W`` cells and ``C`` channels in ``G`` groups -> ``(Ct, S, smem)``:
-    ``Ct`` channels of one group per tile, ``S`` blocks per tile in one
-    cluster, ``smem`` the bytes of each block's fp32 copy of its tile.
+# The binned scatter of K1-bwd and K2-bwd (csrc/bin_scatter.cuh): items a
+# chunk of the counts (a place block's threads), the counts (bins x chunks)
+# the plan allows an item, and the taps a cell below which a warp takes a
+# run of 4 cells.
+_BIN_CHUNK = 512
+_BIN_COUNTS_PER_ITEM = 16
+_BIN_RUN_TAPS = 8
+_BIN_SLICE_TAPS = 32  # taps a cell per warp above which a cell's items are split
+_BIN_MAX_SPLIT = 8  # warps a cell at most: one block's
+_BIN_ITEM_BYTES = 16  # BinItem: x, y, its weights' and upstream rows
 
-    A map whose whole ``H*W*Ct`` tile fits one block's shared memory at 32,
-    16 or 8 channels takes the widest such ``Ct`` and one tile per channel
-    slice. A larger map (more than 7,264 cells) takes the widest ``Ct`` and
-    is cut into bands of ``Hb`` whole rows, as few as fit and of equal height
-    but the last: ``smem = Hb*W*Ct*4``, from which the kernel reads ``Hb``.
-    ``S`` is the largest power of two, at most 8, for which the clusters of
-    every tile fill the SMs at most once: such clusters pack into the card's
-    GPCs without gaps, and on an H100 clusters of 4 beat those of 3, 5 and 8
-    at stage 2's coarse levels (PERF.md). Raises ``ValueError`` when one row
-    does not fit at 8 channels (more than 7,264 cells in a row)."""
-    gd = C // G
-    widths = [ct for ct in _TILE_CHANNELS if gd % ct == 0]
-    _check(bool(widths), f"K1-bwd: C/G = {gd} is not a multiple of {_TILE_CHANNELS[-1]}")
-    whole = [ct for ct in widths if H * W * ct * 4 <= _SMEM_PER_BLOCK]
-    if whole:
-        ct, hb = whole[0], H
-    else:
-        rows = [ct for ct in widths if W * ct * 4 <= _SMEM_PER_BLOCK]
-        _check(bool(rows), f"K1-bwd: a row of {W} cells does not fit a block's "
-                           f"{_SMEM_PER_BLOCK} B of shared memory at {widths[-1]} channels "
-                           f"per tile (C/G = {gd})")
-        ct = rows[0]
-        bands = -(-H // (_SMEM_PER_BLOCK // (W * ct * 4)))
-        hb = -(-H // bands)
-    smem = hb * W * ct * 4
-    tiles = B * (C // ct) * -(-H // hb)
-    per_sm = min(_SMEM_PER_SM // (smem + _SMEM_RESERVED), _TILE_BLOCKS_PER_SM)
-    s = max(1, min(_MAX_CLUSTER, _SMS * per_sm // tiles))
-    return ct, 1 << (s.bit_length() - 1), smem
+
+class CellsPlan(NamedTuple):
+    """One map size of a binned launch: bins of ``sw`` columns (``nseg`` a
+    row), ``rowbins`` bin rows a map from top tap row ``tb0``, its first bin
+    ``bin0``, and the first warp ``warp0`` of its cells."""
+
+    sw: int
+    nseg: int
+    rowbins: int
+    tb0: int
+    bin0: int
+    warp0: int
+
+
+class BinPlan(NamedTuple):
+    """A binned launch (``csrc/bin_scatter.cuh``): each map size's
+    :class:`CellsPlan`, ``nbins`` bins, ``items`` and their ``chunks`` of the
+    counts, ``ow`` cells a run, ``warps`` runs of the cells kernel and
+    ``split`` warps a run (slices of its items, summed in order)."""
+
+    levels: tuple
+    nbins: int
+    items: int
+    chunks: int
+    ow: int
+    warps: int
+    split: int
+
+    def host_ints(self) -> list:
+        """The plan as ``hipad::read_plan`` reads it."""
+        head = [self.nbins, self.chunks, self.warps, self.ow, self.split, len(self.levels)]
+        return head + [v for t in self.levels for v in (t.sw, t.tb0, t.rowbins, t.bin0, t.warp0)]
+
+
+def bin_plan(maps: int, sizes: Sequence, items: int, taps: int, tb0: int) -> BinPlan:
+    """The binned scatter's plan for ``maps`` maps of each ``(H, W)`` in
+    ``sizes`` and ``items`` items of at most ``taps`` taps in all; bins
+    start at top tap row ``tb0`` (-1 for K1-bwd, whose taps reach rows -1 ..
+    H-1 from the top; 0 for K2-bwd, whose patch origins lie in 0 .. H-2).
+
+    A warp sums one cell where the maps' cells get ``_BIN_RUN_TAPS`` taps or
+    more on average (K1-bwd), else a run of 4 (K2-bwd); a cell of ``t`` taps
+    on average is split among the largest power of two of warps, at most 8,
+    that leaves each 32 taps or more. Bins are segments of
+    ``sw`` columns, the same power of two for every size: the narrowest for
+    which the counts (bins x chunks of 512 items, each zeroed, scanned and
+    read) number at most 16 an item, where the cells kernel's warps read
+    the fewest items they do not keep; a segment of a whole row where none
+    does. Raises ``ValueError`` where an index exceeds an int32."""
+    _check(items < 2 ** 31, f"binned scatter: {items} items, more than an int32 indexes")
+    cells = sum(maps * H * W for H, W in sizes)
+    ow = 1 if taps >= _BIN_RUN_TAPS * cells else 4
+    per_warp = max(1, taps // (cells * _BIN_SLICE_TAPS)) if ow == 1 else 1
+    split = 1 << (min(_BIN_MAX_SPLIT, per_warp).bit_length() - 1)
+    chunks = -(-items // _BIN_CHUNK)
+    rows = [H + 1 if tb0 == -1 else H - 1 for H, _ in sizes]
+
+    def bins(sw):
+        return sum(maps * rb * -(-W // sw) for rb, (_, W) in zip(rows, sizes))
+
+    widest = 1 << (max(W for _, W in sizes) - 1).bit_length()
+    sw = next((1 << k for k in range(widest.bit_length())
+               if bins(1 << k) * chunks <= _BIN_COUNTS_PER_ITEM * items), widest)
+    nbins = bins(sw)
+    _check(nbins * chunks < 2 ** 31, f"binned scatter: {nbins} bins x {chunks} chunks of "
+                                     f"counts, more than an int32 indexes")
+    levels, bin0, warp0 = [], 0, 0
+    for rb, (H, W) in zip(rows, sizes):
+        nseg = -(-W // sw)
+        levels.append(CellsPlan(sw, nseg, rb, tb0, bin0, warp0))
+        bin0 += maps * rb * nseg
+        warp0 += maps * H * -(-W // ow)
+    return BinPlan(tuple(levels), nbins, items, chunks, ow, warp0, split)
+
+
+def k1_bwd_plan(B: int, H: int, W: int, M: int) -> BinPlan:
+    """K1-bwd's binned plan: ``B = bs*cams`` maps of ``H x W``, an item per
+    (map, sample) of the ``M`` samples, 4 taps each."""
+    return bin_plan(B, [(H, W)], B * M, 4 * B * M, tb0=-1)
+
+
+def k2_bwd_plan(bs: int, cams: int, sizes: Sequence, M: int, n: int) -> BinPlan:
+    """K2-bwd's binned plan: ``bs*cams`` maps of each fine level's ``(H,
+    W)``, an item per (slot, level slot) of the ``bs*M`` slots' ``n`` level
+    slots (every fine level, or ``level_k``), 4 taps each."""
+    return bin_plan(bs * cams, sizes, bs * M * n, 4 * bs * M * n, tb0=0)
+
+
+def bin_order(keys: torch.Tensor, nbins: int) -> tuple:
+    """Plain version of the binned scatter's order (``bin_scan_kernel`` and
+    ``bin_place_kernel``): ``keys [items]`` int32, each item's bin or -1 for
+    an item that adds nothing -> (``order``, int64: the live items by bin
+    and, within a bin, in their own order, as a stable sort leaves them;
+    ``start [nbins + 1]`` int32: where each bin's run begins in ``order``,
+    the last entry their count)."""
+    live = torch.nonzero(keys >= 0).flatten()
+    order = live[torch.sort(keys[live], stable=True).indices]
+    counts = torch.bincount(keys[live].long(), minlength=nbins)
+    start = torch.zeros(nbins + 1, dtype=torch.int32)
+    start[1:] = torch.cumsum(counts, 0)
+    return order, start
+
+
+def k1_bin_keys(px, py, wg, H: int, W: int, plan: BinPlan) -> torch.Tensor:
+    """Plain version of K1-bwd's keys (its sample blocks): px, py ``[B, M]``
+    pixel coordinates, wg ``[B, M, G]`` -> ``[B*M]`` int32, the bin of each
+    (map, sample) whose taps can reach the map with a non-zero weight (map,
+    top tap row floor(py), segment of the left tap column max(floor(px),
+    0)), else -1."""
+    B, M = px.shape
+    sw, nseg = plan.levels[0].sw, plan.levels[0].nseg
+    live = (wg != 0).any(-1) & (px > -1) & (px < W) & (py > -1) & (py < H)
+    tb = torch.floor(py).clamp(-1, H - 1).long() + 1
+    col = torch.floor(px).clamp(0, W - 1).long()
+    bc = torch.arange(B)[:, None]
+    key = ((bc * (H + 1) + tb) * nseg + col // sw).to(torch.int32)
+    return torch.where(live, key, torch.full_like(key, -1)).reshape(-1)
+
+
+def k2_bin_keys(cam, x, y, cams: int, sizes: Sequence, plan: BinPlan, lvl=None) -> torch.Tensor:
+    """Plain version of K2-bwd's keys (its row kernel): cam, x, y ``[bs, M]``
+    over ``cams`` cameras, the fine levels' ``(H, W)`` and, for the level-k
+    variant, lvl ``[bs, M, level_k]`` -> ``[bs*M*n]`` int32, the bin of each
+    (slot, level slot) with a valid camera and level and a tap of non-zero
+    hat weight (level, map, patch row sy, segment of the patch column sx),
+    else -1."""
+    bs, M = x.shape
+    n = lvl.shape[2] if lvl is not None else len(sizes)
+    keys = torch.full((bs, M, n), -1, dtype=torch.int32)
+    maps = torch.arange(bs)[:, None] * cams + cam.long()
+    for jl in range(n):
+        level = lvl[..., jl].long() if lvl is not None else torch.full((bs, M), jl)
+        for l, ((H, W), t) in enumerate(zip(sizes, plan.levels)):
+            p, q = x * float(W) - 0.5, y * float(H) - 0.5
+            sx, sy = torch.floor(p).clamp(0, W - 2), torch.floor(q).clamp(0, H - 2)
+            weighs = torch.zeros_like(cam, dtype=torch.bool)
+            for i in (0, 1):
+                for j in (0, 1):
+                    wxy = (1 - (q - (sy + i)).abs()).clamp(min=0) * \
+                        (1 - (p - (sx + j)).abs()).clamp(min=0)
+                    weighs |= wxy != 0
+            key = t.bin0 + ((maps * (H - 1) + sy.long()) * t.nseg + sx.long() // t.sw)
+            ok = (level == l) & weighs & (cam >= 0) & (cam < cams)
+            keys[..., jl] = torch.where(ok, key.to(torch.int32), keys[..., jl])
+    return keys.reshape(-1)
+
+
+def _bin_scratch(plan: BinPlan, dev) -> tuple:
+    """One allocation for a binned scatter, cut 16-byte aligned into
+    ``hipad::BinScratch``'s keys, items, counts, totals, placed items and
+    starts -> (the buffer, then their six addresses)."""
+    sizes = (4 * plan.items, _BIN_ITEM_BYTES * plan.items, 4 * plan.nbins * plan.chunks,
+             4 * plan.nbins, _BIN_ITEM_BYTES * plan.items, 4 * (plan.nbins + 1))
+    offs, total = [], 0
+    for n in sizes:
+        offs.append(total)
+        total += -(-n // 16) * 16
+    buf = torch.empty(total, dtype=torch.uint8, device=dev)
+    return (buf, *(buf.data_ptr() + o for o in offs))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -192,14 +314,11 @@ def _bind(lib: ctypes.CDLL, seconds: float, log: str) -> Library:
     lib.hipad_coarse_sample.restype = i
     lib.hipad_patch_sample.argtypes = [p] * 4 + [i] * 10 + [p] * 5 + [i, p] + [i] * 6 + [p]
     lib.hipad_patch_sample.restype = i
-    lib.hipad_interp_sample_camsum_bwd.argtypes = [p, i] + [p] * 8 + [i] * 11 + [p]
+    lib.hipad_interp_sample_camsum_bwd.argtypes = [p, i] + [p] * 8 + [i] * 7 + [p] * 8
     lib.hipad_interp_sample_camsum_bwd.restype = i
-    lib.hipad_patch_sample_bwd.argtypes = ([p] * 8 + [i] * 10 + [p] * 5 + [i] + [p] * 5
-                                           + [i] * 6 + [p])
+    lib.hipad_patch_sample_bwd.argtypes = ([p] * 8 + [i] * 10 + [p] * 5 + [i] + [p] * 4
+                                           + [i] * 6 + [p] * 8)
     lib.hipad_patch_sample_bwd.restype = i
-    lib.hipad_patch_sample_bwd_cells.argtypes = ([p] * 4 + [i] * 10 + [p] * 5 + [i, p]
-                                                 + [i] * 6 + [p])
-    lib.hipad_patch_sample_bwd_cells.restype = i
     lib.hipad_row_gather.argtypes = [p] * 3 + [i] * 4 + [p]
     lib.hipad_row_gather.restype = i
     lib.hipad_lsa_assign.argtypes = [i] + [p] * 8 + [i] * 3 + [p]
@@ -315,62 +434,7 @@ def _launched(k: str, err: int):
         raise RuntimeError(f"{k}: launch failed with CUDA error {err}")
 
 
-@dataclasses.dataclass(frozen=True)
-class Route:
-    """One design a wrapper can launch: ``name``, and ``atomic``: whether it
-    adds with float atomics into an output that several threads share (the
-    sum's rounding then changes from run to run)."""
-
-    name: str
-    atomic: bool
-
-
-def pick_route(kernel: str, routes: Sequence[Route], deterministic: bool) -> Route:
-    """The route a call takes: under torch's deterministic flag the first of
-    ``routes`` that adds no atomics, else the first. Raises RuntimeError,
-    naming ``kernel``, under the flag when every route adds with atomics."""
-    if not deterministic:
-        return routes[0]
-    for r in routes:
-        if not r.atomic:
-            return r
-    raise RuntimeError(f"{kernel} does not have a deterministic implementation, but you set "
-                       f"'torch.use_deterministic_algorithms(True)'")
-
-
-class Launches:
-    """The launch count of a wrapper's second route, a kernel of its own:
-    ``name`` is the wrapper's and the route's."""
-
-    def __init__(self, name: str):
-        self.name, self.launches = name, 0
-
-
-class _Routed:
-    """A wrapper: ``routes``, the first taken without the flag; a call
-    launches ``launch(self.route(), ...)``. Launches of the first route count
-    in ``launches``, those of another in ``others[route.name].launches``."""
-
-    routes: tuple = (Route("one launch", atomic=False),)
-
-    def route(self) -> Route:
-        return pick_route(self.name, self.routes, torch.are_deterministic_algorithms_enabled())
-
-    def __call__(self, *args, **kwargs):
-        return self.launch(self.route(), *args, **kwargs)
-
-    @functools.cached_property
-    def others(self) -> dict:
-        return {r.name: Launches(f"{self.name}_{r.name}") for r in self.routes[1:]}
-
-    def _count(self, route: Route):
-        if route == self.routes[0]:
-            self.launches += 1
-        else:
-            self.others[route.name].launches += 1
-
-
-class CoarseSample(_Routed):
+class CoarseSample:
     """K1 (``csrc/interp_sample.cu``): every coarse level's bilinear samples
     summed over cameras and levels and added to ``acc``, in one launch;
     replaces ``hipad_tpu/ops/pallas_interp.py:interp_matmul_pallas`` with the
@@ -383,7 +447,7 @@ class CoarseSample(_Routed):
     def __init__(self):
         self.launches = 0
 
-    def launch(self, route: Route, acc, maps: Sequence[torch.Tensor], points: torch.Tensor,
+    def __call__(self, acc, maps: Sequence[torch.Tensor], points: torch.Tensor,
                weights: torch.Tensor, levels: Sequence[int]) -> torch.Tensor:
         """acc ``[bs, M0, C]`` fp32 or None; maps: ``[bs, cams, H_l, W_l, C]``
         fp32|bf16 (one dtype), ``maps[i]`` at index ``levels[i]`` of the
@@ -424,32 +488,26 @@ class CoarseSample(_Routed):
                 points.data_ptr(), weights.data_ptr(), int(weights.dtype == torch.bfloat16),
                 out.data_ptr(), bs, M0, cams, L, C, G, _stream(dev))
         _launched(k, err)
-        self._count(route)
+        self.launches += 1
         return out
 
 
-class InterpSampleCamsumBwd(_Routed):
+class InterpSampleCamsumBwd:
     """K1-bwd (``csrc/interp_sample_bwd.cu``): the adjoint of one coarse
     level of K1 (``ops/sampling.py:interp_matmul_camsum``), called once per
     level by K1's autograd Function; replaces
     ``hipad_tpu/ops/sampling.py:_interp_matmul_tpu_bwd``. Plain version:
-    autograd through ``interp_matmul_camsum``. One call makes two launches:
-    the sample blocks (d px, d py, d wg) and the tile blocks (d fm, tiled by
-    :func:`k1_bwd_tiling`, in bands of rows for maps of more than 7,264
-    cells). The tile blocks' routes: ``atomic`` (a block's warps split its
-    samples and add by shared-memory atomics) and ``owned`` (each warp adds
-    only into the cells it owns, in the samples' order: the same bits on
-    every run)."""
+    autograd through ``interp_matmul_camsum``. The sample blocks give d px,
+    d py, d wg and bin each (sample, camera) by its map, top tap row and
+    column segment; a stable counting sort orders the bins, and a warp per
+    cell of :func:`k1_bwd_plan` adds the cell's taps in that order
+    (``csrc/bin_scatter.cuh``): the same bits on every run."""
 
     name = "interp_sample_camsum_bwd"
-    ATOMIC = Route("atomic", atomic=True)
-    OWNED = Route("owned", atomic=False)
-    routes = (ATOMIC, OWNED)
-
     def __init__(self):
         self.launches = 0
 
-    def launch(self, route: Route, fm, px, py, wg, gout: torch.Tensor, bs: int,
+    def __call__(self, fm, px, py, wg, gout: torch.Tensor, bs: int,
                cams: int):
         """One level's camera-major inputs (fm ``[bs*cams, H, W, C]`` fp32|bf16;
         px, py ``[bs*cams, M]`` fp32 pixel coordinates; wg ``[bs*cams, M, G]``
@@ -461,25 +519,27 @@ class InterpSampleCamsumBwd(_Routed):
         B, H, W, C, M, G = _check_k1_bwd(k, fm, px, py, wg, bs, cams)
         _check(gout.shape == (bs, M, C), f"{k}: gout must be [bs, M, C], got {tuple(gout.shape)}")
         _check_tensor("gout", gout, fm.device, (torch.float32,), k)
-        ct, s, smem = k1_bwd_tiling(B, H, W, C, G)
         dev = fm.device
-        dfm = torch.empty_like(fm)  # every element written by the tile blocks
+        plan = k1_bwd_plan(B, H, W, M)
+        dfm = torch.empty_like(fm)  # every element written by the cells kernel
         dpx = torch.empty(B, M, dtype=torch.float32, device=dev)
         dpy = torch.empty_like(dpx)
         dwg = torch.empty(B, M, G, dtype=torch.float32, device=dev)
+        scratch = _bin_scratch(plan, dev)  # held until the launch is queued
+        ints = plan.host_ints()
         lib = library().lib
         with torch.cuda.device(dev):
             err = lib.hipad_interp_sample_camsum_bwd(
-                fm.data_ptr(), int(fm.dtype == torch.bfloat16), px.data_ptr(),
-                py.data_ptr(), wg.data_ptr(), gout.data_ptr(), dfm.data_ptr(),
-                dpx.data_ptr(), dpy.data_ptr(), dwg.data_ptr(),
-                bs, cams, H, W, C, G, M, ct, s, smem, int(not route.atomic), _stream(dev))
+                fm.data_ptr(), int(fm.dtype == torch.bfloat16), px.data_ptr(), py.data_ptr(),
+                wg.data_ptr(), gout.data_ptr(), dfm.data_ptr(), dpx.data_ptr(), dpy.data_ptr(),
+                dwg.data_ptr(), bs, cams, H, W, C, G, M, *scratch[1:],
+                (ctypes.c_int * len(ints))(*ints), _stream(dev))
         _launched(k, err)
-        self._count(route)
+        self.launches += 1
         return dfm, dpx, dpy, dwg
 
 
-class PatchSample(_Routed):
+class PatchSample:
     """K2 (``csrc/patch_sample.cu``): fine-level patch sampling of
     camera-compacted samples, summed over the kept cameras and the fine
     levels; replaces the ``patch_bilinear_w`` loop of
@@ -495,7 +555,7 @@ class PatchSample(_Routed):
         self.name, self.takes_levels = name, takes_levels
         self.launches = 0
 
-    def launch(self, route: Route, fine_maps: Sequence[torch.Tensor], cam: torch.Tensor,
+    def __call__(self, fine_maps: Sequence[torch.Tensor], cam: torch.Tensor,
                x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
                cam_k: int, lvl=None) -> torch.Tensor:
         """fine_maps: ``[bs, cams, H_l, W_l, C]`` fp32|bf16 (one dtype);
@@ -518,45 +578,28 @@ class PatchSample(_Routed):
                 None if lvl is None else lvl.data_ptr(), n, out.data_ptr(), bs, cams, C, G,
                 M0, cam_k, _stream(x.device))
         _launched(k, err)
-        self._count(route)
+        self.launches += 1
         return out
 
 
-def contribution_index(keys: torch.Tensor, cells: int) -> tuple:
-    """K2-bwd's deterministic route: ``keys [items]`` int32, the cell each
-    item adds into (``cells`` for an item that adds nothing) -> (``order
-    [items]`` int64, the items by cell and, within a cell, in their own
-    order: a stable sort of the keys; ``starts [cells + 1]`` int32, where
-    each cell's run begins in ``order``, the last entry where the items
-    that add nothing begin)."""
-    sorted_keys, order = torch.sort(keys, stable=True)
-    cell = torch.arange(cells + 1, dtype=keys.dtype, device=keys.device)
-    return order, torch.searchsorted(sorted_keys, cell, out_int32=True)
-
-
-class PatchSampleBwd(_Routed):
+class PatchSampleBwd:
     """K2-bwd (``csrc/patch_sample_bwd.cu``): the adjoint of K2 over every
     fine level and slot; replaces ``hipad_tpu/ops/sampling.py:
     _patch_bilinear_w_bwd`` with ``_dense_fmap_grad``. Plain version:
     autograd through ``ops/sampling.py:patch_sample_plain``. Two instances
     with their own launch counts, as :class:`PatchSample`:
     ``patch_sample_bwd`` and the level-k variant ``patch_sample_bwd_lk``.
-
-    Routes: ``atomic`` (one launch, the map gradient added by 16-byte fp32
-    reductions into zeroed buffers) and ``pull`` (the row kernel writes each
-    item's cell, :func:`contribution_index` orders the items by cell, and
-    the cell kernel sums each cell's items in that order and writes it
-    once: the same bits on every run)."""
-
-    ATOMIC = Route("atomic", atomic=True)
-    PULL = Route("pull", atomic=False)
-    routes = (ATOMIC, PULL)
+    The row kernel gives d x, d y, d w and bins each (slot, level) by its
+    map, patch row and column segment; a stable counting sort orders the
+    bins, and a warp per run of cells of :func:`k2_bwd_plan` adds its cells'
+    taps in that order and writes each cell once (``csrc/bin_scatter.cuh``):
+    the same bits on every run."""
 
     def __init__(self, name: str, takes_levels: bool):
         self.name, self.takes_levels = name, takes_levels
         self.launches = 0
 
-    def launch(self, route: Route, fine_maps: Sequence[torch.Tensor], cam, x, y, w,
+    def __call__(self, fine_maps: Sequence[torch.Tensor], cam, x, y, w,
                gout: torch.Tensor, cam_k: int, lvl=None):
         """K2's inputs and ``gout [bs, M0, C]`` fp32, the gradient of its
         output -> (per-level d maps in the maps' dtype, summed in fp32 and
@@ -567,44 +610,27 @@ class PatchSampleBwd(_Routed):
         _check(gout.shape == (bs, M0, C), f"{k}: gout must be [bs, M0, C], got {tuple(gout.shape)}")
         dev = x.device
         _check_tensor("gout", gout, dev, (torch.float32,), k)
-        cells = sum(fm.shape[0] * fm.shape[1] * fm.shape[2] * fm.shape[3] for fm in fine_maps)
-        _check(cells < 2 ** 31 - 1 and x.numel() * n * 4 < 2 ** 31,
-               f"{k}: {cells} map cells and {x.numel() * n * 4} taps, more than an int32 indexes")
+        pad = [0] * (_MAX_LEVELS - len(fine_maps))
+        hs, ws = _level_args(fine_maps)
+        plan = k2_bwd_plan(bs, cams, list(zip(hs, ws))[:len(fine_maps)], x.shape[1], n)
         dx = torch.empty_like(x)
         dy = torch.empty_like(y)
         dw = torch.empty_like(w)
-        pad = [0] * (_MAX_LEVELS - len(fine_maps))
-        hs, ws = _level_args(fine_maps)
-        bf16 = int(fine_maps[0].dtype == torch.bfloat16)
+        dmaps = [torch.empty_like(fm) for fm in fine_maps]  # every element written
+        scratch = _bin_scratch(plan, dev)  # held until the launch is queued
+        ints = plan.host_ints()
         lib = library().lib
-        if route.atomic:
-            dmaps = [torch.zeros(fm.shape, dtype=torch.float32, device=dev) for fm in fine_maps]
-            keys = None
-        else:
-            dmaps = [torch.empty_like(fm) for fm in fine_maps]  # every element written
-            keys = torch.empty(x.numel() * n * 4, dtype=torch.int32, device=dev)
-        for i, d in enumerate(dmaps):  # 16-byte accesses
-            _check_tensor(f"d level {i}", d, dev, (d.dtype,), k)
         with torch.cuda.device(dev):
             err = lib.hipad_patch_sample_bwd(
-                *[fm.data_ptr() for fm in fine_maps], *pad,
-                *([d.data_ptr() for d in dmaps] if route.atomic else [0] * len(dmaps)), *pad,
-                *hs, *ws, len(fine_maps), bf16, cam.data_ptr(), x.data_ptr(), y.data_ptr(),
-                w.data_ptr(), None if lvl is None else lvl.data_ptr(), n, gout.data_ptr(),
-                dx.data_ptr(), dy.data_ptr(), dw.data_ptr(),
-                None if keys is None else keys.data_ptr(), bs, cams, C, G, M0, cam_k,
-                _stream(dev))
-            _launched(k, err)
-            if keys is not None:
-                order, starts = contribution_index(keys, cells)
-                err = lib.hipad_patch_sample_bwd_cells(
-                    *[d.data_ptr() for d in dmaps], *pad, *hs, *ws, len(fine_maps), bf16,
-                    starts.data_ptr(), order.data_ptr(), x.data_ptr(), y.data_ptr(),
-                    w.data_ptr(), n, gout.data_ptr(), bs, cams, C, G, M0, cam_k,
-                    _stream(dev))
-                _launched(k, err)
-        self._count(route)
-        return [d.to(fm.dtype) for d, fm in zip(dmaps, fine_maps)], dx, dy, dw
+                *[fm.data_ptr() for fm in fine_maps], *pad, *[d.data_ptr() for d in dmaps], *pad,
+                *hs, *ws, len(fine_maps), int(fine_maps[0].dtype == torch.bfloat16),
+                cam.data_ptr(), x.data_ptr(), y.data_ptr(), w.data_ptr(),
+                None if lvl is None else lvl.data_ptr(), n, gout.data_ptr(), dx.data_ptr(),
+                dy.data_ptr(), dw.data_ptr(), bs, cams, C, G, M0, cam_k, *scratch[1:],
+                (ctypes.c_int * len(ints))(*ints), _stream(dev))
+        _launched(k, err)
+        self.launches += 1
+        return dmaps, dx, dy, dw
 
 
 _GATHER_ROWS_PER_BLOCK = 4  # csrc/row_gather.cu: two warps a row, 256 threads a block
@@ -616,7 +642,7 @@ def row_gather_geometry(n_out: int) -> tuple:
     return _GATHER_ROWS_PER_BLOCK, -(-n_out // _GATHER_ROWS_PER_BLOCK)
 
 
-class RowGather(_Routed):
+class RowGather:
     """P2-P4 (``csrc/row_gather.cu``): ``out[i] = table[idx[stride * i]]``
     over whole rows; replaces one of the Pallas gather probes of
     ``tools/probe_pallas_gather.py``. One instance per probe, each with its
@@ -628,7 +654,7 @@ class RowGather(_Routed):
         self.name, self.probe, self.dtype, self.stride = name, probe, dtype, stride
         self.launches = 0
 
-    def launch(self, route: Route, table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    def __call__(self, table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         """table ``[N, row]`` of ``self.dtype`` (rows of a multiple of 16
         bytes); idx ``[M]`` int32 in ``[0, N)`` (not checked: that would need
         a sync) -> ``[ceil(M / stride), row]`` of the table's dtype."""
@@ -651,7 +677,7 @@ class RowGather(_Routed):
                                        n_out, self.stride, row_bytes,
                                        row_gather_geometry(n_out)[1], _stream(dev))
         _launched(k, err)
-        self._count(route)
+        self.launches += 1
         return out
 
 
@@ -717,7 +743,7 @@ def lsa_launches(plans: Sequence[LsaPlan]) -> list:
                    for a in range(0, len(idx), _LSA_MAX_PROBLEMS)), key=lambda g: g[0])
 
 
-class LsaAssign(_Routed):
+class LsaAssign:
     """K3 (``csrc/lsa_assign.cu``): the exact assignment of every ``[R, C]``
     cost matrix of any number of problems, one block per matrix
     (:func:`lsa_plan` sizes each block), up to 8 problems a launch
@@ -730,7 +756,7 @@ class LsaAssign(_Routed):
     def __init__(self):
         self.launches = 0
 
-    def launch(self, route: Route, problems: Sequence) -> list:
+    def __call__(self, problems: Sequence) -> list:
         """``(cost [n, R, C] fp32, row_mask [n, R] bool)`` pairs, contiguous,
         on one card -> col4row ``[n, R]`` int32 of each, in the callers'
         order, on the card: the column of each row, -1 for an invalid row
@@ -774,7 +800,7 @@ class LsaAssign(_Routed):
             with torch.cuda.device(dev):
                 err = lib.hipad_lsa_assign(q, *ptrs, *ints, cols, threads, smem, _stream(dev))
             _launched(k, err)
-            self._count(route)
+            self.launches += 1
         return outs
 
 
@@ -791,6 +817,5 @@ lsa_assign = LsaAssign()
 WRAPPERS = (coarse_sample, patch_sample, interp_sample_camsum_bwd, patch_sample_bwd,
             gather_rows_f32, gather_rows_bf16, gather_rows_f32_every8, patch_sample_lk,
             patch_sample_bwd_lk, lsa_assign)
-# every kernel's launch count: each wrapper's, and the deterministic routes
-# that stand beside the backward wrappers' atomic ones
-KERNELS = WRAPPERS + tuple(c for k in WRAPPERS for c in k.others.values())
+# every kernel's launch count: one a wrapper
+KERNELS = WRAPPERS

@@ -11,9 +11,9 @@ It trains on the card (``--device cuda``, the default; ``--device cpu`` for
 tests) under bf16 autocast, the JAX CLI's compute dtype, with fp32
 parameters, gradients and optimizer state. A run repeats itself bit for bit
 from its ``--seed``, in any process: ``main`` turns on torch's
-deterministic flag (``torch.use_deterministic_algorithms(True)``, which
-sends the sampler's backward kernels to their deterministic routes,
-``ops/kernels.py``) before it touches the card, sets
+deterministic flag (``torch.use_deterministic_algorithms(True)``, for
+torch's own ops: the sampler's backward kernels add in a fixed order
+whatever the flag, ``ops/kernels.py``) before it touches the card, sets
 ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` where the environment has no value (the
 flag needs it before the first cuBLAS handle), and restores the flag's
 earlier state when it returns.

@@ -324,34 +324,41 @@ def test_hat_takes_the_jax_kink_conventions():
 
 
 @pytest.mark.parametrize("config", ["stage2", "stage2_serving_det", "stage2_r101_2x", "tiny"])
-def test_k1_bwd_tiles_fit_shared_memory(config):
-    """K1-bwd's tile blocks hold one fp32 tile of the map gradient in shared
-    memory: for every coarse level of the shipped configs the tiling fits a
-    block's 227 KB, takes channels of one group, and forms clusters the card
-    takes (1 to 8 blocks)."""
+def test_backward_bin_plans_fit_shared_memory(config):
+    """K1-bwd's and K2-bwd's binned scatter on every coarse and fine level
+    of the shipped configs, bs=1 and 2: the counts within 16 an item, the
+    cells kernel's slices of a split cell (8 warps' fp32 partial sums of C
+    channels) within the 48 KB a block takes without opting in, and a warp
+    for each run of cells."""
     from hipad_torch.configs import model as configs
     from hipad_torch.ops import kernels
 
     cfg = getattr(configs, config)()
-    C, G = cfg.embed_dims, cfg.num_groups
-    for lvl in [l for l in cfg.sampler_matmul_levels if l < cfg.num_levels]:
-        h, w = cfg.input_size[0] // cfg.strides[lvl], cfg.input_size[1] // cfg.strides[lvl]
-        for bs in (1, 2):
-            ct, s, smem = kernels.k1_bwd_tiling(bs * cfg.num_cams, h, w, C, G)
-            assert ct in (8, 16, 32) and (C // G) % ct == 0, (lvl, ct)
-            assert 1 <= s <= 8, (lvl, s)
-            assert smem == h * w * ct * 4 <= 227 * 1024, (lvl, smem)
+    H, W = cfg.input_size
+    size = [(H // cfg.strides[l], W // cfg.strides[l]) for l in range(cfg.num_levels)]
+    coarse = [l for l in cfg.sampler_matmul_levels if l < cfg.num_levels]
+    fine = [size[l] for l in range(cfg.num_levels) if l not in coarse]
+    n_det = cfg.num_det_anchor * (len(cfg.det_kps.fix_scale) + cfg.det_kps.num_learnable)
+    for bs in (1, 2):
+        B = bs * cfg.num_cams
+        plans = [(kernels.k1_bwd_plan(B, *size[l], n_det), [size[l]]) for l in coarse]
+        plans += [(kernels.k2_bwd_plan(bs, cfg.num_cams, fine, n_det * cfg.sampler_cam_k, n),
+                   fine) for n in {len(fine), cfg.sampler_level_k or len(fine)}] if fine else []
+        for plan, sizes in plans:
+            assert plan.nbins * plan.chunks <= 16 * plan.items, plan
+            assert plan.split == 1 or 8 * -(-cfg.embed_dims // 256) * 256 * 4 <= 48 * 1024, plan
+            assert plan.ow in (1, 4), plan
+            assert plan.warps == sum(B * h * -(-w // plan.ow) for h, w in sizes), plan
 
 
-def test_k1_bwd_tiling_refuses_maps_over_7264_cells():
-    """7,264 fp32 cells of 8 channels fill 227 KB. A map of more cells is cut
-    into bands of whole rows; only a single row of more than 7,264 cells
-    fits no tile and is refused."""
+def test_binned_plan_takes_the_maps_the_tiles_refused():
+    """The tiles of the first designs held map rows in one block's shared
+    memory: a map of more than 7,264 cells went in bands of rows, and a row
+    of more than 7,264 cells was refused. The binned scatter keeps no map in
+    shared memory: one plan takes either, a warp for each run of cells."""
     from hipad_torch.ops import kernels
 
-    ct, _, smem = kernels.k1_bwd_tiling(6, 8, 908, 256, 8)
-    assert (ct, smem) == (8, 232_448)
-    ct, _, smem = kernels.k1_bwd_tiling(6, 5, 1453, 256, 8)
-    assert (ct, smem) == (32, 1453 * 32 * 4)  # bands of one row
-    with pytest.raises(ValueError, match="a row of 7265 cells"):
-        kernels.k1_bwd_tiling(1, 1, 7265, 256, 8)
+    for B, h, w in ((6, 8, 908), (6, 5, 1453), (1, 1, 7265)):
+        plan = kernels.k1_bwd_plan(B, h, w, 11_700)
+        assert plan.warps == B * h * -(-w // plan.ow), (h, w)
+        assert plan.nbins * plan.chunks <= 16 * plan.items or plan.levels[0].sw >= w, (h, w)
