@@ -21,6 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..utils.spans import span
 from .backbone import ResNetFPN
 from .common import BatchNorm
 from .decoder import SparseOneDecoder
@@ -61,6 +62,7 @@ class HiPAD(nn.Module):
         self.to(memory_format=torch.channels_last)
         self.eval()
 
+    @span("forward")
     def forward(self, images: torch.Tensor, metas: Dict[str, torch.Tensor],
                 bank_states: Optional[BankStates] = None,
                 generator: Optional[torch.Generator] = None, return_depth: bool = False):
@@ -73,10 +75,13 @@ class HiPAD(nn.Module):
                 raise ValueError("train mode draws GridMask from an explicit torch.Generator: "
                                  "pass generator=")
             images = grid_mask(images, *draw_grid_mask(generator, images.shape[-3]))
-        feature_maps = self.backbone(images)
+        with span("backbone"):
+            feature_maps = self.backbone(images)
         if self.cfg.stop_fmap_gradient:
             feature_maps = [f.detach() for f in feature_maps]
-        outputs, new_banks = self.decoder(feature_maps, metas, bank_states, generator)
+        with span("decoder"):
+            outputs, new_banks = self.decoder(feature_maps, metas, bank_states, generator)
         if return_depth:
-            outputs["depth"] = self.depth_net(feature_maps, metas.get("focal"))
+            with span("depth"):
+                outputs["depth"] = self.depth_net(feature_maps, metas.get("focal"))
         return outputs, new_banks

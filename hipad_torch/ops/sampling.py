@@ -40,6 +40,7 @@ from typing import List, Sequence
 
 import torch
 
+from ..utils.spans import span
 from . import kernels, ranking
 
 
@@ -254,6 +255,7 @@ class _PatchSample(torch.autograd.Function):
         return (None, dx, dy, dw, None, None, *(d.to(m.dtype) for d, m in zip(dmaps, maps)))
 
 
+@span("sampler.patch")
 def patch_sample(fine_maps, cam, x, y, w, cam_k: int, lvl=None) -> torch.Tensor:
     """Fine-level sampling -> ``[bs, M0, C]`` float32. A CPU tensor takes
     :func:`patch_sample_plain`; anything else takes kernel K2
@@ -391,6 +393,7 @@ class _CoarseSample(torch.autograd.Function):
         return (dacc, dpoints, dweights, None, *dmaps)
 
 
+@span("sampler.coarse")
 def coarse_sample(acc, coarse_maps: Sequence[torch.Tensor], points_2d: torch.Tensor,
                   weights: torch.Tensor, levels: Sequence[int]) -> torch.Tensor:
     """``acc`` plus every coarse level's camera-summed sample ->
@@ -470,6 +473,7 @@ def deformable_samples_topk_flat(
     return out.to(weights.dtype)
 
 
+@span("sampler")
 def deformable_aggregation_topk(
     feature_maps: Sequence[torch.Tensor],
     points_2d: torch.Tensor,

@@ -11,6 +11,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from ..utils.spans import span
 from .det import decode_det, decode_motion
 from .map import decode_map
 from .plan import decode_plan
@@ -25,6 +26,7 @@ RESULT_KEYS = {
 }
 
 
+@span("postprocess")
 def post_process_arrays(cfg, outputs: Dict, cmd_onehot: torch.Tensor,
                         with_rescore: bool = True) -> Dict[str, torch.Tensor]:
     """Batched decode of every task head's last layer."""
@@ -32,25 +34,31 @@ def post_process_arrays(cfg, outputs: Dict, cmd_onehot: torch.Tensor,
     det_out = outputs.get("det")
     motion_out = outputs.get("motion")
     if det_out is not None:
-        det_res = decode_det(det_out["classification"][-1], det_out["prediction"][-1],
-                             instance_id=det_out.get("instance_id"),
-                             quality=det_out["quality"][-1], num_output=cfg.det_num_output)
-        res.update({f"det_{k}": v for k, v in det_res.items()})
+        with span("post.det"):
+            det_res = decode_det(det_out["classification"][-1], det_out["prediction"][-1],
+                                 instance_id=det_out.get("instance_id"),
+                                 quality=det_out["quality"][-1], num_output=cfg.det_num_output)
+            res.update({f"det_{k}": v for k, v in det_res.items()})
         if motion_out is not None:
-            mo = decode_motion(det_res, motion_out["classification"][-1],
-                               motion_out["prediction"][-1])
-            res.update({f"motion_{k}": v for k, v in mo.items()})
+            with span("post.motion"):
+                mo = decode_motion(det_res, motion_out["classification"][-1],
+                                   motion_out["prediction"][-1])
+                res.update({f"motion_{k}": v for k, v in mo.items()})
     if "map" in outputs:
-        mp = decode_map(outputs["map"]["classification"][-1], outputs["map"]["prediction"][-1])
-        res.update({f"map_{k}": v for k, v in mp.items()})
+        with span("post.map"):
+            mp = decode_map(outputs["map"]["classification"][-1],
+                            outputs["map"]["prediction"][-1])
+            res.update({f"map_{k}": v for k, v in mp.items()})
     if "plan" in outputs:
-        res.update(decode_plan(cfg, outputs["plan"], det_out, motion_out, cmd_onehot,
-                               with_rescore=with_rescore))
+        with span("post.plan"):
+            res.update(decode_plan(cfg, outputs["plan"], det_out, motion_out, cmd_onehot,
+                                   with_rescore=with_rescore))
     if "ego" in outputs:
         res["ego_status"] = outputs["ego"]["status"][-1][:, 0]
     return res
 
 
+@span("to_host")
 def to_result_dicts(arrays: Dict[str, torch.Tensor]) -> List[Dict[str, np.ndarray]]:
     """Split batched arrays into per-sample dicts with the reference's keys."""
     arrays = {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
