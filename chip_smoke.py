@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --against DIR   # phases 1-2, then the comparison below
+    python3 chip_smoke.py --graphs        # phases 1-2, then 4g alone
 
 Phases, one printed line (or a few) each; any failure exits non-zero:
 
@@ -36,6 +37,17 @@ Phases, one printed line (or a few) each; any failure exits non-zero:
      waypoints within the bf16/fp32 spread the CPU test allows on each of
      the fp32 frames'; then frame 0 once more on the CPU (plain path, fp32)
      against the card's fp32 frame 0;
+  4g. the decoder's op runs as CUDA graphs (``[graphs]``): ``stage2()`` and
+     ``stage2_serving_det()`` at bs=1, bf16 and fp32, a cold frame and 8
+     warm ones, each through the decoder (its runs replayed from the third
+     frame on) and through ``forward_eager`` (every op eager) from the same
+     feature maps and banks: outputs and banks bit for bit (or each
+     differing leaf printed, held within ``E2E_RTOL``), the graph counter
+     frame by frame, every frame's outputs and banks unchanged after the
+     later frames; then one warm bf16 frame with post-processing under the
+     sync debug mode (60 waits at ``stage2``), graphed and eager frames in
+     turns (host clock), one of each profiled (host launch calls, device
+     kernels, busy) and the graphed and eager frames' host ms by span;
   5. the training path: the stage-2 training step at bs=1 with seeded
      random weights, dropout 0.1 and GridMask on, 2 warm-up and 4 timed
      steps with the banks chained, fp32 and then bf16 autocast; finite
@@ -2642,6 +2654,184 @@ def _frame0_against_cpu(tag: str, cfg, model, img, mt):
             fail(f"{tag} card and CPU disagree on {key}")
 
 
+# [graphs]: a cold frame, then warm frames, each graphed and through the
+# decoder's own eager op loop; then frames timed in turns and the spans
+GRAPH_WARM_FRAMES = 8
+GRAPH_TIMED_FRAMES = 10
+# the benchmark's stage2.frame: 24 at the sampler's fine-level weights, 21 in
+# to_result_dicts, 14 in the plan decode, 1 in the bank
+GRAPH_FRAME_SYNCS = 60
+
+
+def _named_leaves(tree):
+    """(path, tensor) of a forward's (outputs, banks), in a fixed order."""
+    import dataclasses
+
+    out, banks = tree
+    return list(_flat(out, "out.")) + [
+        (f"banks.{n}.{f.name}", getattr(getattr(banks, n), f.name))
+        for n in ("det", "ego", "plan") for f in dataclasses.fields(getattr(banks, n))]
+
+
+def _leaf_diffs(a, b):
+    """[(path, max |a - b|, max |b|)] of the leaves not equal bit for bit."""
+    import torch
+
+    rows = []
+    for (path, x), (_, y) in zip(_named_leaves(a), _named_leaves(b)):
+        if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(x, y):
+            d = (x.double() - y.double()).abs().max() if x.shape == y.shape else float("inf")
+            rows.append((path, float(d), float(y.double().abs().max())))
+    return rows
+
+
+def phase_graphs(card: str):
+    """``stage2()`` and ``stage2_serving_det()`` at bs=1, bf16 and fp32: a
+    cold frame and 8 warm frames, each through ``HiPAD``'s decoder (the op
+    runs replayed as CUDA graphs from the third frame on) and, from the same
+    feature maps and banks, through its ``forward_eager`` (every op eager,
+    one at a time): outputs and banks equal bit for bit; the graph counter
+    a frame (7 eager, 7 eager, 7 captured, then 7 replayed); every frame's
+    outputs and banks, held, unchanged after the later frames. Then, bf16:
+    one warm frame with post-processing under the sync debug mode (60 waits
+    at ``stage2``), frames in turns graphed / eager on the host clock, one
+    of each profiled (host launch calls, device kernels, device busy), and
+    the graphed frames' host ms by span."""
+    import torch
+
+    from hipad_torch import postprocess
+    from hipad_torch.configs.model import stage2, stage2_serving_det
+    from hipad_torch.data import synthetic
+    from hipad_torch.models.common import to_float32
+    from hipad_torch.models.detector import HiPAD, batch_to_torch
+    from hipad_torch.utils import spans
+    from hipad_torch.weights import init_random
+
+    dev = torch.device(DEVICE)
+    for make in (stage2, stage2_serving_det):
+        cfg, name = make(), make.__name__
+        t0 = time.perf_counter()
+        model = init_random(HiPAD(cfg, device=dev), SEED)
+        dec = model.decoder
+        n_runs = sum(cfg.operation_order[lo] != "deformable" for lo, _ in dec.units)
+        images, metas = batch_to_torch(synthetic.make_batch(cfg, 1, seed=SEED), dev)
+
+        def inputs(i):
+            return images + 1e-3 * i, dict(metas, timestamp=metas["timestamp"] + 0.5 * i)
+
+        def amp(dtype):
+            return torch.autocast("cuda", dtype=dtype, enabled=dtype != torch.float32)
+
+        for dtype in (torch.bfloat16, torch.float32):
+            dt = str(dtype)[6:]
+            banks, held, differ = None, [], []
+            for i in range(1 + GRAPH_WARM_FRAMES):
+                img, mt = inputs(i)
+                with torch.no_grad(), amp(dtype):
+                    fmaps = model.backbone(img)
+                    want = dec.forward_eager(fmaps, mt, banks)
+                    before = dict(dec.graphs.counts)
+                    got = dec(fmaps, mt, banks)
+                delta = {k: v - before[k] for k, v in dec.graphs.counts.items() if v > before[k]}
+                expect = {"eager": n_runs} if i < 2 else {
+                    "captured" if i == 2 else "replayed": n_runs}
+                if delta != expect:
+                    fail(f"[graphs] {name} {dt} frame {i}: runs {delta}, expected {expect}")
+                rows = _leaf_diffs(got, want)
+                differ += [(i, *r) for r in rows]
+                held.append((got, [(p, x.clone()) for p, x in _named_leaves(got)]))
+                banks = got[1]
+            torch.cuda.synchronize()
+            for i, (live, snap) in enumerate(held):
+                changed = [p for (p, x), (_, y) in zip(_named_leaves(live), snap)
+                           if not torch.equal(x, y)]
+                if changed:
+                    fail(f"[graphs] {name} {dt} frame {i}'s {changed[:4]} changed after the "
+                         f"later frames: a graph's buffer was handed out")
+            say(f"[graphs] {name} {dt} on {card}: 1 cold + {GRAPH_WARM_FRAMES} warm frames, "
+                f"{n_runs} runs a frame (eager, eager, captured, then replayed), graphed vs "
+                f"forward_eager: "
+                + ("outputs and banks equal bit for bit" if not differ else
+                   f"{len(differ)} leaves differ: " + "; ".join(
+                       f"frame {i} {p} max_abs {d:.3e} of max {m:.3e}"
+                       for i, p, d, m in differ[:12]))
+                + f"; every frame's outputs and banks unchanged after the later frames")
+            for i, p, d, m in differ:
+                if d > E2E_RTOL * m + E2E_ATOL:
+                    fail(f"[graphs] {name} {dt} frame {i} {p}: graphed and eager differ by "
+                         f"{d:.3e} (tol {E2E_RTOL * m + E2E_ATOL:.3e})")
+        say(f"[graphs] {name}: built and checked in {time.perf_counter() - t0:.1f} s; "
+            f"counts {dec.graphs.counts}")
+
+        # bf16, as the benchmark's frame runs: waits, host clock, launches, spans
+        state = {"banks": banks, "i": 1 + GRAPH_WARM_FRAMES}
+
+        def frame(eager=False):
+            img, mt = inputs(state["i"])
+            with torch.no_grad():
+                with amp(torch.bfloat16):
+                    if eager:
+                        with spans.span("forward"):
+                            fmaps = model.backbone(img)
+                            with spans.span("decoder"):
+                                out, new = dec.forward_eager(fmaps, mt, state["banks"])
+                    else:
+                        out, new = model(img, mt, state["banks"])
+                d = postprocess.post_process_arrays(cfg, to_float32(out), mt["gt_ego_fut_cmd"])
+            postprocess.to_result_dicts(d)
+            state["i"] += 1
+            state["banks"] = new
+
+        for _ in range(2):  # the bf16 graphs of this key: first sight, capture
+            frame()
+        torch.cuda.synchronize()
+        before = dict(dec.graphs.counts)
+        sites = _sync_sites(frame)
+        total = sum(sites.values())
+        say(f"[syncs] [graphs] {name} one warm bf16 frame with post-processing: {total} "
+            f"synchronizing calls at {len(sites)} call sites (runs {dict(dec.graphs.counts)} "
+            f"after, {before} before):")
+        for site, n in sites.most_common():
+            say(f"[syncs]   {n:5d}  {site}")
+        if name == "stage2" and total != GRAPH_FRAME_SYNCS:
+            fail(f"[graphs] {name}: {total} waits a frame, expected {GRAPH_FRAME_SYNCS}")
+        if any("decoder" in s or "encoders.py" in s or "refine.py" in s for s in sites):
+            fail(f"[graphs] {name}: a wait inside the decoder's runs")
+        ms = {"graphed": [], "eager": []}
+        for r in range(GRAPH_TIMED_FRAMES):
+            for kind in (("graphed", "eager") if r % 2 == 0 else ("eager", "graphed")):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                frame(eager=kind == "eager")
+                ms[kind].append((time.perf_counter() - t) * 1e3)
+        say(f"[graphs] {name} bf16 frames with post-processing in turns on {card} (host "
+            f"clock, sync around each, {GRAPH_TIMED_FRAMES} each): graphed median "
+            f"{statistics.median(ms['graphed']):.2f} ms [{min(ms['graphed']):.2f}, "
+            f"{max(ms['graphed']):.2f}], eager {statistics.median(ms['eager']):.2f} ms "
+            f"[{min(ms['eager']):.2f}, {max(ms['eager']):.2f}]")
+        for kind in ("graphed", "eager"):
+            host = []
+            ks, busy = _profiled(lambda: frame(eager=kind == "eager"), host=host)
+            host = host[0]
+            say(f"[graphs] {name} one {kind} frame profiled: {host} host launch calls "
+                f"(kernels, graphs, copies, fills), {ks} device kernels, device busy "
+                f"{busy:.2f} ms")
+        for kind in ("graphed", "eager"):
+            with spans.recording() as rec:
+                for _ in range(GRAPH_TIMED_FRAMES):
+                    with rec.unit():
+                        frame(eager=kind == "eager")
+            summ = rec.summary()
+            top = sorted(((n, s) for n, s in summ.items()
+                          if n in ("forward", "backbone", "postprocess", "to_host")
+                          or n.startswith("decoder")), key=lambda x: -x[1]["incl_ms"])
+            say(f"[graphs] {name} {kind} bf16 frames under spans.recording() (median of "
+                f"{GRAPH_TIMED_FRAMES}; wall {statistics.median(rec.unit_walls_ms()):.2f} ms): "
+                + ", ".join(f"{n} {s['incl_ms']:.2f} ms ({s['calls']:.0f})" for n, s in top))
+        del model, dec
+        torch.cuda.empty_cache()
+
+
 # stage2_serving_det frames timed in turns with stage2 frames (informational)
 SERVE_ROUNDS = 3
 
@@ -3605,10 +3795,11 @@ def _launch_counts(kernels_module):
     return {k.name: k.launches for k in kernels_module.KERNELS if k.launches}
 
 
-def _profiled(fn, by_name=None):
+def _profiled(fn, by_name=None, host=None):
     """(CUDA kernels launched, device busy ms) of one call of fn, by
     torch.profiler; ``by_name``, a dict, gets each kernel name's [launches,
-    device ms] added."""
+    device ms] added; ``host``, a list, gets the count of the host's launch
+    calls (kernels, graphs, copies and fills) appended."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3619,6 +3810,10 @@ def _profiled(fn, by_name=None):
         fn()
         torch.cuda.synchronize()
     ks = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if host is not None:
+        host.append(sum(e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith(
+            ("cudaLaunch", "cuLaunch", "cudaGraphLaunch", "cudaMemcpy", "cudaMemset"))
+            for e in prof.events()))
     for e in ks if by_name is not None else ():
         n = by_name.setdefault(e.name, [0, 0.0])
         n[0] += 1
@@ -3915,6 +4110,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--against", metavar="DIR",
                     help="time another checkout's kernels and paths against this tree's")
+    ap.add_argument("--graphs", action="store_true",
+                    help="run [graphs] (the decoder's op runs as CUDA graphs) and stop")
     ap.add_argument("--profile-routes", action="store_true",
                     help="profile one call of each backward route, launch by launch (with "
                          "--against, the other tree's first), and stop")
@@ -3938,6 +4135,12 @@ def main():
     card = timed("env", phase_env)
     timed("build", phase_build)
     cfg = stage2()
+    if args.graphs:
+        timed("graphs", phase_graphs, card)
+        say(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                               "kind": torch.cuda.get_device_name(0),
+                                               "count": torch.cuda.device_count()}}))
+        return
     if args.profile_routes:
         from hipad_torch.ops import kernels
 
@@ -3953,6 +4156,7 @@ def main():
     k = timed("kernels", phase_kernels, cfg, card)
     k.update(timed("kernels-bwd", phase_kernels_bwd, cfg, card))
     frame_launches = timed("slice", phase_slice, cfg, card)
+    timed("graphs", phase_graphs, card)
     step_launches = timed("train", phase_train, card)
     k.update(timed("match", phase_match, card))
     cli_launches, cli_work = timed("train-cli", phase_train_cli, card)

@@ -3,8 +3,11 @@
 
 The decoder program is data: ``cfg.operation_order`` is a flat tuple of op
 names (concat / temp_gnn / gnn / inter_gnn / norm / split / deformable / ffn
-/ refine) run by a Python loop. Every submodule is named after its flax
-path (``gnn_{op_idx}``, ``{task}_deformable_{i}``, ``det_refine_{i}`` ...).
+/ refine) run by a Python loop over one :class:`DecoderState`. The runs of
+ops between the deformable ops are replayed as CUDA graphs on warm eval
+frames on the card (``decoder_graphs.py``) and run eagerly elsewhere.
+Every submodule is named after its flax path (``gnn_{op_idx}``,
+``{task}_deformable_{i}``, ``det_refine_{i}`` ...).
 The temporal banks are passed in and returned; the first frame is the case
 ``bank_states=None``. In train mode (``module.train()``) the attention, FFN
 and deformable dropouts draw from the ``generator`` passed to the forward,
@@ -46,7 +49,10 @@ And the model options off in every shipped config:
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence
+import dataclasses
+import functools
+import itertools
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -57,7 +63,7 @@ from ..core.geometry import agent_to_lidar_trajs, sine_embed_2d
 from ..ops import ranking
 from ..ops.sampling import front_view_feature
 from ..utils.spans import span
-from . import attn_masks
+from . import attn_masks, decoder_graphs
 from . import instance_bank as banks
 from .attention_blocks import (GroupedCrossAttention, cross_attention_groups,
                                self_attention_groups)
@@ -118,11 +124,70 @@ class FrontViewEncoder(nn.Module):
         return x[:, :, :kh, :kw].mean(dim=(2, 3))
 
 
+def _empty_out() -> Dict[str, Dict[str, List]]:
+    """The per-layer output lists, empty."""
+    return {
+        "det": {"classification": [], "prediction": [], "quality": []},
+        "map": {"classification": [], "prediction": []},
+        "ego": {"status": []},
+        "plan": {"classification": [], "prediction": []},
+        "motion": {"classification": [], "prediction": []},
+    }
+
+
+@dataclasses.dataclass
+class DecoderState:
+    """Everything the op loop reads and writes from one op to the next, for
+    one frame. Per query type (``det``, ``map``, ``plan``, ``ego``): the
+    features, anchors, embeds and per-point embeds, and the temporal
+    features and embeds; the joint tensors and their sections; the det bank
+    and what its ``get`` gave; the last refine layer's det and plan
+    classifications; the metas the refine op reads; the det pruning's live
+    (temporal, fresh) widths and frozen tails; the layer counters; the
+    per-layer outputs. A run of ops is a function from state to state
+    (``decoder_graphs.py``), and its Python values are part of a graph's
+    key."""
+    bs: int
+    device: torch.device
+    has_temp: bool
+    feat: Dict[str, Optional[torch.Tensor]]
+    anchor: Dict[str, torch.Tensor]
+    embed: Dict[str, Optional[torch.Tensor]]
+    pts_embed: Dict[str, Optional[torch.Tensor]]
+    tfeat: Dict[str, Optional[torch.Tensor]]
+    tembed: Dict[str, Optional[torch.Tensor]]
+    temp_pts_embed: Dict[str, Optional[torch.Tensor]]
+    time_interval: torch.Tensor
+    temp_det_feat: Optional[torch.Tensor]
+    temp_det_anchor: Optional[torch.Tensor]
+    det_mask: Optional[torch.Tensor]
+    det_bank_state: Optional[banks.DetBankState]
+    metas: Dict[str, torch.Tensor]
+    det_live: Tuple[int, int]
+    out: Dict[str, Dict[str, List]]
+    joint_feat: Optional[torch.Tensor] = None
+    joint_embed: Optional[torch.Tensor] = None
+    temp_joint_feat: Optional[torch.Tensor] = None
+    temp_joint_embed: Optional[torch.Tensor] = None
+    cur_sections: Optional[Dict[str, Tuple[int, int]]] = None
+    temp_sections: Optional[Dict[str, Tuple[int, int]]] = None
+    det_cls: Optional[torch.Tensor] = None
+    plan_cls: Optional[torch.Tensor] = None
+    # key -> (temporal, fresh) det rows frozen at their drop layer, in
+    # ascending original-slot order
+    det_tails: Dict[str, tuple] = dataclasses.field(default_factory=dict)
+    refine_i: int = 0
+    deform_i: int = 0
+
+
 class SparseOneDecoder(nn.Module):
     def __init__(self, cfg):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
+        # the op loop's units (runs and deformable ops) and the runs' graphs
+        self.units = decoder_graphs.op_units(cfg.operation_order)
+        self.graphs = decoder_graphs.GraphCache()
         C = cfg.embed_dims
         L = cfg.num_levels
 
@@ -257,326 +322,401 @@ class SparseOneDecoder(nn.Module):
                 attn_masks.speed_diff_matrix(q_names, k_names, anchor), tau)
         return {0: bias}
 
+    # -- the op loop ------------------------------------------------------------
+
     def forward(self, feature_maps: Sequence[torch.Tensor], metas: Dict[str, torch.Tensor],
                 bank_states: Optional[banks.BankStates] = None,
                 generator: Optional[torch.Generator] = None):
+        """One frame -> (outputs, new bank states). The op runs between the
+        deformable ops are replayed as CUDA graphs where
+        :func:`decoder_graphs.engages` allows it (the card, eval mode, grad
+        off, a warm frame), else run eagerly: the same ops in the same
+        order."""
+        replay = decoder_graphs.engages(feature_maps[0].device, self.training,
+                                        torch.is_grad_enabled(), bank_states is not None)
+
+        def run(lo, hi, st):
+            return self._run_unit(lo, hi, st, generator, replay)
+
+        out = self._forward(feature_maps, metas, bank_states, generator, self.units, run)
+        return self.graphs.release(out) if replay else out
+
+    def forward_eager(self, feature_maps: Sequence[torch.Tensor], metas: Dict[str, torch.Tensor],
+                      bank_states: Optional[banks.BankStates] = None,
+                      generator: Optional[torch.Generator] = None):
+        """:meth:`forward` with every op run eagerly, one at a time, never
+        captured, replayed or counted: what a replayed frame is held to."""
+        units = [(i, i + 1) for i in range(len(self.cfg.operation_order))]
+
+        def run(lo, hi, st):
+            return self._run_ops(lo, hi, st, generator)
+
+        return self._forward(feature_maps, metas, bank_states, generator, units, run)
+
+    def _forward(self, feature_maps, metas, bank_states, generator, units, run):
         with span("decoder.init"):
-            cfg = self.cfg
-            C = cfg.embed_dims
-            bs = feature_maps[0].shape[0]
-            has_temp = bank_states is not None
-            qs = cfg.query_select
-            det_enc = self.det_anchor_encoder
+            st = self._init_state(feature_maps, metas, bank_states)
+        for lo, hi in units:
+            if self.cfg.operation_order[lo] == "deformable":
+                with span("decoder.deformable"):
+                    self._deformable(st, feature_maps, metas, generator)
+            else:
+                st = run(lo, hi, st)
+        return self._finish(st, metas, bank_states)
 
-            timestamp = metas["timestamp"]
-            projection_mat = metas["projection_mat"]
-            image_wh = metas["image_wh"]
+    def _init_state(self, feature_maps, metas, bank_states) -> DecoderState:
+        cfg = self.cfg
+        bs = feature_maps[0].shape[0]
+        has_temp = bank_states is not None
+        det_enc = self.det_anchor_encoder
 
-            # ---- query init (banks .get) -------------------------------------
-            feat: Dict[str, Optional[torch.Tensor]] = {}
-            anchor: Dict[str, torch.Tensor] = {}
-            embed: Dict[str, Optional[torch.Tensor]] = {}
-            tfeat: Dict[str, Optional[torch.Tensor]] = {}
-            tembed: Dict[str, Optional[torch.Tensor]] = {}
+        # ---- query init (banks .get) -----------------------------------------
+        feat: Dict[str, Optional[torch.Tensor]] = {}
+        anchor: Dict[str, torch.Tensor] = {}
+        embed: Dict[str, Optional[torch.Tensor]] = {}
+        tfeat: Dict[str, Optional[torch.Tensor]] = {}
+        tembed: Dict[str, Optional[torch.Tensor]] = {}
 
-            det_feature = self.det_feature if cfg.det_feat_grad else self.det_feature.detach()
-            feat["det"] = det_feature[None].expand(bs, -1, -1)
-            anchor["det"] = self.det_anchor[None].expand(bs, -1, -1)
-            temp_det_feat, temp_det_anchor, time_interval, det_mask = banks.det_bank_get(
-                cfg, bank_states.det if has_temp else None, bs, timestamp,
-                metas["T_global"], metas["T_global_inv"])
-            embed["det"] = det_enc(anchor["det"])
-            tfeat["det"] = temp_det_feat
-            tembed["det"] = det_enc(temp_det_anchor) if has_temp else None
+        det_feature = self.det_feature if cfg.det_feat_grad else self.det_feature.detach()
+        feat["det"] = det_feature[None].expand(bs, -1, -1)
+        anchor["det"] = self.det_anchor[None].expand(bs, -1, -1)
+        temp_det_feat, temp_det_anchor, time_interval, det_mask = banks.det_bank_get(
+            cfg, bank_states.det if has_temp else None, bs, metas["timestamp"],
+            metas["T_global"], metas["T_global_inv"])
+        embed["det"] = det_enc(anchor["det"])
+        tfeat["det"] = temp_det_feat
+        tembed["det"] = det_enc(temp_det_anchor) if has_temp else None
 
-            # per-point embeds [bs, n * points, C] (tasks with a per-point option)
-            pts_embed: Dict[str, Optional[torch.Tensor]] = {"map": None, "plan": None}
-            temp_pts_embed: Dict[str, Optional[torch.Tensor]] = {"map": None, "plan": None}
+        # per-point embeds [bs, n * points, C] (tasks with a per-point option)
+        pts_embed: Dict[str, Optional[torch.Tensor]] = {"map": None, "plan": None}
+        temp_pts_embed: Dict[str, Optional[torch.Tensor]] = {"map": None, "plan": None}
 
-            def encode(q, a):
-                """-> (instance embed, per-point embed or None) of map/plan anchors."""
-                enc = getattr(self, f"{q}_anchor_encoder")
-                return enc(a) if self.per_point[q] else (enc(a), None)
+        feat["map"] = self.map_feature[None].expand(bs, -1, -1)
+        anchor["map"] = self.map_anchor[None].expand(bs, -1, -1)
+        embed["map"], pts_embed["map"] = self._encode("map", anchor["map"])
+        tfeat["map"] = tembed["map"] = None
 
-            feat["map"] = self.map_feature[None].expand(bs, -1, -1)
-            anchor["map"] = self.map_anchor[None].expand(bs, -1, -1)
-            embed["map"], pts_embed["map"] = encode("map", anchor["map"])
-            tfeat["map"] = tembed["map"] = None
+        front = front_view_feature(feature_maps)
+        plan_base = self.plan_feature_encoder(front)  # [bs, C]
+        feat["plan"] = plan_base[:, None].expand(-1, cfg.num_plan_anchor, -1)
+        anchor["plan"] = self.plan_anchor[None].expand(bs, -1, -1)
+        embed["plan"], pts_embed["plan"] = self._encode("plan", anchor["plan"])
+        temp_plan_feat, temp_plan_anchor = banks.plan_bank_get(
+            cfg, bank_states.plan if has_temp else None)
+        tfeat["plan"] = temp_plan_feat
+        tembed["plan"] = None
+        if has_temp:
+            tembed["plan"], temp_pts_embed["plan"] = self._encode("plan", temp_plan_anchor)
 
-            front = front_view_feature(feature_maps)
-            plan_base = self.plan_feature_encoder(front)  # [bs, C]
-            feat["plan"] = plan_base[:, None].expand(-1, cfg.num_plan_anchor, -1)
-            anchor["plan"] = self.plan_anchor[None].expand(bs, -1, -1)
-            embed["plan"], pts_embed["plan"] = encode("plan", anchor["plan"])
-            temp_plan_feat, temp_plan_anchor = banks.plan_bank_get(
-                cfg, bank_states.plan if has_temp else None)
-            tfeat["plan"] = temp_plan_feat
-            tembed["plan"] = None
-            if has_temp:
-                tembed["plan"], temp_pts_embed["plan"] = encode("plan", temp_plan_anchor)
+        feat["ego"] = self.ego_feature_encoder(front)[:, None]  # [bs, 1, C]
+        anchor["ego"] = self.ego_anchor_init[None].expand(bs, -1, -1)
+        embed["ego"] = det_enc(anchor["ego"])
+        temp_ego_feat, temp_ego_anchor = banks.ego_bank_get(
+            bank_states.ego if has_temp else None)
+        tfeat["ego"] = temp_ego_feat
+        tembed["ego"] = det_enc(temp_ego_anchor) if has_temp else None
 
-            feat["ego"] = self.ego_feature_encoder(front)[:, None]  # [bs, 1, C]
-            anchor["ego"] = self.ego_anchor_init[None].expand(bs, -1, -1)
-            embed["ego"] = det_enc(anchor["ego"])
-            temp_ego_feat, temp_ego_anchor = banks.ego_bank_get(
-                bank_states.ego if has_temp else None)
-            tfeat["ego"] = temp_ego_feat
-            tembed["ego"] = det_enc(temp_ego_anchor) if has_temp else None
+        nt, nd = cfg.num_temp_det_anchor, cfg.num_det_anchor
+        run_metas = [k for k, on in (("target_point", cfg.with_target_point_embed),
+                                     ("gt_ego_fut_cmd", cfg.with_command_embed)) if on]
+        return DecoderState(
+            bs=bs, device=feature_maps[0].device, has_temp=has_temp, feat=feat, anchor=anchor,
+            embed=embed, pts_embed=pts_embed, tfeat=tfeat, tembed=tembed,
+            temp_pts_embed=temp_pts_embed, time_interval=time_interval,
+            temp_det_feat=temp_det_feat, temp_det_anchor=temp_det_anchor, det_mask=det_mask,
+            det_bank_state=bank_states.det if has_temp else None,
+            metas={k: metas[k] for k in run_metas}, det_live=(nt, nd - nt), out=_empty_out())
 
-            def joint_pair(f_d, e_d, p_d):
-                """Concatenate features and embeds over query_select; a
-                point-expanded task's features are repeated per point
-                (interleaved) beside its point embeds."""
-                fparts, eparts, sections, start = [], [], {}, 0
-                for q in qs:
-                    f, e = f_d[q], e_d[q]
-                    if f is None:
-                        f = e = torch.zeros((bs, 0, C), dtype=torch.float32,
-                                            device=feature_maps[0].device)
-                    S = self.expand_S.get(q, 0)
-                    if S and f.shape[1]:
-                        f, e = f.repeat_interleave(S, dim=1), p_d[q]
-                    fparts.append(f)
-                    eparts.append(e)
-                    sections[q] = (start, start + f.shape[1])
-                    start += f.shape[1]
-                return torch.cat(fparts, dim=1), torch.cat(eparts, dim=1), sections
+    def _encode(self, q: str, a: torch.Tensor):
+        """-> (instance embed, per-point embed or None) of map/plan anchors."""
+        enc = getattr(self, f"{q}_anchor_encoder")
+        return enc(a) if self.per_point[q] else (enc(a), None)
 
-            out: Dict[str, Dict[str, List]] = {
-                "det": {"classification": [], "prediction": [], "quality": []},
-                "map": {"classification": [], "prediction": []},
-                "ego": {"status": []},
-                "plan": {"classification": [], "prediction": []},
-                "motion": {"classification": [], "prediction": []},
-            }
-            det_bank_state = bank_states.det if has_temp else None
-            det_cls = plan_cls = None
-            joint_feat = joint_embed = None
-            temp_joint_feat = temp_joint_embed = None
-            cur_sections = temp_sections = None
-            deform_i = refine_i = 0
+    def _joint_pair(self, st: DecoderState, f_d, e_d, p_d):
+        """Concatenate features and embeds over query_select; a point-expanded
+        task's features are repeated per point (interleaved) beside its point
+        embeds."""
+        fparts, eparts, sections, start = [], [], {}, 0
+        for q in self.cfg.query_select:
+            f, e = f_d[q], e_d[q]
+            if f is None:
+                f = e = torch.zeros((st.bs, 0, self.cfg.embed_dims), dtype=torch.float32,
+                                    device=st.device)
+            S = self.expand_S.get(q, 0)
+            if S and f.shape[1]:
+                f, e = f.repeat_interleave(S, dim=1), p_d[q]
+            fparts.append(f)
+            eparts.append(e)
+            sections[q] = (start, start + f.shape[1])
+            start += f.shape[1]
+        return torch.cat(fparts, dim=1), torch.cat(eparts, dim=1), sections
 
-            # det-query pruning: ``det_live`` = live (temporal, fresh) prefix
-            # lengths; ``det_tails`` maps an output key to the (temporal, fresh)
-            # rows frozen at their drop layer, in ascending original-slot order
-            det_prune = cfg.with_topk_det and cfg.topk_det_list is not None
-            nt, nd = cfg.num_temp_det_anchor, cfg.num_det_anchor
-            det_live = (nt, nd - nt)
-            det_tails: Dict[str, tuple] = {}
+    @staticmethod
+    def _det_splice(st: DecoderState, live: torch.Tensor, key: str) -> torch.Tensor:
+        """A live det tensor back at the full slot layout: the frozen tails
+        spliced behind each segment's live prefix."""
+        if key not in st.det_tails:
+            return live
+        tail_t, tail_f = st.det_tails[key]
+        tk = st.det_live[0]
+        return torch.cat([live[:, :tk], tail_t, live[:, tk:], tail_f], dim=1)
 
-            def det_splice(live, key):
-                """A live det tensor back at the full slot layout: the frozen
-                tails spliced behind each segment's live prefix."""
-                if key not in det_tails:
-                    return live
-                tail_t, tail_f = det_tails[key]
-                tk = det_live[0]
-                return torch.cat([live[:, :tk], tail_t, live[:, tk:], tail_f], dim=1)
+    def _pad_modes(self, x: torch.Tensor, fill: float) -> torch.Tensor:
+        """Pruned per-group plan modes padded back to the full count."""
+        cfg = self.cfg
+        bs, ng, per_full = x.shape[0], cfg.plan_anchor_group, cfg.ego_fut_cmd * cfg.ego_fut_mode
+        k = x.shape[1] // ng
+        if k == per_full:
+            return x
+        xg = x.reshape((bs, ng, k) + x.shape[2:])
+        pad = torch.full((bs, ng, per_full - k) + x.shape[2:], fill, dtype=x.dtype,
+                         device=x.device)
+        return torch.cat([xg, pad], dim=2).reshape((bs, ng * per_full) + x.shape[2:])
 
-            ng = cfg.plan_anchor_group
-            per_full = cfg.ego_fut_cmd * cfg.ego_fut_mode
+    def _constants(self):
+        """The tensors a graph reads where they lie: parameters and buffers."""
+        return itertools.chain(self.parameters(), self.buffers())
 
-            def pad_modes(x, fill):
-                """Pruned per-group plan modes padded back to ``per_full``."""
-                k = x.shape[1] // ng
-                if k == per_full:
-                    return x
-                xg = x.reshape((bs, ng, k) + x.shape[2:])
-                pad = torch.full((bs, ng, per_full - k) + x.shape[2:], fill, dtype=x.dtype,
-                                 device=x.device)
-                return torch.cat([xg, pad], dim=2).reshape((bs, ng * per_full) + x.shape[2:])
+    def _run_unit(self, lo: int, hi: int, st: DecoderState, generator, replay: bool):
+        """Ops ``[lo, hi)`` through the graph cache (eager, captured or
+        replayed); the per-layer outputs they add are appended to ``st.out``
+        after them."""
+        out, st.out = st.out, _empty_out()
+        st = self.graphs.run((lo, hi), functools.partial(self._run_ops, lo, hi,
+                                                         generator=generator),
+                             st, replay, self._constants)
+        for task, lists in st.out.items():
+            for key, new in lists.items():
+                out[task][key].extend(new)
+        st.out = out
+        return st
 
-        for op_idx, op in enumerate(cfg.operation_order):
+    def _run_ops(self, lo: int, hi: int, st: DecoderState,
+                 generator: Optional[torch.Generator] = None) -> DecoderState:
+        """Ops ``[lo, hi)`` of ``operation_order``, none of them ``deformable``,
+        eagerly and in order on ``st`` -> ``st``."""
+        cfg = self.cfg
+        C, qs = cfg.embed_dims, cfg.query_select
+        feat, embed, pts_embed = st.feat, st.embed, st.pts_embed
+        for op_idx in range(lo, hi):
+            op = cfg.operation_order[op_idx]
             with span("decoder." + op):
                 if op == "concat":
-                    joint_feat, joint_embed, cur_sections = joint_pair(feat, embed, pts_embed)
-                    if has_temp:
-                        temp_joint_feat, temp_joint_embed, temp_sections = joint_pair(
-                            tfeat, tembed, temp_pts_embed)
+                    st.joint_feat, st.joint_embed, st.cur_sections = self._joint_pair(
+                        st, feat, embed, pts_embed)
+                    if st.has_temp:
+                        st.temp_joint_feat, st.temp_joint_embed, st.temp_sections = \
+                            self._joint_pair(st, st.tfeat, st.tembed, st.temp_pts_embed)
 
                 elif op == "split":
                     for q in qs:
-                        s, e = cur_sections[q]
+                        s, e = st.cur_sections[q]
                         S = self.expand_S.get(q, 0)
                         if S and e > s:
                             # the S point features of each query squeezed back to one
                             squeeze = getattr(self, f"squeeze_{q}_instance")
-                            feat[q] = squeeze(joint_feat[:, s:e].reshape(bs, (e - s) // S, S * C))
-                            pts_embed[q] = joint_embed[:, s:e]
+                            feat[q] = squeeze(st.joint_feat[:, s:e].reshape(
+                                st.bs, (e - s) // S, S * C))
+                            pts_embed[q] = st.joint_embed[:, s:e]
                         else:
-                            feat[q] = joint_feat[:, s:e]
-                            embed[q] = joint_embed[:, s:e]
+                            feat[q] = st.joint_feat[:, s:e]
+                            embed[q] = st.joint_embed[:, s:e]
 
                 elif op == "gnn":
-                    joint_feat = getattr(self, f"gnn_{op_idx}")(
-                        joint_feat, joint_embed, cur_sections, self.fc_before, self.fc_after,
-                        generator=generator)
+                    st.joint_feat = getattr(self, f"gnn_{op_idx}")(
+                        st.joint_feat, st.joint_embed, st.cur_sections, self.fc_before,
+                        self.fc_after, generator=generator)
 
                 elif op == "temp_gnn":
-                    joint_feat = getattr(self, f"temp_gnn_{op_idx}")(
-                        joint_feat, joint_embed, cur_sections, self.fc_before, self.fc_after,
-                        key_x=temp_joint_feat, key_pos=temp_joint_embed,
-                        key_sections=temp_sections, has_value=has_temp, generator=generator)
+                    st.joint_feat = getattr(self, f"temp_gnn_{op_idx}")(
+                        st.joint_feat, st.joint_embed, st.cur_sections, self.fc_before,
+                        self.fc_after, key_x=st.temp_joint_feat, key_pos=st.temp_joint_embed,
+                        key_sections=st.temp_sections, has_value=st.has_temp,
+                        generator=generator)
 
                 elif op == "inter_gnn":
-                    joint_feat = getattr(self, f"inter_gnn_{op_idx}")(
-                        joint_feat, joint_embed, cur_sections, self.fc_before, self.fc_after,
-                        key_x=joint_feat, key_pos=joint_embed, key_sections=cur_sections,
-                        attn_bias=self._inter_bias(op_idx, feat, anchor), generator=generator)
+                    st.joint_feat = getattr(self, f"inter_gnn_{op_idx}")(
+                        st.joint_feat, st.joint_embed, st.cur_sections, self.fc_before,
+                        self.fc_after, key_x=st.joint_feat, key_pos=st.joint_embed,
+                        key_sections=st.cur_sections,
+                        attn_bias=self._inter_bias(op_idx, feat, st.anchor), generator=generator)
 
                 elif op == "norm":
-                    joint_feat = getattr(self, f"norm_{op_idx}")(joint_feat)
+                    st.joint_feat = getattr(self, f"norm_{op_idx}")(st.joint_feat)
 
                 elif op == "ffn":
-                    joint_feat = getattr(self, f"ffn_{op_idx}")(joint_feat, generator)
-
-                elif op == "deformable":
-                    for q in qs:
-                        with span("deformable." + q):
-                            feat[q] = getattr(self, f"{q}_deformable_{deform_i}")(
-                                getattr(self, f"{q}_kps_{deform_i}"), feat[q], anchor[q],
-                                pts_embed[q] if self.deform_S.get(q, 0) else embed[q],
-                                feature_maps, projection_mat, image_wh, generator)
-                    deform_i += 1
+                    st.joint_feat = getattr(self, f"ffn_{op_idx}")(st.joint_feat, generator)
 
                 elif op == "refine":
-                    # ---- det -------------------------------------------------
-                    anchor["det"], det_cls, det_qt = getattr(self, f"det_refine_{refine_i}")(
-                        feat["det"], anchor["det"], embed["det"], time_interval)
-                    out["det"]["prediction"].append(det_splice(anchor["det"], "prediction"))
-                    out["det"]["classification"].append(det_splice(det_cls, "classification"))
-                    out["det"]["quality"].append(det_splice(det_qt, "quality"))
-                    if refine_i + 1 == cfg.num_single_frame_decoder:
-                        if has_temp:
-                            feat["det"], anchor["det"], det_bank_state = banks.det_bank_update(
-                                cfg, det_bank_state, temp_det_feat, temp_det_anchor,
-                                feat["det"], anchor["det"], det_cls, det_mask,
-                                sort_fresh_full=det_prune)
-                        elif det_prune:
-                            feat["det"], anchor["det"] = banks.cold_layout(
-                                cfg, det_cls.max(dim=-1).values, feat["det"], anchor["det"])
-                    embed["det"] = det_enc(anchor["det"])
-                    if refine_i + 1 > cfg.num_single_frame_decoder and has_temp:
-                        tembed["det"] = embed["det"][:, :det_live[0]]
+                    self._refine(st)
 
-                    # ---- map -------------------------------------------------
-                    anchor["map"], map_cls = getattr(self, f"map_refine_{refine_i}")(
-                        feat["map"], anchor["map"], embed["map"])
-                    out["map"]["prediction"].append(anchor["map"])
-                    out["map"]["classification"].append(map_cls)
-                    embed["map"], pts_embed["map"] = encode("map", anchor["map"])
+                else:
+                    raise ValueError(f"op {op_idx} ({op!r}) is not an op of a run")
+        return st
 
-                    # ---- motion ----------------------------------------------
-                    if self.with_motion:
-                        # [bs, n, mode, ts, 2]
-                        m_anchor = self.motion_anchor[det_cls.argmax(dim=-1)]
-                        m_anchor = agent_to_lidar_trajs(m_anchor, anchor["det"].detach())
-                        mode_embed = sine_embed_2d(m_anchor[..., -1, :], C)
-                        mode_q = self.motion_anchor_encoder_out(
-                            self.motion_anchor_encoder_mlp(mode_embed))
-                        motion_q = mode_q + (feat["det"] + embed["det"])[:, :, None]
-                        m_cls, m_reg = getattr(self, f"motion_refine_{refine_i}")(motion_q)
-                        out["motion"]["classification"].append(det_splice(m_cls, "m_cls"))
-                        out["motion"]["prediction"].append(det_splice(m_reg, "m_reg"))
+    def _deformable(self, st: DecoderState, feature_maps, metas, generator):
+        i = st.deform_i
+        for q in self.cfg.query_select:
+            with span("deformable." + q):
+                st.feat[q] = getattr(self, f"{q}_deformable_{i}")(
+                    getattr(self, f"{q}_kps_{i}"), st.feat[q], st.anchor[q],
+                    st.pts_embed[q] if self.deform_S.get(q, 0) else st.embed[q],
+                    feature_maps, metas["projection_mat"], metas["image_wh"], generator)
+        st.deform_i += 1
 
-                    # ---- ego -------------------------------------------------
-                    out["ego"]["status"].append(getattr(self, f"ego_refine_{refine_i}")(
-                        feat["ego"], embed["ego"]))
+    def _refine(self, st: DecoderState):
+        """The refine op: every task's head, the det bank merge after the
+        single-frame layers, then plan-mode and det-query pruning."""
+        cfg = self.cfg
+        C, bs, i = cfg.embed_dims, st.bs, st.refine_i
+        feat, anchor, embed, pts_embed, out = st.feat, st.anchor, st.embed, st.pts_embed, st.out
+        det_enc = self.det_anchor_encoder
+        det_prune = cfg.with_topk_det and cfg.topk_det_list is not None
 
-                    # ---- plan ------------------------------------------------
-                    plan_embed = embed["plan"]
-                    if cfg.with_target_point_embed:
-                        tp = sine_embed_2d(metas["target_point"], C)
-                        plan_embed = plan_embed + self.target_point_encoder_out(
-                            self.target_point_encoder_mlp(tp))[:, None]
-                    if cfg.with_command_embed:
-                        cmd = metas["gt_ego_fut_cmd"].float()
-                        plan_embed = plan_embed + self.command_encoder_out(
-                            self.command_encoder_mlp(cmd))[:, None]
-                    if cfg.with_ego_instance_feature:
-                        feat["plan"] = feat["plan"] + feat["ego"]
-                        plan_embed = plan_embed + embed["ego"]
-                    plan_reg, plan_cls = getattr(self, f"plan_refine_{refine_i}")(
-                        feat["plan"], anchor["plan"], plan_embed)
-                    if cfg.with_topk_mode and cfg.topk_mode_list is not None:
-                        # per-layer plan-mode top-k; even k == all modes reorders
-                        # them by score, as the JAX package does every layer
-                        per_prev = plan_reg.shape[1] // ng
-                        k_l = min(int(cfg.topk_mode_list[refine_i]), per_prev)
-                        cls_g = plan_cls.reshape(bs, ng, per_prev)
-                        scores, idx = ranking.topk(cls_g, k_l)
-                        if cfg.keep_topk_relative_pos:
-                            idx = idx.sort(dim=-1).values
-                            scores = torch.gather(cls_g, 2, idx)
+        # ---- det -------------------------------------------------------------
+        anchor["det"], det_cls, det_qt = getattr(self, f"det_refine_{i}")(
+            feat["det"], anchor["det"], embed["det"], st.time_interval)
+        st.det_cls = det_cls
+        out["det"]["prediction"].append(self._det_splice(st, anchor["det"], "prediction"))
+        out["det"]["classification"].append(self._det_splice(st, det_cls, "classification"))
+        out["det"]["quality"].append(self._det_splice(st, det_qt, "quality"))
+        if i + 1 == cfg.num_single_frame_decoder:
+            if st.has_temp:
+                feat["det"], anchor["det"], st.det_bank_state = banks.det_bank_update(
+                    cfg, st.det_bank_state, st.temp_det_feat, st.temp_det_anchor,
+                    feat["det"], anchor["det"], det_cls, st.det_mask,
+                    sort_fresh_full=det_prune)
+            elif det_prune:
+                feat["det"], anchor["det"] = banks.cold_layout(
+                    cfg, det_cls.max(dim=-1).values, feat["det"], anchor["det"])
+        embed["det"] = det_enc(anchor["det"])
+        if i + 1 > cfg.num_single_frame_decoder and st.has_temp:
+            st.tembed["det"] = embed["det"][:, :st.det_live[0]]
 
-                        def take(a):
-                            ag = a.reshape(bs, ng, per_prev, -1)
-                            return torch.gather(
-                                ag, 2, idx[..., None].expand(-1, -1, -1, ag.shape[-1]))
+        # ---- map -------------------------------------------------------------
+        anchor["map"], map_cls = getattr(self, f"map_refine_{i}")(
+            feat["map"], anchor["map"], embed["map"])
+        out["map"]["prediction"].append(anchor["map"])
+        out["map"]["classification"].append(map_cls)
+        embed["map"], pts_embed["map"] = self._encode("map", anchor["map"])
 
-                        plan_reg = take(plan_reg).reshape(bs, ng * k_l, -1)
-                        feat["plan"] = take(feat["plan"]).reshape(bs, ng * k_l, -1)
-                        plan_cls = scores.reshape(bs, ng * k_l, 1)
-                    anchor["plan"] = plan_reg
-                    wp = plan_reg.reshape(bs, -1, cfg.ego_fut_ts, 2)
-                    offsets = torch.cat([wp[..., :1, :], wp[..., 1:, :] - wp[..., :-1, :]], dim=-2)
-                    # [bs, 1, N, ts, 2]
-                    out["plan"]["prediction"].append(pad_modes(offsets, 1e6)[:, None])
-                    out["plan"]["classification"].append(
-                        pad_modes(plan_cls.reshape(bs, -1, 1), -1e9).reshape(bs, 1, -1))
-                    embed["plan"], pts_embed["plan"] = encode("plan", anchor["plan"])
+        # ---- motion ----------------------------------------------------------
+        if self.with_motion:
+            # [bs, n, mode, ts, 2]
+            m_anchor = self.motion_anchor[det_cls.argmax(dim=-1)]
+            m_anchor = agent_to_lidar_trajs(m_anchor, anchor["det"].detach())
+            mode_embed = sine_embed_2d(m_anchor[..., -1, :], C)
+            mode_q = self.motion_anchor_encoder_out(self.motion_anchor_encoder_mlp(mode_embed))
+            motion_q = mode_q + (feat["det"] + embed["det"])[:, :, None]
+            m_cls, m_reg = getattr(self, f"motion_refine_{i}")(motion_q)
+            out["motion"]["classification"].append(self._det_splice(st, m_cls, "m_cls"))
+            out["motion"]["prediction"].append(self._det_splice(st, m_reg, "m_reg"))
 
-                    # ---- det-query pruning, at the end of the refine block -----
-                    if det_prune and refine_i + 1 >= cfg.num_single_frame_decoder:
-                        cur_t, cur_f = det_live
-                        k = min(int(cfg.topk_det_list[refine_i]), cur_t + cur_f)
-                        tk = k * nt // nd
-                        nk = k - tk
-                        if tk < cur_t or nk < cur_f:
-                            new_vals = {"prediction": anchor["det"], "classification": det_cls,
-                                        "quality": det_qt, "feat": feat["det"]}
-                            if self.with_motion:
-                                new_vals.update(m_cls=m_cls, m_reg=m_reg)
-                            for key, full in new_vals.items():
-                                tail_t, tail_f = full[:, tk:cur_t], full[:, cur_t + nk:]
-                                if key in det_tails:
-                                    # newly dropped rows precede earlier drops
-                                    tail_t = torch.cat([tail_t, det_tails[key][0]], dim=1)
-                                    tail_f = torch.cat([tail_f, det_tails[key][1]], dim=1)
-                                det_tails[key] = (tail_t, tail_f)
+        # ---- ego -------------------------------------------------------------
+        out["ego"]["status"].append(getattr(self, f"ego_refine_{i}")(feat["ego"], embed["ego"]))
 
-                            def keep(x):
-                                return torch.cat([x[:, :tk], x[:, cur_t:cur_t + nk]], dim=1)
+        # ---- plan ------------------------------------------------------------
+        plan_embed = embed["plan"]
+        if cfg.with_target_point_embed:
+            tp = sine_embed_2d(st.metas["target_point"], C)
+            plan_embed = plan_embed + self.target_point_encoder_out(
+                self.target_point_encoder_mlp(tp))[:, None]
+        if cfg.with_command_embed:
+            cmd = st.metas["gt_ego_fut_cmd"].float()
+            plan_embed = plan_embed + self.command_encoder_out(
+                self.command_encoder_mlp(cmd))[:, None]
+        if cfg.with_ego_instance_feature:
+            feat["plan"] = feat["plan"] + feat["ego"]
+            plan_embed = plan_embed + embed["ego"]
+        plan_reg, plan_cls = getattr(self, f"plan_refine_{i}")(
+            feat["plan"], anchor["plan"], plan_embed)
+        if cfg.with_topk_mode and cfg.topk_mode_list is not None:
+            # per-layer plan-mode top-k; even k == all modes reorders them by
+            # score, as the JAX package does every layer
+            ng = cfg.plan_anchor_group
+            per_prev = plan_reg.shape[1] // ng
+            k_l = min(int(cfg.topk_mode_list[i]), per_prev)
+            cls_g = plan_cls.reshape(bs, ng, per_prev)
+            scores, idx = ranking.topk(cls_g, k_l)
+            if cfg.keep_topk_relative_pos:
+                idx = idx.sort(dim=-1).values
+                scores = torch.gather(cls_g, 2, idx)
 
-                            feat["det"], anchor["det"], embed["det"] = (
-                                keep(feat["det"]), keep(anchor["det"]), keep(embed["det"]))
-                            if has_temp:
-                                tfeat["det"] = tfeat["det"][:, :tk]
-                                tembed["det"] = tembed["det"][:, :tk]
-                            det_live = (tk, nk)
-                    refine_i += 1
+            def take(a):
+                ag = a.reshape(bs, ng, per_prev, -1)
+                return torch.gather(ag, 2, idx[..., None].expand(-1, -1, -1, ag.shape[-1]))
 
+            plan_reg = take(plan_reg).reshape(bs, ng * k_l, -1)
+            feat["plan"] = take(feat["plan"]).reshape(bs, ng * k_l, -1)
+            plan_cls = scores.reshape(bs, ng * k_l, 1)
+        st.plan_cls = plan_cls
+        anchor["plan"] = plan_reg
+        wp = plan_reg.reshape(bs, -1, cfg.ego_fut_ts, 2)
+        offsets = torch.cat([wp[..., :1, :], wp[..., 1:, :] - wp[..., :-1, :]], dim=-2)
+        # [bs, 1, N, ts, 2]
+        out["plan"]["prediction"].append(self._pad_modes(offsets, 1e6)[:, None])
+        out["plan"]["classification"].append(
+            self._pad_modes(plan_cls.reshape(bs, -1, 1), -1e9).reshape(bs, 1, -1))
+        embed["plan"], pts_embed["plan"] = self._encode("plan", anchor["plan"])
+
+        # ---- det-query pruning, at the end of the refine block ---------------
+        if det_prune and i + 1 >= cfg.num_single_frame_decoder:
+            nt, nd = cfg.num_temp_det_anchor, cfg.num_det_anchor
+            cur_t, cur_f = st.det_live
+            k = min(int(cfg.topk_det_list[i]), cur_t + cur_f)
+            tk = k * nt // nd
+            nk = k - tk
+            if tk < cur_t or nk < cur_f:
+                new_vals = {"prediction": anchor["det"], "classification": det_cls,
+                            "quality": det_qt, "feat": feat["det"]}
+                if self.with_motion:
+                    new_vals.update(m_cls=m_cls, m_reg=m_reg)
+                for key, full in new_vals.items():
+                    tail_t, tail_f = full[:, tk:cur_t], full[:, cur_t + nk:]
+                    if key in st.det_tails:
+                        # newly dropped rows precede earlier drops
+                        tail_t = torch.cat([tail_t, st.det_tails[key][0]], dim=1)
+                        tail_f = torch.cat([tail_f, st.det_tails[key][1]], dim=1)
+                    st.det_tails[key] = (tail_t, tail_f)
+
+                def keep(x):
+                    return torch.cat([x[:, :tk], x[:, cur_t:cur_t + nk]], dim=1)
+
+                feat["det"], anchor["det"], embed["det"] = (
+                    keep(feat["det"]), keep(anchor["det"]), keep(embed["det"]))
+                if st.has_temp:
+                    st.tfeat["det"] = st.tfeat["det"][:, :tk]
+                    st.tembed["det"] = st.tembed["det"][:, :tk]
+                st.det_live = (tk, nk)
+        st.refine_i += 1
+
+    def _finish(self, st: DecoderState, metas, bank_states):
+        """Pads the pruned plan modes back, caches the banks for the next
+        frame and stacks the per-layer outputs."""
+        cfg, bs, has_temp, out = self.cfg, st.bs, st.has_temp, st.out
+        timestamp = metas["timestamp"]
         # pruned plan modes padded back to the full count before caching
-        feat["plan"] = pad_modes(feat["plan"], 0.0)
-        anchor["plan"] = pad_modes(anchor["plan"], 1e6)
-        plan_cls = pad_modes(plan_cls.reshape(bs, -1, 1), -1e9)
+        feat_plan = self._pad_modes(st.feat["plan"], 0.0)
+        final_plan = self._pad_modes(st.anchor["plan"], 1e6)
+        plan_cls = self._pad_modes(st.plan_cls.reshape(bs, -1, 1), -1e9)
 
         with span("decoder.bank_cache"):
             # ---- cache banks for the next frame ------------------------------
             # under det pruning, at the full slot layout: live rows + frozen tails
-            det_cls_full = det_splice(det_cls, "classification")
+            det_cls_full = self._det_splice(st, st.det_cls, "classification")
             new_det_state, temp_conf = banks.det_bank_cache(
-                cfg, det_bank_state.confidence if has_temp else None,
-                det_splice(feat["det"], "feat"), det_splice(anchor["det"], "prediction"),
+                cfg, st.det_bank_state.confidence if has_temp else None,
+                self._det_splice(st, st.feat["det"], "feat"),
+                self._det_splice(st, st.anchor["det"], "prediction"),
                 det_cls_full, timestamp, metas["T_global"])
             instance_id, new_det_state = banks.det_assign_instance_ids(
-                cfg, det_bank_state, new_det_state, temp_conf, det_cls_full)
+                cfg, st.det_bank_state, new_det_state, temp_conf, det_cls_full)
             new_bank_states = banks.BankStates(
                 det=new_det_state,
-                ego=banks.ego_bank_cache(feat["ego"], anchor["ego"], timestamp),
+                ego=banks.ego_bank_cache(st.feat["ego"], st.anchor["ego"], timestamp),
                 plan=banks.plan_bank_cache(
                     cfg, bank_states.plan.confidence if has_temp else None,
-                    feat["plan"], anchor["plan"], plan_cls, timestamp),
+                    feat_plan, final_plan, plan_cls, timestamp),
             )
 
         outputs: Dict[str, Any] = {
@@ -594,7 +734,7 @@ class SparseOneDecoder(nn.Module):
             "plan": {
                 "classification": torch.stack(out["plan"]["classification"]),
                 "prediction": torch.stack(out["plan"]["prediction"]),
-                "final_waypoints": anchor["plan"],
+                "final_waypoints": final_plan,
             },
         }
         if self.with_motion:
@@ -603,3 +743,13 @@ class SparseOneDecoder(nn.Module):
                 "prediction": torch.stack(out["motion"]["prediction"]),
             }
         return outputs, new_bank_states
+
+    # -- the graphs read the parameters where they lie: drop them when the
+    # parameters move or are loaded
+    def _apply(self, fn, *args, **kwargs):
+        self.graphs.clear()
+        return super()._apply(fn, *args, **kwargs)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        self.graphs.clear()
+        return super()._load_from_state_dict(*args, **kwargs)

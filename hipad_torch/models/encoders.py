@@ -25,7 +25,7 @@ class SparseBox3DEncoder(nn.Module):
         return torch.cat([
             self.pos_fc(box[..., X:X + 3]),
             self.size_fc(box[..., W:W + 3]),
-            self.yaw_fc(box[..., [SIN_YAW, COS_YAW]]),
+            self.yaw_fc(box[..., SIN_YAW:COS_YAW + 1]),  # adjacent: a slice, no list index
             self.vel_fc(box[..., VX:VX + 3]),
         ], dim=-1)
 

@@ -12,6 +12,7 @@ with ``lax.top_k``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -111,7 +112,10 @@ def det_cold_layout(cfg) -> np.ndarray:
     fresh] segment geometry by Bresenham round-robin, so that every
     proportional prefix keeps the global top-k (``with_topk_det`` on a cold
     sample). ``layout[s] = sorted[inv[s]]``."""
-    nt, nd = cfg.num_temp_det_anchor, cfg.num_det_anchor
+    return _cold_layout(cfg.num_temp_det_anchor, cfg.num_det_anchor)
+
+
+def _cold_layout(nt: int, nd: int) -> np.ndarray:
     r = np.arange(nd)
     ct = (r * nt) // nd
     in_t = ((r + 1) * nt) // nd > ct
@@ -121,11 +125,18 @@ def det_cold_layout(cfg) -> np.ndarray:
     return inv
 
 
+@functools.lru_cache(maxsize=None)
+def _cold_inv(nt: int, nd: int, device: torch.device) -> torch.Tensor:
+    """:func:`det_cold_layout` on ``device``, copied from the host once: a
+    CUDA graph (``decoder_graphs.py``) cannot hold that copy."""
+    return torch.as_tensor(_cold_layout(nt, nd), device=device)
+
+
 def cold_layout(cfg, confidence: torch.Tensor, *inputs):
     """``inputs`` (rows along dim 1) sorted by ``confidence`` and laid into
     the segment geometry by :func:`det_cold_layout`."""
     _, outs = topk_gather(confidence, cfg.num_det_anchor, *inputs)
-    inv = torch.as_tensor(det_cold_layout(cfg), device=confidence.device)
+    inv = _cold_inv(cfg.num_temp_det_anchor, cfg.num_det_anchor, confidence.device)
     return [x[:, inv] for x in outs]
 
 
