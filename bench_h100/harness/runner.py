@@ -4,9 +4,9 @@ line.
 
 The window runs whole units until ``--seconds`` have passed; a rate or a
 time per unit is taken over every unit and the whole window, a percentile
-over every unit's wall. With ``--trace 1`` the window is the unprofiled
-stretch; a short profiled stretch and a short stretch under the sync debug
-mode follow it.
+over every unit's wall. A short profiled stretch follows the window on the
+card (the device's busy time a unit); with ``--trace 1`` it also opens the
+sampler's ranges, and a short stretch under the sync debug mode follows it.
 """
 
 from __future__ import annotations
@@ -75,18 +75,20 @@ def execute(cell: spec.Cell, seed: int, seconds: float, traced: bool, device, t_
             break
     run = Run(cell, setup_s, b - t0, walls)
 
+    def units(n):
+        def go():
+            for _ in range(n):
+                drv.unit(capture=False)
+            return n
+        return go
+
+    n_prof = cell.traffic["profiled_units"]
     if traced:
-        n_prof, n_sync = cell.traffic["profiled_units"], cell.traffic["sync_units"]
-
-        def units(n):
-            def go():
-                for _ in range(n):
-                    drv.unit(capture=False)
-                return n
-            return go
-
         run.trace = trace.profile(units(n_prof))
-        run.syncs = trace.count_syncs(units(n_sync))
+        run.syncs = trace.count_syncs(units(cell.traffic["sync_units"]))
+    elif cuda:
+        # the card's busy time a unit, which the end-to-end readers take
+        run.trace = trace.profile(units(n_prof), with_sampler=False)
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     drv.release()
     if cuda:
@@ -120,8 +122,9 @@ def execute(cell: spec.Cell, seed: int, seconds: float, traced: bool, device, t_
           f"{1e3 * sum(walls[:half]) / max(half, 1):.1f}/"
           f"{1e3 * sum(walls[half:]) / max(run.units - half, 1):.1f}), check {check_s:.3f} s",
           file=log)
-    if traced:
+    if run.trace is not None:
         print(f"[run] trace: {json.dumps({k: v for k, v in run.trace.items() if k not in ('device_ops', 'idle_gaps')})}", file=log)
+    if run.syncs is not None:
         print(f"[run] syncs: {json.dumps(run.syncs)}", file=log)
     for d in drv.diag:
         print(f"[diag] {json.dumps(d)}", file=log)

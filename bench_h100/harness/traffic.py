@@ -8,7 +8,8 @@ seed gives the same sizes, so seeds change the content and not the work.
   a few large calls and brought to the host as uint8, as a simulator or a
   recorded split hands them over;
 * a 2 Hz stream of frames along a circular route with the CARLA rig's
-  calibration (:class:`StreamFrames`).
+  calibration at the configuration's input size (:class:`StreamFrames`,
+  :func:`rig_aug`).
 """
 
 from __future__ import annotations
@@ -59,14 +60,24 @@ def camera_frames(n: int, h: int, w: int, shapes: int, noise: float,
     return img.round().clamp(0, 255).to(torch.uint8)
 
 
+def rig_aug(cfg) -> Dict:
+    """The rig's test-time augmentation for images of the configuration's
+    ``input_size`` (H, W): the 1600x900 camera resized by max(H/900, W/1600)
+    and cropped centred in width and from the bottom, as the reference's
+    test pipeline does for any ``final_dim``."""
+    return pp.sample_aug_config(dict(pp.DATA_AUG_CONF, final_dim=tuple(cfg.input_size)),
+                                test_mode=True)
+
+
 class StreamFrames:
     """Recorded frames streamed at 2 Hz: ``frame(i)`` is the ``i``-th
     frame's (normalised float32 images ``[bs, cams, H, W, 3]`` on the host,
     pinned; metas as numpy). The images come in turn from a pool made at
     set-up; the ego drives a circle at a constant speed from an angle drawn
-    from the seed, the cameras are the CARLA rig's at the test-time crop,
-    the command is LANEFOLLOW and the target point lies on the circle
-    ahead."""
+    from the seed, the cameras are the CARLA rig's at the test-time resize
+    and crop for the configuration's own input size (as the reference's
+    test pipeline makes them for any ``final_dim``), the command is
+    LANEFOLLOW and the target point lies on the circle ahead."""
 
     def __init__(self, params: Dict, cfg, seed: int, device):
         gen = generator(seed, device)
@@ -82,7 +93,7 @@ class StreamFrames:
         self.radius, self.speed, self.dt = r["radius"], r["speed"], params["frame_dt_s"]
         self.theta0 = 2 * math.pi * float(torch.rand((), generator=gen, device=device))
         self.target_ahead = r["target_ahead_m"]
-        aug = pp.sample_aug_config(pp.DATA_AUG_CONF, test_mode=True)
+        aug = rig_aug(cfg)
         self.lidar2img = (pp.img_transform_matrix(aug)[None] @ stacked_lidar2img()
                           ).astype(np.float32)
         self.bs, self.num_cams, self.wh = bs, cfg.num_cams, (w, h)

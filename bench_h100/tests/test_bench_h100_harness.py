@@ -2,10 +2,12 @@
 sound run reads correct, the control and each planted fault read
 incorrect, and the no-JAX check."""
 
+import dataclasses
 import json
 import sys
 import time
 
+import numpy as np
 import pytest
 
 import torch
@@ -25,8 +27,30 @@ def test_sound_run_is_correct(tiny_root):
     assert res["correct"], res["checks"]
     assert res["attempted"] >= 1 and res["failed"] == 0
     assert list(res)[-1] == "checks"
-    assert set(res["metrics"]) == {"frames_per_s", "setup_s"}
+    # device_ms_per_frame reads the card's trace: on the CPU it is left out
+    assert set(res["metrics"]) == {"setup_s"}
     assert all(v["value"] > 0 for v in res["metrics"].values())
+
+
+def test_readers_take_the_profiled_stretch():
+    """The end-to-end card time a frame and the per-layer frame rate and
+    busy-time MFU, from a hand-made run; nothing where there is no trace."""
+    cell = spec.load_cell("stage2.frame")
+    flops = cell.config["model_flops_per_frame"]
+    run = runner.Run(cell, 12.0, 40.0, [0.1] * 400,
+                     trace={"busy_s": 0.093, "units": 3, "window_s": 0.62})
+    read = {m["name"]: spec.reader(kind, m["name"])(run)
+            for kind, ms in (("end_to_end", cell.end_to_end), ("layers", cell.per_layer))
+            for m in ms}
+    assert read["device_ms_per_frame"] == pytest.approx(31.0)
+    assert read["frames_per_s.frame"] == pytest.approx(10.0)
+    assert read["mfu_busy.frame"] == pytest.approx(100 * flops / 0.031 / 989e12)
+    assert 0 < read["mfu.frame"] < read["mfu_busy.frame"] < 100
+    assert read["device_idle.frame"] == pytest.approx(69.0)
+    bare = runner.Run(cell, 12.0, 40.0, [0.1] * 400)
+    for name in ("device_ms_per_frame", "mfu_busy.frame"):
+        kind = "end_to_end" if name == "device_ms_per_frame" else "layers"
+        assert spec.reader(kind, name)(bare) is None
 
 
 @pytest.mark.parametrize("kw", [
@@ -42,15 +66,25 @@ def test_control_and_faults_are_incorrect(tiny_root, kw):
     assert not res["correct"], res["checks"]
 
 
-def test_finds_a_new_cell_by_name(tiny_root, tmp_path):
+@pytest.mark.parametrize("size", [(352, 640), (704, 1280)])
+def test_finds_a_new_cell_by_name(tiny_root, tmp_path, size):
     """A configuration, a traffic mix and a metric reader added as files
-    alone are found by the names that BENCHMARK.json gives them."""
+    alone are found by the names that BENCHMARK.json gives them, and the
+    cell runs correct; a configuration at another input size (the tiny one
+    at 704x1280, as ``stage2_r101_2x`` runs) brings its images and camera
+    projection with it."""
     import shutil
+
+    from bench_h100.harness import traffic
+    from hipad_torch.configs import model as configs
 
     root = tmp_path / "root"
     shutil.copytree(tiny_root, root)
     base = root / "bench_h100"
-    (base / "configs" / "dummy.json").write_text((base / "configs" / "tiny6.json").read_text())
+    entry = json.loads((base / "configs" / "tiny6.json").read_text())
+    entry["overrides"]["input_size"] = list(size)
+    entry["fields"] = spec.config_fields(configs.tiny(num_cams=6, input_size=size))
+    (base / "configs" / "dummy.json").write_text(json.dumps(entry))
     mix = json.loads((base / "traffic" / "stream_frames.json").read_text())
     mix["route"]["speed"] = 2.0
     (base / "traffic" / "dummy_mix.json").write_text(json.dumps(mix))
@@ -73,6 +107,16 @@ def test_finds_a_new_cell_by_name(tiny_root, tmp_path):
     assert spec.reader("end_to_end", "dummy_units", root)(runner.Run(cell, 0, 1, [1, 1])) == 2
     with pytest.raises(SystemExit):
         spec.reader("layers", "no_such_metric", root)
+    h, w = size
+    cfg = spec.program_config(cell.config)
+    assert tuple(cfg.input_size) == (h, w)
+    images, metas = traffic.StreamFrames(cell.traffic, cfg, SEED, "cpu").frame(0)
+    assert images.shape == (1, 6, h, w, 3)
+    assert np.array_equal(metas["image_wh"][0], np.full((6, 2), (w, h), np.float32))
+    # the run reads its metrics with the repo's readers: setup_s alone here
+    res = runner.execute(dataclasses.replace(cell, end_to_end=cell.end_to_end[:1]), SEED, 1.0,
+                         False, "cpu", time.perf_counter())
+    assert res["correct"], res["checks"]
 
 
 def test_no_jax_check_compares_whole_top_level_names():
