@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from .. import postprocess
+from ..configs.model import aug_conf_for
 from ..data import native
 from ..data import pipelines as pp
 from ..models.common import to_float32
@@ -81,6 +82,8 @@ class AgentCore:
         ``weights.from_jax`` of flax variables).
       dtype: ``torch.float32`` (or None) for an fp32 forward,
         ``torch.bfloat16`` for bf16 autocast.
+      aug_conf: the cameras' augmentation, taken at test time; by default
+        the stage-2 one at ``cfg.input_size`` (``configs.model.aug_conf_for``).
       device: where the model runs; the card unless the caller asks for the
         CPU.
     """
@@ -107,7 +110,7 @@ class AgentCore:
         self.visualize_dir = visualize_dir
         self.visualize_interval = visualize_interval
 
-        self.aug_conf = aug_conf or pp.DATA_AUG_CONF
+        self.aug_conf = aug_conf or aug_conf_for(cfg.input_size)
         self.aug = pp.sample_aug_config(self.aug_conf, test_mode=True)
         mat = pp.img_transform_matrix(self.aug)
         self.lidar2img = (mat[None] @ stacked_lidar2img()).astype(np.float32)

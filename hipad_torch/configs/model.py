@@ -29,6 +29,8 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..data import pipelines as pp
+
 # A plan anchor type is ("temp"|"spat"|"speed", unit, [speed_range]).
 PlanAnchorType = Tuple
 
@@ -578,10 +580,11 @@ def stage2_serving_prune(kmeans_dir: str = REFERENCE_KMEANS_DIR,
 
 def stage2_r101_2x(kmeans_dir: str = REFERENCE_KMEANS_DIR,
                    **overrides) -> HiPADConfig:
-    """Scaled-backbone stress config (BASELINE.json configs[4]): ResNet101
-    (stage blocks 3-4-23-3) at 2x input resolution. Quadruples every
-    feature-map level's HW, stressing the deformable sampler's gather and
-    interp-matmul paths; decoder query structure is unchanged."""
+    """Scaled-backbone config (BASELINE.json configs[4]): ResNet101 (stage
+    blocks 3-4-23-3) at 2x stage 2's input in each dimension. Quadruples
+    every feature-map level's HW, which stresses the trunk and the FPN; the
+    sampler's taps, and so its time, do not grow with the maps, and the
+    decoder's query structure is unchanged."""
     overrides.setdefault("backbone_stage_blocks", (3, 4, 23, 3))
     overrides.setdefault("input_size", (704, 1280))
     return stage2(kmeans_dir, **overrides)
@@ -622,3 +625,17 @@ def tiny(**overrides) -> HiPADConfig:
     det, mapa, motion, plan = _synthetic_anchors(kwargs, np.random.RandomState(0))
     return HiPADConfig(det_anchor=det, map_anchor=mapa, motion_anchor=motion,
                        plan_anchor=plan, **kwargs)
+
+
+def aug_conf_for(input_size: Sequence[int]) -> Dict:
+    """The stage-2 augmentation at a model's ``input_size`` (H, W):
+    ``pipelines.DATA_AUG_CONF`` itself at its own ``final_dim``; at another
+    size the resize range is scaled so that the resized image still covers
+    the crop, and the test-time resize and crop follow from ``final_dim``
+    (``pipelines.sample_aug_config``: 704x1280 -> 0.8, (0, 16, 1280, 720))."""
+    base = pp.DATA_AUG_CONF
+    fh, fw = input_size
+    if (fh, fw) == tuple(base["final_dim"]):
+        return base
+    s = max(fh / base["final_dim"][0], fw / base["final_dim"][1])
+    return dict(base, final_dim=(fh, fw), resize_lim=tuple(r * s for r in base["resize_lim"]))

@@ -7,6 +7,10 @@ in eval mode with epsilon 1e-5.
 
 Inside, tensors are NCHW in ``torch.channels_last`` memory, so
 ``permute(0, 2, 3, 1)`` of each output is already a contiguous NHWC view.
+
+Spans (``utils/spans.py``), one each a frame under the caller's
+``backbone``: ``backbone.stem``, ``backbone.layer1`` to ``backbone.layer4``
+(a stage's blocks), ``backbone.fpn``.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.spans import span
 from .common import BatchNorm
 
 
@@ -63,12 +68,14 @@ class ResNet(nn.Module):
             self.out_channels.append(inplanes)
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        x = F.relu(self.stem_bn(self.stem_conv(x)))
-        x = F.max_pool2d(x, 3, stride=2, padding=1)
+        with span("backbone.stem"):
+            x = F.relu(self.stem_bn(self.stem_conv(x)))
+            x = F.max_pool2d(x, 3, stride=2, padding=1)
         outs = []
         for stage, num_blocks in enumerate(self.stage_blocks):
-            for b in range(num_blocks):
-                x = getattr(self, f"layer{stage + 1}_block{b}")(x)
+            with span(f"backbone.layer{stage + 1}"):
+                for b in range(num_blocks):
+                    x = getattr(self, f"layer{stage + 1}_block{b}")(x)
             outs.append(x)
         return outs
 
@@ -109,7 +116,9 @@ class ResNetFPN(nn.Module):
         bs, cams = images.shape[:2]
         x = images.reshape((bs * cams,) + images.shape[2:]).permute(0, 3, 1, 2)
         x = x.contiguous(memory_format=torch.channels_last)
-        feats = self.fpn(self.resnet(x))
+        feats = self.resnet(x)
+        with span("backbone.fpn"):
+            feats = self.fpn(feats)
         return [f.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
                 .reshape((bs, cams) + (f.shape[2], f.shape[3], f.shape[1]))
                 for f in feats]

@@ -40,7 +40,6 @@ from typing import Dict, List, Optional
 import torch
 
 from ..configs import model as cfgs
-from ..data import pipelines as pp
 from ..data.bench2drive import Bench2DriveDataset
 from ..eval import runner
 from ..eval.report import format_summary
@@ -67,23 +66,11 @@ def config(stage: int, tiny: bool):
     return cfgs.stage2() if stage == 2 else cfgs.stage1()
 
 
-def data_aug_conf(cfg) -> Dict:
-    """The stage-2 augmentation (``pipelines.DATA_AUG_CONF``) at the
-    config's input size: at another size the resize range is scaled so the
-    resized image still covers the crop."""
-    base = pp.DATA_AUG_CONF
-    fh, fw = cfg.input_size
-    if (fh, fw) == tuple(base["final_dim"]):
-        return base
-    s = max(fh / base["final_dim"][0], fw / base["final_dim"][1])
-    return dict(base, final_dim=(fh, fw), resize_lim=tuple(r * s for r in base["resize_lim"]))
-
-
 def open_dataset(cfg, ann_file: str, map_file: Optional[str], data_root: str,
                  test_mode: bool) -> Bench2DriveDataset:
     return Bench2DriveDataset(ann_file=ann_file, map_file=map_file, data_root=data_root,
                               test_mode=test_mode, plan_anchor_types=cfg.plan_anchor_types,
-                              data_aug_conf=data_aug_conf(cfg))
+                              data_aug_conf=cfgs.aug_conf_for(cfg.input_size))
 
 
 def camera_files(dataset: Bench2DriveDataset, n: int) -> Dict[str, int]:

@@ -418,6 +418,21 @@ def test_backbone_matches_flax():
         _close(g_, r_, f"ResNetFPN level {lvl}", rtol=1e-4)
 
 
+def test_r101_backbone_matches_flax():
+    """ResNet-101's stages (3-4-23-3 Bottleneck blocks, the
+    ``stage2_r101_2x`` trunk) + FPN at tiny widths: every block after a
+    stage's first adds its input through the identity shortcut."""
+    rng = np.random.default_rng(16)
+    images = rng.normal(size=(1, CFG.num_cams, 64, 96, 3)).astype(np.float32)
+    m = _port(tbb.ResNetFPN((3, 4, 23, 3), 8, C)).to(memory_format=torch.channels_last)
+    with torch.no_grad():
+        got = m(_t(images))
+    ref = jbb.ResNetFPN((3, 4, 23, 3), 8, C).apply(_vars(m), _j(images))
+    assert len(got) == len(ref) == 4
+    for lvl, (g_, r_) in enumerate(zip(got, ref)):
+        _close(g_, r_, f"ResNet-101 FPN level {lvl}", rtol=1e-4)
+
+
 @pytest.mark.parametrize("hw", [(5, 7), (6, 10)])
 def test_front_view_encoder_matches_flax(hw):
     """FrontViewEncoder on odd and even maps: the mean over the FIRST pooling
