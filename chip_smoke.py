@@ -18,6 +18,13 @@ Phases, one printed line (or a few) each; any failure exits non-zero:
      device time (calls queued back to back behind a sleep kernel that
      outlasts their queueing) and, beside
      it, the time of one call with its Python launch path;
+     Then the sampler's glue kernels (camera selection, point sum) against
+     its torch ops at each query type's call of a stage-2 frame, with the
+     configuration's cam_k and with every camera kept (the ``"reference"``
+     sampler's), fp32 and bf16: the cameras and points equal, the sums
+     within the rounding of two orders of addition (the share that differs
+     and the largest gap printed); device ms a call of each side by
+     torch.profiler;
   3b. each backward kernel (K1-bwd, K2-bwd) against ``torch.autograd.grad``
      of the plain version at the same shapes, every gradient output, fp32
      and bf16 maps, bs=1 and 2, coordinates on the hat weights' kinks
@@ -45,7 +52,7 @@ Phases, one printed line (or a few) each; any failure exits non-zero:
      differing leaf printed, held within ``E2E_RTOL``), the graph counter
      frame by frame, every frame's outputs and banks unchanged after the
      later frames; then one warm bf16 frame with post-processing under the
-     sync debug mode (60 waits at ``stage2``), graphed and eager frames in
+     sync debug mode (36 waits at ``stage2``), graphed and eager frames in
      turns (host clock), one of each profiled (host launch calls, device
      kernels, busy) and the graphed and eager frames' host ms by span;
   5. the training path: the stage-2 training step at bs=1 with seeded
@@ -205,6 +212,9 @@ E2E_RTOL, E2E_ATOL = 1e-3, 1e-4
 # against JAX's spread: 3.331e-4 of scale on the first frame, 1.249e-3 on
 # the second): |diff| <= BF16_FRAME_RTOL[i] * max|fp32|.
 BF16_FRAME_RTOL = (6.7e-4, 2.5e-3)
+# the frame's outputs held to E2E_RTOL: against the CPU frame, and the
+# sampler's glue as its kernels against the glue as its torch ops
+GLUE_FRAME_KEYS = ("plan.final_waypoints", "det.classification", "plan.classification")
 
 
 def fail(msg: str):
@@ -673,7 +683,184 @@ def phase_kernels(cfg, card: str):
                 f"({TIMES}); per call {k2.per_call_ms:.4f} ms; bound {k2.bound_ms:.4f} ms "
                 f"({k2.bound_by}: {taps} taps, {map_bytes / 1e6:.2f} of "
                 f"{_nbytes(*maps) / 1e6:.2f} MB of maps read)")
-    return {"coarse_sample": k1, "patch_sample": k2}
+    recs = {"coarse_sample": k1, "patch_sample": k2}
+    recs.update(_glue_kernels(cfg, card))
+    return recs
+
+
+def _query_shapes(cfg):
+    """(query type, anchors, keypoints) of each sampler call of a frame."""
+    det = len(cfg.det_kps.fix_scale) + cfg.det_kps.num_learnable
+    ego = len(cfg.ego_kps.fix_scale) + cfg.ego_kps.num_learnable
+    line = [len(k.fix_height) * k.num_learnable * k.num_sample
+            for k in (cfg.map_kps, cfg.plan_kps)]
+    return [("det", cfg.num_det_anchor, det), ("map", cfg.num_map_anchor, line[0]),
+            ("plan", cfg.num_plan_anchor, line[1]), ("ego", 1, ego)]
+
+
+def _glue_inputs(cfg, g, dev, dtype, anchors, P):
+    """A sampler call's points ``[1, anchors*P, cams, 2]`` fp32 (strided as
+    the model's) and weights ``[1, anchors*P, cams, L, G]`` in ``dtype``
+    (``_k1_inputs``' spread:
+    inside 1.9 of 6 cameras on average), with planted samples: inside no
+    camera, inside every camera, on the borders 0.0 and 1.0 (outside) and
+    just inside them; and K1's output ``[1, anchors*P, C]`` fp32."""
+    import torch
+
+    cams, C, G, L = cfg.num_cams, cfg.embed_dims, cfg.num_groups, cfg.num_levels
+    M0 = anchors * P
+    pts = torch.rand(1, M0, cams, 2, generator=g, device=dev) * 1.8 - 0.4
+    pts[:, 0::7] = 1.5  # inside no camera
+    pts[:, 1::7] = torch.rand(1, pts[:, 1::7].shape[1], cams, 2, generator=g, device=dev)
+    pts[:, 1::7] = pts[:, 1::7].clamp(1e-3, 1 - 1e-3)  # inside every camera
+    edge = torch.tensor([0.0, 1.0, 1e-6, 1.0 - 1e-6], device=dev)
+    pick = torch.randint(0, 4, pts[:, 2::7].shape, generator=g, device=dev)
+    pts[:, 2::7] = torch.where(torch.rand(pick.shape, generator=g, device=dev) < 0.5,
+                               edge[pick], pts[:, 2::7])
+    w = torch.rand(1, M0, cams, L, G, generator=g, device=dev).to(dtype)
+    flat = torch.randn(1, M0, C, generator=g, device=dev)
+    # the layout the model hands over: a view with the cameras furthest apart
+    return pts.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3), w, flat
+
+
+def _ulp_gap(a, b) -> int:
+    """The largest distance between a and b (one float dtype) in units of
+    its last place."""
+    import torch
+
+    ints, sign = (torch.int32, 0x7FFFFFFF) if a.dtype == torch.float32 else (torch.int16, 0x7FFF)
+    def ordered(t):
+        bits = t.contiguous().view(ints).long()
+        return torch.where(bits < 0, -(bits & sign), bits)
+    return int((ordered(a) - ordered(b)).abs().max()) if a.numel() else 0
+
+
+def _glue_device_ms(fns):
+    """(device ms, launches) a call: the calls ``fns`` (one for each copy
+    of the inputs, so that no call finds its inputs in the L2 left by the
+    one before), their kernels' durations summed by torch.profiler (the
+    torch glue waits for the host at its list index, so it cannot be queued
+    behind a sleep kernel)."""
+    by_name = {}
+    _profiled(lambda: [fn() for fn in fns], by_name)
+    return (sum(ms for _, ms in by_name.values()) / len(fns),
+            sum(n for n, _ in by_name.values()) / len(fns))
+
+
+# copies of a timed call's inputs: the det call's, 16 x 7-13 MB, pass the
+# card's 50 MB L2 several times over between a copy's making and its call
+GLUE_COPIES = 16
+
+
+def _gap(a, b, tol):
+    """(elements that differ, the largest gap in units of the last place,
+    the largest gap over ``tol``, the largest absolute gap) of a against b."""
+    ne = a != b
+    n = int(ne.sum())
+    if not n:
+        return 0, 0, 0.0, 0.0
+    d = (a.double() - b.double()).abs()
+    return n, _ulp_gap(a, b), float((d / tol)[ne].max()), float(d.max())
+
+
+def _glue_kernels(cfg, card: str):
+    """The sampler's glue kernels against its torch ops on the card: the
+    camera selection (``kernels.cam_select`` against
+    ``select_cameras_plain``) and the point sum (``kernels.point_sum``
+    against ``point_sum_plain``) at each query type's call of a stage-2
+    frame, with the configuration's cam_k and renormalisation and with
+    every camera kept and none (the ``"reference"`` sampler's), fp32 and
+    bf16 weights. The kernels add their fp32 sums in an order of their own,
+    so where there is a sum the share of elements that differ and the
+    largest gap in units of the last place are reported and the gap is held
+    to the rounding of the sums in two orders: the renormalised weights
+    within ``2 (cams + cam_k) 2^-24 + 2 eps`` of their size (``eps`` of the
+    weights' dtype), each point sum within ``2 (P - 1) 2^-24`` of the sum of
+    its inputs' sizes plus ``eps`` of its own; everything else (the cameras,
+    the points, the weights without the renormalisation) equal. Then each
+    side's device ms and launches a call and the bound by bytes at the det
+    call."""
+    import torch
+
+    from hipad_torch.ops import kernels, sampling
+
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(SEED + 19)
+    cams = cfg.num_cams
+    fine = [l for l in range(cfg.num_levels) if l not in cfg.sampler_matmul_levels]
+    recs = {"cam_select": _Rec(), "point_sum": _Rec()}
+    bad = []
+    for q, anchors, P in _query_shapes(cfg):
+        for dtype in (torch.float32, torch.bfloat16):
+            eps = torch.finfo(dtype).eps
+            pts, w, flat = _glue_inputs(cfg, g, dev, dtype, anchors, P)
+            for cam_k, renorm in ((cfg.sampler_cam_k, cfg.sampler_cam_renorm), (cams, False)):
+                got = kernels.cam_select(pts, w, cam_k, renorm, fine)
+                ref = sampling.select_cameras_plain(pts, w, cam_k, renorm, fine)
+                summed = renorm and cam_k < cams
+                parts = []
+                for name, a, b in zip(("cam", "x", "y", "w_fine"), got, ref):
+                    if name == "w_fine" and summed:
+                        tol = b.double().abs() * (2 * (cams + cam_k) * 2 ** -24 + 2 * eps)
+                        n, ulp, over, err = _gap(a, b, tol)
+                        parts.append(f"{name} {n} of {a.numel()} differ ({n / a.numel():.2e}), "
+                                     f"largest gap {ulp} ulp, {over:.3f} of its bound")
+                        if over > 1:
+                            bad.append(f"cam_select {q} {dtype} cam_k={cam_k} {name}")
+                        if dtype == torch.float32:
+                            recs["cam_select"].err = max(recs["cam_select"].err, err)
+                        continue
+                    n = int((a != b).sum())
+                    parts.append(f"{name} {'equal' if n == 0 else f'{n} of {a.numel()} differ'}")
+                    if n:
+                        bad.append(f"cam_select {q} {dtype} cam_k={cam_k} {name}")
+                say(f"[kernels] cam_select {q} (M0={anchors * P}, {cams} cameras) "
+                    f"{str(dtype)[6:]} cam_k={cam_k} renorm={renorm}: " + ", ".join(parts))
+            a = kernels.point_sum(flat, P, dtype)
+            b = sampling.point_sum_plain(flat, P, dtype)
+            size = flat.to(dtype).double().abs().reshape(a.shape[0], -1, P, a.shape[-1]).sum(2)
+            tol = 2 * (P - 1) * 2 ** -24 * size + eps * b.double().abs()
+            n, ulp, over, err = _gap(a, b, tol)
+            say(f"[kernels] point_sum {q} ({anchors} anchors x {P} points) to {str(dtype)[6:]}: "
+                f"{n} of {a.numel()} differ ({n / a.numel():.2e}) from torch's sum, largest gap "
+                f"{ulp} ulp, {over:.3f} of its bound")
+            if over > 1:
+                bad.append(f"point_sum {q} {dtype}")
+            if dtype == torch.float32:
+                recs["point_sum"].err = max(recs["point_sum"].err, err)
+        if q == "det":
+            for dtype in (torch.float32, torch.bfloat16):
+                cam_k, renorm = cfg.sampler_cam_k, cfg.sampler_cam_renorm
+                ins = [_glue_inputs(cfg, g, dev, dtype, anchors, P) for _ in range(GLUE_COPIES)]
+                sel = ([lambda i=i: sampling.select_cameras_plain(*i[:2], cam_k, renorm, fine)
+                        for i in ins],
+                       [lambda i=i: kernels.cam_select(*i[:2], cam_k, renorm, fine) for i in ins])
+                tot = ([lambda i=i: sampling.point_sum_plain(i[2], P, dtype) for i in ins],
+                       [lambda i=i: kernels.point_sum(i[2], P, dtype) for i in ins])
+                pts, w, flat = ins[0]
+                for name, (plain, kern) in (("cam_select", sel), ("point_sum", tot)):
+                    (p_ms, p_n), (k_ms, k_n) = _glue_device_ms(plain), _glue_device_ms(kern)
+                    out = kern[0]()
+                    outs = out if isinstance(out, tuple) else (out,)
+                    nbytes = (_nbytes(pts, w[:, :, :, fine]) if name == "cam_select"
+                              else _nbytes(flat)) + _nbytes(*outs)
+                    b = bound(nbytes, 0)
+                    say(f"[kernels] {name} det {str(dtype)[6:]} on {card}: kernel {k_ms:.4f} ms "
+                        f"a call in {k_n:g} launch, torch ops {p_ms:.4f} ms in {p_n:g} "
+                        f"launches (device time by torch.profiler, {GLUE_COPIES} calls, each on "
+                        f"its own copy of the inputs); bound {b[0]:.4f} ms ({b[1]}: "
+                        f"{nbytes / 1e6:.2f} MB read and written)")
+                    if dtype == torch.float32:
+                        rec = recs[name]
+                        rec.ms, rec.plain_ms = k_ms, p_ms
+                        rec.per_call_ms = cuda_time_ms(kern[0], 20)
+                        rec.add_bound(b)
+                        rec.library_ms = None  # not timed: the plain column is torch's own ops
+                del ins, sel, tot
+    if bad:
+        fail("the glue kernels differ from the torch ops beyond the rounding of their sums: "
+             + "; ".join(bad))
+    return recs
 
 
 # Backward kernel vs autograd of the plain version, fp32 gradients: both sum
@@ -1026,14 +1213,17 @@ def _flat(tree, prefix=""):
 
 
 def phase_slice(cfg, card: str):
-    """The main path at stage 2, bs=1, chained frames; then frame 1 on the CPU."""
+    """The main path at stage 2, bs=1, chained frames; frames 0-1 with the
+    sampler's glue as its kernels and as its torch ops (the leaves equal bit
+    for bit counted, frame 0 held within ``E2E_RTOL`` in fp32, its waypoints
+    within ``BF16_FRAME_RTOL`` in bf16); then frame 0 on the CPU."""
     import dataclasses
 
     import torch
 
     from hipad_torch.data import synthetic
     from hipad_torch.models.detector import HiPAD, batch_to_torch
-    from hipad_torch.ops import kernels
+    from hipad_torch.ops import kernels, sampling
     from hipad_torch.weights import init_random
 
     dev = torch.device(DEVICE)
@@ -1094,6 +1284,40 @@ def phase_slice(cfg, card: str):
 
     frames, launches = run_frames(torch.float32)
     frames_bf16, _ = run_frames(torch.bfloat16)
+    glue_on_card = sampling.glue_on_card
+    for dtype, kept in ((torch.float32, frames), (torch.bfloat16, frames_bf16)):
+        sampling.glue_on_card = lambda *tensors: False  # the torch ops in every call
+        try:
+            banks, ops = None, []
+            with torch.no_grad(), torch.autocast("cuda", dtype=dtype,
+                                                 enabled=dtype != torch.float32):
+                for i in range(len(kept)):
+                    img, m = frame_inputs(i)
+                    outputs, banks = model(img, m, banks)
+                    ops.append({k: v.detach().clone() for k, v in list(_flat(outputs)) + [
+                        (f"bank.{n}.{f.name}", getattr(getattr(banks, n), f.name))
+                        for n in ("det", "ego", "plan")
+                        for f in dataclasses.fields(getattr(banks, n))]})
+        finally:
+            sampling.glue_on_card = glue_on_card
+        differ = [(i, k) for i, (a, b) in enumerate(zip(kept, ops)) for k in a
+                  if not torch.equal(a[k], b[k])]
+        say(f"[slice] {str(dtype)[6:]} frames 0-{len(kept) - 1}, the sampler's glue as its "
+            f"kernels vs as its torch ops: {sum(len(a) for a in kept) - len(differ)} of "
+            f"{sum(len(a) for a in kept)} leaves (outputs and banks) equal bit for bit")
+        # the kernels' sums add in another order than torch's: frame 0 held
+        # in fp32 as the card's frame is held against the CPU's, in bf16 (where
+        # a changed bit moves the values after it by whole bf16 units) its
+        # waypoints as the bf16 frame's are held against the fp32 frame's
+        for key in GLUE_FRAME_KEYS:
+            ref, got = ops[0][key].double(), kept[0][key].double()
+            err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+            tol = (E2E_RTOL * scale + E2E_ATOL if dtype == torch.float32 else
+                   BF16_FRAME_RTOL[0] * scale if key == "plan.final_waypoints" else math.inf)
+            say(f"[slice] {str(dtype)[6:]} frame 0 {key}, the glue's kernels vs its torch ops: "
+                f"max_abs_err {err:.3e}, {err / scale:.3e} of scale (tol {tol:.3e})")
+            if not err <= tol:
+                fail(f"the glue's kernels change frame 0's {key} beyond the card's tolerance")
     first = frames[0]
     wp = "plan.final_waypoints"
     for i, rtol in enumerate(BF16_FRAME_RTOL):
@@ -1113,7 +1337,7 @@ def phase_slice(cfg, card: str):
     img, m = frame_inputs(0)
     with torch.no_grad():
         cpu_out, cpu_banks = cpu_model(img.cpu(), {k: v.cpu() for k, v in m.items()})
-    for key in ("plan.final_waypoints", "det.classification", "plan.classification"):
+    for key in GLUE_FRAME_KEYS:
         ref = dict(_flat(cpu_out))[key].double()
         got = first[key].cpu().double()
         diff = (got - ref).abs()
@@ -1129,19 +1353,43 @@ def phase_slice(cfg, card: str):
     return launches
 
 
+# the sampler's glue kernels: they launch only where no gradient is wanted
+# (ops/sampling.py: glue_on_card), so never in a training step
+GLUE = ("cam_select", "point_sum")
+
+
 def _launch_plan(cfg):
     """(deformable calls per forward, launches of each kernel per call): K1
     once for all coarse levels, K2 once for all fine levels, K1-bwd once per
     coarse level and K2-bwd once (with torch's deterministic flag on or
     off: one design each); with ``sampler_level_k`` below the number of fine
-    levels, K2's and K2-bwd's level-k variants in their place."""
+    levels, K2's and K2-bwd's level-k variants in their place; on a call that
+    wants no gradient the camera selection once where there are fine levels
+    and the point sum once (``GLUE``; a training step launches neither:
+    :func:`_step_plan`)."""
     n_deform = cfg.operation_order.count("deformable") * len(cfg.query_select)
     coarse = len([l for l in cfg.sampler_matmul_levels if l < cfg.num_levels])
     fine = [l for l in range(cfg.num_levels) if l not in cfg.sampler_matmul_levels]
     lk = "_lk" if cfg.sampler_level_k is not None and 0 < cfg.sampler_level_k < len(fine) else ""
     k2 = int(bool(fine))
     return n_deform, {"coarse_sample": int(coarse > 0), f"patch_sample{lk}": k2,
-                      "interp_sample_camsum_bwd": coarse, f"patch_sample_bwd{lk}": k2}
+                      "interp_sample_camsum_bwd": coarse, f"patch_sample_bwd{lk}": k2,
+                      "cam_select": k2, "point_sum": 1}
+
+
+def _step_plan(cfg):
+    """:func:`_launch_plan` of a training step: the glue kernels left out
+    (autograd runs the glue's torch ops; their launch count stays 0)."""
+    n_deform, per_call = _launch_plan(cfg)
+    return n_deform, {k: v for k, v in per_call.items() if k not in GLUE}
+
+
+def _glue_unlaunched(tag: str, launches):
+    """Fail unless the glue kernels launched nowhere in a training run."""
+    say(f"{tag} " + ", ".join(f"{k}: {launches[k]} launches" for k in GLUE)
+        + " (expected 0: autograd needs the glue, so its torch ops run)")
+    if any(launches[k] for k in GLUE):
+        fail(f"{tag} a glue kernel launched in a training step")
 
 
 # Card step vs CPU step (plain path), stage 2 at drop_out 0 without GridMask:
@@ -1179,7 +1427,7 @@ def phase_train(card: str):
 
     dev = torch.device(DEVICE)
     cfg = stage2()
-    n_deform, per_call = _launch_plan(cfg)
+    n_deform, per_call = _step_plan(cfg)
     batch = {k: torch.as_tensor(v, device=dev)
              for k, v in synthetic.make_batch(cfg, 1, seed=SEED).items()}
     n_steps = WARMUP_STEPS + TIMED_STEPS
@@ -1230,6 +1478,7 @@ def phase_train(card: str):
                 f"{per_call[kname]} = {n_deform * per_call[kname]}/step)")
             if n != want or n == 0:
                 fail(f"train: {kname} launched {n} times, expected {want}")
+        _glue_unlaunched(f"[train] {name}", launches)
         n = launches["lsa_assign"]
         say(f"[train] {name} lsa_assign: {n} launches over {n_steps} steps = {n / n_steps:g}/step "
             f"(expected {MATCH_LAUNCHES}: the det and the map matrices, every layer stacked, "
@@ -1960,7 +2209,8 @@ def phase_train_cli(card: str):
            if not math.isfinite(v)]
     if bad:
         fail(f"train-cli: non-finite {bad}")
-    n_deform, per_call = _launch_plan(stage2())
+    n_deform, per_call = _step_plan(stage2())
+    _glue_unlaunched("[train-cli]", launches)
     for name, per in per_call.items():
         want = CLI_STEPS * CLI_ACCUM * n_deform * per
         say(f"[train-cli] {name}: {launches[name]} launches over {CLI_STEPS} optimizer steps = "
@@ -2290,7 +2540,7 @@ def phase_eval(card: str, ckpt: str):
     perf = stream["perf"]
     if stream["cameras"]["absent"] or perf["frames"] != EVAL_FRAMES:
         fail(f"eval: cameras {stream['cameras']}, {perf['frames']} frames evaluated")
-    for name in ("coarse_sample", "patch_sample"):
+    for name in ("coarse_sample", "patch_sample") + GLUE:
         want = EVAL_FRAMES * n_deform * per_call[name]
         say(f"[eval] streaming {name}: {launches[name]} launches over {perf['frames']} frames "
             f"= {launches[name] / perf['frames']:g}/frame (expected {n_deform} deformable "
@@ -2350,7 +2600,8 @@ def phase_eval(card: str, ckpt: str):
              f"{len(res['evals'])} evals")
     frames = LOADER_STEPS + LOADER_EVAL_FRAMES  # forwards: one per step, one per eval frame
     for name, per in _launch_plan(cfg)[1].items():
-        want = (frames if "_bwd" not in name else LOADER_STEPS) * n_deform * per
+        want = ((LOADER_STEPS if "_bwd" in name else LOADER_EVAL_FRAMES if name in GLUE else
+                 frames) * n_deform * per)
         if loader_launches[name] != want:
             fail(f"eval: loader training launched {name} {loader_launches[name]} times, "
                  f"expected {want}")
@@ -2394,7 +2645,7 @@ def phase_stage1(card: str):
     bad = [k for k, v in m.items() if not math.isfinite(v)]
     if bad or any(k.startswith("motion") for k in m):
         fail(f"stage1: non-finite {bad} or a motion loss in {sorted(m)}")
-    n_deform, per_call = _launch_plan(cfg)
+    n_deform, per_call = _step_plan(cfg)
     say(f"[stage1] stage1() step bs=1 fp32 on {card}: {ms:.1f} ms (first step), "
         f"{len(cfg.plan_anchor_types)} plan anchor type, tasks {cfg.task_select}, every loss "
         f"finite, total_loss {m['total_loss']:.4f} grad_norm {m['grad_norm']:.4f}; launches "
@@ -2519,7 +2770,7 @@ def phase_ddp(card: str):
     if differ:
         fail(f"ddp: the ranks' parameters differ after the update: {differ[:5]}")
     launches = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
-    n_deform, per_call = _launch_plan(cfg)
+    n_deform, per_call = _step_plan(cfg)
     for name, per in per_call.items():
         if launches[name] != 2 * n_deform * per:
             fail(f"ddp: {name} launched {launches[name]} times by the two ranks, expected "
@@ -2658,9 +2909,10 @@ def _frame0_against_cpu(tag: str, cfg, model, img, mt):
 # decoder's own eager op loop; then frames timed in turns and the spans
 GRAPH_WARM_FRAMES = 8
 GRAPH_TIMED_FRAMES = 10
-# the benchmark's stage2.frame: 24 at the sampler's fine-level weights, 21 in
-# to_result_dicts, 14 in the plan decode, 1 in the bank
-GRAPH_FRAME_SYNCS = 60
+# the benchmark's stage2.frame: 21 in to_result_dicts, 14 in the plan decode,
+# 1 in the bank (the 24 at the sampler's fine-level weights, a list index,
+# went with the camera selection's kernel)
+GRAPH_FRAME_SYNCS = 36
 
 
 def _named_leaves(tree):
@@ -2693,7 +2945,7 @@ def phase_graphs(card: str):
     one at a time): outputs and banks equal bit for bit; the graph counter
     a frame (7 eager, 7 eager, 7 captured, then 7 replayed); every frame's
     outputs and banks, held, unchanged after the later frames. Then, bf16:
-    one warm frame with post-processing under the sync debug mode (60 waits
+    one warm frame with post-processing under the sync debug mode (36 waits
     at ``stage2``), frames in turns graphed / eager on the host clock, one
     of each profiled (host launch calls, device kernels, device busy), and
     the graphed frames' host ms by span."""
@@ -3288,7 +3540,7 @@ def _options_train(card: str):
     finally:
         matching.assign_many = assign_many
     for counts, on in zip(launches, (False, True)):
-        want = {k: n_deform * v for k, v in _launch_plan(cfg)[1].items()}
+        want = {k: n_deform * v for k, v in _step_plan(cfg)[1].items()}
         want["lsa_assign"] = MATCH_LAUNCHES
         say(f"[options] A's step launches on the card{' under the flag' if on else ''}: "
             + ", ".join(f"{k} {counts[k]} (expected {v})" for k, v in want.items()))
@@ -4194,6 +4446,9 @@ def main():
                                 "hipad_tpu/ops/sampling.py:530", "options_step"),
         "lsa_assign": ("hipad_torch/csrc/lsa_assign.cu", "hipad_tpu/targets/matching.py:36",
                        "step"),
+        "cam_select": ("hipad_torch/csrc/cam_select.cu", "hipad_tpu/ops/sampling.py:745",
+                       "frame"),
+        "point_sum": ("hipad_torch/csrc/point_sum.cu", "hipad_tpu/ops/sampling.py:990", "frame"),
     }
     paths = {
         "step": (step_launches, f"phase 5: {WARMUP_STEPS + TIMED_STEPS} chained stage-2 fp32 "

@@ -1,9 +1,11 @@
 """Build, bind and launch the port's CUDA kernels: the sampler's K1 (every
 coarse level in one launch) and K2 (the fine levels) forward, K1-bwd and
 K2-bwd for their gradients, K2's and K2-bwd's level-k variants (each sample
-reads only its kept fine levels: ``sampler_level_k``), the row gather
-that stands in for the Pallas gather probes P2-P4, and K3, the training
-step's batched assignment solver.
+reads only its kept fine levels: ``sampler_level_k``), the sampler's glue
+around K1 and K2 on a frame that needs no gradient (the camera selection
+before K2, the point sum after K1), the row gather that stands in for the
+Pallas gather probes P2-P4, and K3, the training step's batched assignment
+solver.
 
 The sources ``hipad_torch/csrc/*.cu`` are compiled with plain ``nvcc`` for
 ``sm_90a``, one ``nvcc`` per source and all started together, then linked
@@ -323,6 +325,11 @@ def _bind(lib: ctypes.CDLL, seconds: float, log: str) -> Library:
     lib.hipad_row_gather.restype = i
     lib.hipad_lsa_assign.argtypes = [i] + [p] * 8 + [i] * 3 + [p]
     lib.hipad_lsa_assign.restype = i
+    ll = ctypes.c_longlong
+    lib.hipad_cam_select.argtypes = [p] + [ll] * 4 + [p, i] + [p] * 4 + [ll] * 2 + [i] * 10 + [p]
+    lib.hipad_cam_select.restype = i
+    lib.hipad_point_sum.argtypes = [p, p, i, ll, i, i, p]
+    lib.hipad_point_sum.restype = i
     return Library(lib=lib, path=BUILD_DIR / LIB_NAME, build_seconds=seconds, log=log)
 
 
@@ -804,6 +811,111 @@ class LsaAssign:
         return outs
 
 
+_MAX_CAMS = 8  # csrc/cam_select.cu: kMaxCams
+
+
+class CamSelect:
+    """The camera selection (``csrc/cam_select.cu``): each flat sample's
+    ``cam_k`` cameras ranked by in-bounds-ness, their points, and their fine
+    levels' weights times the inside mask, renormalised to the full
+    in-bounds mass where asked, in one launch: what K2 takes. Replaces the
+    camera ``topk_by_argmax`` with its gathers and renormalisation of
+    ``hipad_tpu/ops/sampling.py:745-780``. Plain version:
+    ``ops/sampling.py:select_cameras_plain``: cam, x, y equal, the weights
+    too but for the renormalisation's sums, which add in camera order."""
+
+    name = "cam_select"
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, points: torch.Tensor, weights: torch.Tensor, cam_k: int,
+                 cam_renorm: bool, fine: Sequence[int]):
+        """points ``[bs, M0, cams, 2]`` fp32, any strides (the model's view
+        is read as it lies); weights ``[bs, M0, cams, L, G]`` fp32|bf16,
+        contiguous; ``cam_k <= cams <= 8``; ``fine``, 1-4 indices of the
+        weights' level axis -> (cam ``[bs, M]`` int32, x, y ``[bs, M]`` fp32,
+        w_fine ``[bs, M, len(fine), G]`` fp32), ``M = M0*cam_k``, the slot
+        index fastest; with ``cam_renorm`` and ``cam_k < cams`` the kept
+        weights carry the renormalisation."""
+        k = "cam_select"
+        _check(points.is_cuda, f"{k}: takes CUDA tensors, got {points.device}")
+        dev = points.device
+        _check(points.dim() == 4 and points.shape[-1] == 2,
+               f"{k}: points must be [bs, M0, cams, 2], got {tuple(points.shape)}")
+        bs, M0, cams, _ = points.shape
+        _check(weights.dim() == 5 and weights.shape[:3] == (bs, M0, cams),
+               f"{k}: weights must be [bs, M0, cams, L, G], got {tuple(weights.shape)}")
+        L, G = weights.shape[3:]
+        _check(1 <= cams <= _MAX_CAMS and 1 <= cam_k <= cams and G >= 1,
+               f"{k}: takes 1 <= cam_k <= cams <= {_MAX_CAMS}; got cam_k={cam_k}, cams={cams}")
+        fine = tuple(fine)
+        _check(1 <= len(fine) <= _MAX_LEVELS and all(0 <= l < L for l in fine),
+               f"{k}: takes 1..{_MAX_LEVELS} fine levels in [0, {L}), got {fine}")
+        _check(bs * M0 * len(fine) * G < 2 ** 31,
+               f"{k}: {bs * M0} samples x {len(fine)} levels x {G} groups, a thread each, "
+               f"more than an int32 indexes")
+        _check(points.device == dev and points.dtype == torch.float32,
+               f"{k}: points must be fp32 on {dev}, got {points.dtype} on {points.device}")
+        _check_tensor("weights", weights, dev, (torch.float32, torch.bfloat16), k,
+                      align=weights.element_size())
+        M = M0 * cam_k
+        cam = torch.empty(bs, M, dtype=torch.int32, device=dev)
+        x = torch.empty(bs, M, dtype=torch.float32, device=dev)
+        y = torch.empty_like(x)
+        w = torch.empty(bs, M, len(fine), G, dtype=torch.float32, device=dev)
+        f = list(fine) + [0] * (_MAX_LEVELS - len(fine))
+        lib = library().lib
+        with torch.cuda.device(dev):
+            err = lib.hipad_cam_select(
+                points.data_ptr(), *points.stride(), weights.data_ptr(),
+                int(weights.dtype == torch.bfloat16), cam.data_ptr(), x.data_ptr(), y.data_ptr(),
+                w.data_ptr(), bs, M0, cams, L, G, *f, len(fine), cam_k, int(bool(cam_renorm)),
+                _stream(dev))
+        _launched(k, err)
+        self.launches += 1
+        return cam, x, y, w
+
+
+class PointSum:
+    """The point sum (``csrc/point_sum.cu``): the sampler's flat samples
+    rounded to the weights' dtype and each anchor's points summed in fp32
+    in one fixed order (16 chains, then the chains in order), rounded once.
+    Replaces ``flat.reshape(bs, anchors, P, C).sum(axis=2)`` of
+    ``hipad_tpu/ops/sampling.py:990``. Plain version:
+    ``ops/sampling.py:point_sum_plain``, which adds in torch's order."""
+
+    name = "point_sum"
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, flat: torch.Tensor, num_pts: int, dtype: torch.dtype) -> torch.Tensor:
+        """flat ``[bs, anchors*num_pts, C]`` fp32, the anchor's points
+        consecutive; ``dtype`` fp32|bf16 -> ``[bs, anchors, C]`` of
+        ``dtype``."""
+        k = "point_sum"
+        _check(flat.is_cuda, f"{k}: takes CUDA tensors, got {flat.device}")
+        dev = flat.device
+        _check(flat.dim() == 3, f"{k}: flat must be [bs, M0, C], got {tuple(flat.shape)}")
+        bs, M0, C = flat.shape
+        _check(num_pts >= 1 and M0 % num_pts == 0,
+               f"{k}: M0={M0} is not a multiple of num_pts={num_pts} >= 1")
+        _check(dtype in (torch.float32, torch.bfloat16),
+               f"{k}: writes fp32 or bf16, asked for {dtype}")
+        _check(C % 4 == 0, f"{k}: reads 4 channels a lane, takes C % 4 == 0; got C={C}")
+        _check_tensor("flat", flat, dev, (torch.float32,), k)
+        out = torch.empty(bs, M0 // num_pts, C, dtype=dtype, device=dev)
+        lib = library().lib
+        with torch.cuda.device(dev):
+            err = lib.hipad_point_sum(flat.data_ptr(), out.data_ptr(),
+                                      int(dtype == torch.bfloat16), bs * (M0 // num_pts),
+                                      num_pts, C, _stream(dev))
+        _launched(k, err)
+        self.launches += 1
+        return out
+
+
 coarse_sample = CoarseSample()
 interp_sample_camsum_bwd = InterpSampleCamsumBwd()
 patch_sample = PatchSample("patch_sample", takes_levels=False)
@@ -814,8 +926,10 @@ gather_rows_f32 = RowGather("gather_rows_f32", "P2", torch.float32, 1)
 gather_rows_bf16 = RowGather("gather_rows_bf16", "P3", torch.bfloat16, 1)
 gather_rows_f32_every8 = RowGather("gather_rows_f32_every8", "P4", torch.float32, 8)
 lsa_assign = LsaAssign()
+cam_select = CamSelect()
+point_sum = PointSum()
 WRAPPERS = (coarse_sample, patch_sample, interp_sample_camsum_bwd, patch_sample_bwd,
             gather_rows_f32, gather_rows_bf16, gather_rows_f32_every8, patch_sample_lk,
-            patch_sample_bwd_lk, lsa_assign)
+            patch_sample_bwd_lk, lsa_assign, cam_select, point_sum)
 # every kernel's launch count: one a wrapper
 KERNELS = WRAPPERS

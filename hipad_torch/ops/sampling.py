@@ -31,6 +31,14 @@ not take. Gradients reach the feature maps, the continuous coordinates and
 the group weights, as the JAX package's adjoints do: the coordinates
 through the hat weights (:func:`hat`), never through an integer patch
 origin.
+
+The glue around them, the camera selection before K2
+(:func:`select_cameras_plain`) and the point sum after K1
+(:func:`point_sum_plain`), runs as two kernels of its own
+(``kernels.cam_select``, ``kernels.point_sum``, whose fp32 sums add in a
+fixed order of their own, so they differ from the torch ops by rounding)
+where the tensors are on a card and autograd needs nothing of them
+(:func:`glue_on_card`), and as those torch ops everywhere else.
 """
 
 from __future__ import annotations
@@ -407,35 +415,33 @@ def coarse_sample(acc, coarse_maps: Sequence[torch.Tensor], points_2d: torch.Ten
                                tuple(levels), *coarse_maps)
 
 
-def deformable_samples_topk_flat(
-    feature_maps: Sequence[torch.Tensor],
-    points_2d: torch.Tensor,  # [bs, M0, cams, 2]
-    weights: torch.Tensor,  # [bs, M0, cams, L, G]
-    cam_k: int = 3,
-    matmul_levels: Sequence[int] = (2, 3),
-    cam_renorm: bool = False,
-    level_k=None,
-    level_renorm: bool = True,
-) -> torch.Tensor:
-    """Camera-compacted hybrid sampler on flat samples -> ``[bs, M0, C]``.
+def glue_on_card(*tensors: torch.Tensor) -> bool:
+    """Whether the sampler's glue around K1 and K2 runs as its kernels
+    (``kernels.cam_select``, ``kernels.point_sum``): tensors off the CPU,
+    and autograd needing nothing of them. Otherwise (the CPU, the training
+    step) the torch ops of :func:`select_cameras_plain` and
+    :func:`point_sum_plain` run, and autograd goes through them."""
+    return tensors[0].device.type != "cpu" and not (
+        torch.is_grad_enabled() and any(t.requires_grad for t in tensors))
 
-    Each sample keeps the ``cam_k`` cameras ranked by in-bounds-ness (ties to
-    the lowest camera index, as the JAX package's ``topk_by_argmax``). With
-    ``cam_renorm`` the kept cameras' (level, group) weights are rescaled to
-    the full in-bounds mass (floor ``1e-9``). The levels not in
-    ``matmul_levels`` are sampled by :func:`patch_sample` on the compacted
-    samples (one launch of K2 on the card), then the levels in it by
-    :func:`coarse_sample` on all cameras, added to K2's sum (one launch of
-    K1 for all of them). With ``0 < level_k <`` the number of fine levels,
-    each compacted sample reads only its ``level_k`` fine levels of largest
-    mass (:func:`_keep_top_levels`, renormalised with ``level_renorm``),
-    each from that level's own map (K2's level-k variant on the card).
-    """
+
+def select_cameras_plain(points_2d: torch.Tensor, weights: torch.Tensor, cam_k: int,
+                         cam_renorm: bool, fine: Sequence[int]):
+    """The camera selection in torch ops (plain version of
+    ``kernels.cam_select``): each sample's ``cam_k`` cameras ranked by
+    in-bounds-ness, ties to the lowest index as the JAX package's
+    ``topk_by_argmax``, their points and their fine levels' weights times the
+    inside mask; with ``cam_renorm`` and ``cam_k < cams`` the kept cameras'
+    (level, group) weights rescaled to the full in-bounds mass (floor
+    ``1e-9``; sums in fp32, the ratio in the weights' dtype).
+
+    points_2d ``[bs, M0, cams, 2]``, weights ``[bs, M0, cams, L, G]``,
+    ``fine`` indices of the weights' level axis -> (cam ``[bs, M]`` int32,
+    x, y ``[bs, M]`` fp32, w_fine ``[bs, M, len(fine), G]`` fp32), ``M =
+    M0*cam_k`` with the slot index fastest: what :func:`patch_sample`
+    takes."""
     bs, M0, num_cams, _ = points_2d.shape
-    num_levels = len(feature_maps)
-    groups = weights.shape[-1]
-    cam_k = min(cam_k, num_cams)
-
+    num_levels, groups = weights.shape[-2:]
     inside = _inside(points_2d)  # [bs, M0, cams]
     # All keys distinct: in-bounds cameras first, lower index first.
     rank_key = inside.long() * num_cams - torch.arange(num_cams, device=inside.device)
@@ -451,26 +457,77 @@ def deformable_samples_topk_flat(
         full = (weights * inside[..., None, None].to(weights.dtype)).float().sum(dim=2)
         kept = w.float().sum(dim=2)
         w = w * (full / torch.clamp(kept, min=1e-9)).to(w.dtype)[:, :, None]
-
     M = M0 * cam_k
+    return (cam_idx.reshape(bs, M).to(torch.int32),
+            pts[..., 0].reshape(bs, M).float().contiguous(),
+            pts[..., 1].reshape(bs, M).float().contiguous(),
+            w.reshape(bs, M, num_levels, groups)[:, :, list(fine)].float().contiguous())
+
+
+def point_sum_plain(flat: torch.Tensor, num_pts: int, dtype: torch.dtype) -> torch.Tensor:
+    """Each anchor's points summed in torch ops (plain version of
+    ``kernels.point_sum``): ``flat [bs, anchors*num_pts, C]`` fp32 rounded
+    to ``dtype``, summed in fp32 over each anchor's consecutive points and
+    rounded once -> ``[bs, anchors, C]`` of ``dtype``."""
+    bs, M0, C = flat.shape
+    return flat.to(dtype).reshape(bs, M0 // num_pts, num_pts, C).float().sum(dim=2).to(dtype)
+
+
+def _samples_flat(feature_maps, points_2d, weights, cam_k, matmul_levels, cam_renorm,
+                  level_k, level_renorm) -> torch.Tensor:
+    """:func:`deformable_samples_topk_flat` before its output is rounded to
+    the weights' dtype: ``[bs, M0, C]`` float32."""
+    num_cams = points_2d.shape[2]
+    num_levels = len(feature_maps)
+    cam_k = min(cam_k, num_cams)
     out = None
     fine = [l for l in range(num_levels) if l not in matmul_levels]
     if fine:
-        w_fine = w.reshape(bs, M, num_levels, groups)[:, :, fine]
-        lvl = None
-        if level_k is not None and 0 < level_k < len(fine):
-            w_fine, lvl = _keep_top_levels(w_fine, level_k, level_renorm)
-        out = patch_sample(
-            [feature_maps[l] for l in fine],
-            cam_idx.reshape(bs, M).to(torch.int32),
-            pts[..., 0].reshape(bs, M).float().contiguous(),
-            pts[..., 1].reshape(bs, M).float().contiguous(),
-            w_fine.float().contiguous(), cam_k, lvl)
+        with span("sampler.select"):
+            if glue_on_card(points_2d, weights):
+                cam, x, y, w_fine = kernels.cam_select(
+                    points_2d.float(), weights.contiguous(), cam_k, cam_renorm, fine)
+            else:
+                cam, x, y, w_fine = select_cameras_plain(points_2d, weights, cam_k,
+                                                         cam_renorm, fine)
+            lvl = None
+            if level_k is not None and 0 < level_k < len(fine):
+                w_fine, lvl = _keep_top_levels(w_fine.to(weights.dtype), level_k, level_renorm)
+                w_fine = w_fine.float().contiguous()
+        out = patch_sample([feature_maps[l] for l in fine], cam, x, y, w_fine, cam_k, lvl)
 
     coarse = [l for l in matmul_levels if l < num_levels]
     if coarse:
         out = coarse_sample(out, [feature_maps[l] for l in coarse], points_2d, weights, coarse)
-    return out.to(weights.dtype)
+    return out
+
+
+def deformable_samples_topk_flat(
+    feature_maps: Sequence[torch.Tensor],
+    points_2d: torch.Tensor,  # [bs, M0, cams, 2]
+    weights: torch.Tensor,  # [bs, M0, cams, L, G]
+    cam_k: int = 3,
+    matmul_levels: Sequence[int] = (2, 3),
+    cam_renorm: bool = False,
+    level_k=None,
+    level_renorm: bool = True,
+) -> torch.Tensor:
+    """Camera-compacted hybrid sampler on flat samples -> ``[bs, M0, C]``.
+
+    Each sample keeps the ``cam_k`` cameras ranked by in-bounds-ness, with
+    ``cam_renorm`` renormalised (:func:`select_cameras_plain`; on a card,
+    with no gradient wanted, ``kernels.cam_select``: :func:`glue_on_card`).
+    The levels not in ``matmul_levels`` are sampled by :func:`patch_sample`
+    on the compacted samples (one launch of K2 on the card), then the levels
+    in it by :func:`coarse_sample` on all cameras, added to K2's sum (one
+    launch of K1 for all of them). With ``0 < level_k <`` the number of fine
+    levels, each compacted sample reads only its ``level_k`` fine levels of
+    largest mass (:func:`_keep_top_levels`, renormalised with
+    ``level_renorm``), each from that level's own map (K2's level-k variant
+    on the card).
+    """
+    return _samples_flat(feature_maps, points_2d, weights, cam_k, matmul_levels, cam_renorm,
+                         level_k, level_renorm).to(weights.dtype)
 
 
 @span("sampler")
@@ -486,17 +543,20 @@ def deformable_aggregation_topk(
 ) -> torch.Tensor:
     """The sampler: :func:`deformable_samples_topk_flat` on the flattened
     (anchor, point) samples, summed over each anchor's points ->
-    ``[bs, anchors, C]``."""
+    ``[bs, anchors, C]`` in the weights' dtype (:func:`point_sum_plain`; on
+    a card, with no gradient wanted, ``kernels.point_sum``)."""
     bs, num_anchor, num_pts, num_cams, _ = points_2d.shape
-    flat = deformable_samples_topk_flat(
+    flat = _samples_flat(
         feature_maps,
         points_2d.reshape(bs, num_anchor * num_pts, num_cams, 2),
         weights.reshape(bs, num_anchor * num_pts, num_cams,
                         weights.shape[-2], weights.shape[-1]),
-        cam_k=cam_k, matmul_levels=matmul_levels, cam_renorm=cam_renorm,
-        level_k=level_k, level_renorm=level_renorm,
+        cam_k, matmul_levels, cam_renorm, level_k, level_renorm,
     )
-    return flat.reshape(bs, num_anchor, num_pts, -1).float().sum(dim=2).to(flat.dtype)
+    with span("sampler.sum"):
+        if glue_on_card(flat):
+            return kernels.point_sum(flat, num_pts, weights.dtype)
+        return point_sum_plain(flat, num_pts, weights.dtype)
 
 
 def front_view_feature(feature_maps: List[torch.Tensor], level: int = -1,

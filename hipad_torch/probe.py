@@ -32,6 +32,8 @@ FAMILIES = (  # first match wins, on the lower-cased kernel name
     ("K1-bwd tile blocks", ("interp_sample_camsum_bwd_tiles",)),
     ("K2 patch_sample", ("patch_sample_kernel",)),
     ("K2-bwd patch_sample_bwd", ("patch_sample_bwd",)),
+    ("sampler glue cam_select", ("cam_select",)),
+    ("sampler glue point_sum", ("point_sum",)),
     ("P2-P4 row_gather", ("row_gather",)),
     ("K3 lsa_assign", ("lsa_assign",)),
     ("convolution", ("conv", "cudnn", "implicit", "winograd", "dgrad", "wgrad", "fprop")),

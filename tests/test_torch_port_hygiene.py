@@ -254,6 +254,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         kernels.patch_sample_bwd_lk(fine, cam, x, x, w, torch.zeros(1, 3, 32), 2, lvl)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.lsa_assign([(torch.zeros(2, 3, 5), torch.ones(2, 3, dtype=torch.bool))])
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.cam_select(pts, wts, 1, True, [0, 1])
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.point_sum(torch.zeros(1, 6, 32), 3, torch.bfloat16)
     for k in kernels.KERNELS:
         assert k.launches == 0, k.name
 
@@ -288,7 +292,9 @@ def test_no_wrapper_adds_with_atomics_under_the_deterministic_flag():
 def test_launch_plan_counts_one_k1_launch_per_call(config):
     """``chip_smoke.py`` holds each path's launches to its op program: per
     deformable call one K1 for all coarse levels, one K2 for all fine
-    levels, one K1-bwd per coarse level and one K2-bwd."""
+    levels, one K1-bwd per coarse level and one K2-bwd; where no gradient
+    is wanted one camera selection and one point sum, and in a training
+    step neither."""
     import chip_smoke
     from hipad_torch.configs import model as configs
 
@@ -297,7 +303,10 @@ def test_launch_plan_counts_one_k1_launch_per_call(config):
     assert n_deform == cfg.operation_order.count("deformable") * len(cfg.query_select)
     coarse = [l for l in cfg.sampler_matmul_levels if l < cfg.num_levels]
     assert per_call == {"coarse_sample": 1, "patch_sample": 1,
-                        "interp_sample_camsum_bwd": len(coarse), "patch_sample_bwd": 1}
+                        "interp_sample_camsum_bwd": len(coarse), "patch_sample_bwd": 1,
+                        "cam_select": 1, "point_sum": 1}
+    assert chip_smoke._step_plan(cfg) == (n_deform, {
+        k: v for k, v in per_call.items() if k not in ("cam_select", "point_sum")})
     if config != "tiny":
         assert (n_deform, len(coarse)) == (24, 2)
 
