@@ -2,8 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one CUDA card (an H100 for sm_90a).
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --against DIR   # phases 1-2, then the comparison below
-    python3 chip_smoke.py --graphs        # phases 1-2, then 4g alone
+    python3 chip_smoke.py --graphs   # phases 1-2, then 4g alone
 
 Phases, one printed line (or a few) each; any failure exits non-zero:
 
@@ -159,21 +158,8 @@ set to ``:4096:8`` (where the environment has no value) before torch is
 imported: torch's deterministic flag needs it before the first cuBLAS
 handle.
 
-With ``--against DIR`` (a checkout of another commit, such as the parent
-unpacked by ``git archive``) it builds that checkout's kernels into its own
-``build/`` and times its four sampler kernels, K3 (a stage-2 step's problems
-through each tree's ``assign_many``) and P2-P4 against this tree's in turns
-(theirs, ours, ours, theirs) at the shapes of phases 3, 3b, 5f and 8, fp32,
-device time, checking that the two agree (K2 without ``lvl``, K3 and P2-P4
-bit for bit; the backward kernels within ``KERNEL_RTOL`` of scale, whose
-order of addition may differ); K1-bwd and K2-bwd through each of the other
-tree's routes (``launch(route, ...)`` where its wrappers declare
-``routes``), also at a stage-2 step's own largest calls; then phases
-4-7's paths in turns, and each tree's synchronizing calls in one training
-step, by call site. With ``--profile-routes`` (and ``--against``, the other
-tree first) it profiles one call of each backward design, launch by launch,
-at phase 3b's shapes and a step's largest calls, this tree's binned plans at
-each of ``PROFILE_COUNTS_PER_ITEM``, and stops.
+To compare with another commit, run this script plainly in a ``git archive``
+of that commit and compare the two runs' kernels JSON lines.
 """
 
 from __future__ import annotations
@@ -191,6 +177,12 @@ import time
 # torch's deterministic flag, which [kernels-bwd], [train], [train-cli] and
 # [serve] turn on, needs this before the first cuBLAS handle exists
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+# the benchmark's yardstick: the card's peaks, the bytes and operations a
+# sampler call needs, the least time they take, and the device's busy time
+from bench_h100.counts import taps  # noqa: E402
+from bench_h100.counts.peaks import HBM_BYTES_PER_S  # noqa: E402
+from bench_h100.harness.trace import merged_busy  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
@@ -296,23 +288,6 @@ def _max_err(got, ref):
     return float((got.float() - ref.float()).abs().max()), float(ref.float().abs().max())
 
 
-# Published peaks of one H100 SXM (NVIDIA's data sheet, 700 W): HBM bytes/s
-# and fp32 FLOP/s outside the tensor cores. The sampler kernels do fp32
-# arithmetic on CUDA cores.
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
-
-
-def bound(nbytes: float, flops: float) -> tuple:
-    """Least time the card could take: (ms, "bytes" | "operations")."""
-    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
-    return (tb, "bytes") if tb >= tf else (tf, "operations")
-
-
-def _nbytes(*ts) -> int:
-    return sum(t.numel() * t.element_size() for t in ts)
-
-
 def _timed(fns, iters=20):
     """CUDA-event medians of fns in the order given -> list of ms."""
     return [cuda_time_ms(f, iters) for f in fns]
@@ -415,9 +390,10 @@ class _Rec:
         self.per_call_ms += min(call_ms[1], call_ms[2])
         return t
 
-    def add_bound(self, ms_by):
-        self.bound_ms += ms_by[0]
-        self.bound_by = ms_by[1]
+    def add_bound(self, s_by):
+        """Add a bound as ``taps.bound`` gives it: (seconds, by)."""
+        self.bound_ms += s_by[0] * 1e3
+        self.bound_by = s_by[1]
 
     def per_launch(self, n: int):
         for f in ("ms", "plain_ms", "library_ms", "per_call_ms", "bound_ms"):
@@ -497,95 +473,6 @@ def _k2_inputs(cfg, g, dev, dtype, bs=1):
     return maps, cam, x, y, w, cam_k
 
 
-def _tap_ok(ty, tx, bwd):
-    """Whether a tap at hat arguments ``|ty|, |tx|`` is read: the forward
-    reads taps whose hat weight is non-zero; the backward also those whose
-    weight is zero but whose hat derivative is not (a kink, |t| == 1)."""
-    if not bwd:
-        return (ty < 1) & (tx < 1)
-    return (ty <= 1) & (tx <= 1) & ~((ty == 1) & (tx == 1))
-
-
-def _k1_reads(px, py, wg, h, w, bwd):
-    """(taps read, distinct map rows read) by K1 (or K1-bwd) on one level.
-    The forward skips (sample, camera) pairs whose group weights are all
-    zero; the backward reads every pair in range, because d wg needs the
-    sampled row whatever the weight."""
-    import torch
-
-    B, M = px.shape
-    bc = torch.arange(B, device=px.device)[:, None].expand(B, M)
-    if bwd:
-        ok0 = (px >= -1) & (px <= w) & (py >= -1) & (py <= h)
-        offs = (-1, 0, 1)
-    else:
-        ok0 = (px > -1) & (px < w) & (py > -1) & (py < h) & (wg != 0).any(-1)
-        offs = (0, 1)
-    x0, y0 = px.clamp(-2, w + 1).floor(), py.clamp(-2, h + 1).floor()
-    cells = []
-    for dy in offs:
-        for dx in offs:
-            yy, xx = y0 + dy, x0 + dx
-            ok = (ok0 & (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
-                  & _tap_ok((py - yy).abs(), (px - xx).abs(), bwd))
-            cells.append(((bc * h + yy.long()) * w + xx.long())[ok])
-    cells = torch.cat(cells)
-    return cells.numel(), int(torch.unique(cells).numel())
-
-
-def _k2_reads(maps, cam, x, y, w, bwd, lvl=None):
-    """(taps read, map bytes read) by K2 (or K2-bwd) over its fine levels,
-    or by their level-k variants (``lvl``) over each sample's kept levels.
-    The forward skips (slot, level) pairs whose group weights are all zero;
-    the backward reads every slot with a valid camera (d w needs the row)."""
-    import torch
-
-    bs, M = x.shape
-    cams = maps[0].shape[1]
-    bcam = (torch.arange(bs, device=x.device)[:, None] * cams + cam).long()
-    valid = (cam >= 0) & (cam < cams)
-    taps, nbytes = 0, 0
-    for l, m in enumerate(maps):
-        H, W, C = m.shape[2:]
-        if lvl is None:
-            keep, live = valid, (w[:, :, l] != 0).any(-1)
-        else:  # the slots that keep level l
-            kept = lvl == l
-            keep, live = valid & kept.any(-1), (kept & (w != 0).any(-1)).any(-1)
-        ok0 = keep if bwd else keep & live
-        p, q = x * W - 0.5, y * H - 0.5
-        sx, sy = p.floor().clamp(0, W - 2), q.floor().clamp(0, H - 2)
-        cells = []
-        for i in (0, 1):
-            for j in (0, 1):
-                ok = ok0 & _tap_ok((q - (sy + i)).abs(), (p - (sx + j)).abs(), bwd)
-                cells.append(((bcam * H + (sy + i).long()) * W + (sx + j).long())[ok])
-        cells = torch.cat(cells)
-        taps += cells.numel()
-        nbytes += int(torch.unique(cells).numel()) * C * m.element_size()
-    return taps, nbytes
-
-
-def _k1_reads_coarse(acc, maps, pts, weights, levels):
-    """(taps read, bytes K1 must move) for these inputs: the distinct map
-    rows its live taps read over every coarse level, the acc row read and
-    the out row written, the points and the coarse levels' weights."""
-    from hipad_torch.ops import sampling
-
-    xf, yf, _, wf = sampling._coarse_inputs(pts, weights)
-    taps, nbytes = 0, 0
-    for lvl, fm in zip(levels, maps):
-        h, w, C = fm.shape[2:]
-        t, rows = _k1_reads(xf * w - 0.5, yf * h - 0.5, wf[:, :, lvl], h, w, bwd=False)
-        taps += t
-        nbytes += rows * C * fm.element_size()
-    bs, M0, cams, _ = pts.shape
-    G = weights.shape[-1]
-    rows_io = (2 if acc is not None else 1) * bs * M0 * maps[0].shape[-1] * 4
-    return taps, nbytes + rows_io + _nbytes(pts) + bs * M0 * cams * len(levels) * G * \
-        weights.element_size()
-
-
 def _grid_sample_args(maps, pts):
     """F.grid_sample's inputs for each map of ``[bs, cams, H, W, C]``: the
     NCHW maps of each camera and the camera-major sample grid in [-1, 1]."""
@@ -639,14 +526,14 @@ def phase_kernels(cfg, card: str):
                 lambda: kernels.coarse_sample(acc, maps, pts, wts, levels),
                 lambda: sampling.coarse_sample_plain(acc, maps, pts, wts, levels),
                 lambda: [F.grid_sample(m, gr, align_corners=False) for m, gr in lib]]))
-            taps, nbytes = _k1_reads_coarse(acc, maps, pts, wts, levels)
-            b = bound(nbytes, taps * C * 2)
+            nbytes, flops = taps.coarse_sample_work(acc, maps, pts, wts, levels)
+            b = taps.bound(nbytes, flops)
             k1.add_bound(b)
             say(f"[kernels] K1 fp32 on {card}: kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, "
                 f"F.grid_sample (per camera and level, no weights or sums: not the same "
                 f"function) {t[2]:.4f} ms ({TIMES}); per call {k1.per_call_ms:.4f} ms; bound "
-                f"{b[0]:.4f} ms ({b[1]}: {taps} taps, {nbytes / 1e6:.2f} MB: map rows read, "
-                f"acc and out rows, points, coarse weights)")
+                f"{b[0] * 1e3:.4f} ms ({b[1]}: {flops // (2 * C)} taps, {nbytes / 1e6:.2f} MB: "
+                f"map rows read, acc and out rows, points, coarse weights)")
 
     # ---- K2 -------------------------------------------------------------
     for dtype, bs in ((f32, 1), (bf16, 1), (f32, 2)):
@@ -675,14 +562,14 @@ def phase_kernels(cfg, card: str):
                 lambda: kernels.patch_sample(maps, cam, x, y, w, cam_k),
                 lambda: sampling.patch_sample_plain(maps, cam, x, y, w, cam_k),
                 lambda: [F.grid_sample(m, gr, align_corners=False) for m, gr in lib]]))
-            taps, map_bytes = _k2_reads(maps, cam, x, y, w, bwd=False)
-            k2.add_bound(bound(map_bytes + _nbytes(cam, x, y, w, got), taps * C * 2))
+            n_taps, map_bytes = taps.k2_reads(maps, cam, x, y, w, bwd=False)
+            k2.add_bound(taps.bound(map_bytes + taps.nbytes(cam, x, y, w, got), n_taps * C * 2))
             say(f"[kernels] K2 fp32 on {card}: kernel {k2.ms:.4f} ms, plain "
                 f"{k2.plain_ms:.4f} ms, F.grid_sample (same sample count spread over the "
                 f"cameras, no weights: not the same function) {k2.library_ms:.4f} ms "
                 f"({TIMES}); per call {k2.per_call_ms:.4f} ms; bound {k2.bound_ms:.4f} ms "
-                f"({k2.bound_by}: {taps} taps, {map_bytes / 1e6:.2f} of "
-                f"{_nbytes(*maps) / 1e6:.2f} MB of maps read)")
+                f"({k2.bound_by}: {n_taps} taps, {map_bytes / 1e6:.2f} of "
+                f"{taps.nbytes(*maps) / 1e6:.2f} MB of maps read)")
     recs = {"coarse_sample": k1, "patch_sample": k2}
     recs.update(_glue_kernels(cfg, card))
     return recs
@@ -733,6 +620,30 @@ def _ulp_gap(a, b) -> int:
         bits = t.contiguous().view(ints).long()
         return torch.where(bits < 0, -(bits & sign), bits)
     return int((ordered(a) - ordered(b)).abs().max()) if a.numel() else 0
+
+
+def _profiled(fn, by_name=None, host=None):
+    """(CUDA kernels launched, device busy ms) of one call of fn, by
+    torch.profiler; ``by_name``, a dict, gets each kernel name's [launches,
+    device ms] added; ``host``, a list, gets the count of the host's launch
+    calls (kernels, graphs, copies and fills) appended."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ks = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if host is not None:
+        host.append(sum(e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith(
+            ("cudaLaunch", "cuLaunch", "cudaGraphLaunch", "cudaMemcpy", "cudaMemset"))
+            for e in prof.events()))
+    for e in ks if by_name is not None else ():
+        n = by_name.setdefault(e.name, [0, 0.0])
+        n[0] += 1
+        n[1] += (e.time_range.end - e.time_range.start) / 1e3
+    return len(ks), merged_busy([(e.time_range.start, e.time_range.end) for e in ks]) / 1e3
 
 
 def _glue_device_ms(fns):
@@ -842,13 +753,13 @@ def _glue_kernels(cfg, card: str):
                     (p_ms, p_n), (k_ms, k_n) = _glue_device_ms(plain), _glue_device_ms(kern)
                     out = kern[0]()
                     outs = out if isinstance(out, tuple) else (out,)
-                    nbytes = (_nbytes(pts, w[:, :, :, fine]) if name == "cam_select"
-                              else _nbytes(flat)) + _nbytes(*outs)
-                    b = bound(nbytes, 0)
+                    nbytes = (taps.nbytes(pts, w[:, :, :, fine]) if name == "cam_select"
+                              else taps.nbytes(flat)) + taps.nbytes(*outs)
+                    b = taps.bound(nbytes, 0)
                     say(f"[kernels] {name} det {str(dtype)[6:]} on {card}: kernel {k_ms:.4f} ms "
                         f"a call in {k_n:g} launch, torch ops {p_ms:.4f} ms in {p_n:g} "
                         f"launches (device time by torch.profiler, {GLUE_COPIES} calls, each on "
-                        f"its own copy of the inputs); bound {b[0]:.4f} ms ({b[1]}: "
+                        f"its own copy of the inputs); bound {b[0] * 1e3:.4f} ms ({b[1]}: "
                         f"{nbytes / 1e6:.2f} MB read and written)")
                     if dtype == torch.float32:
                         rec = recs[name]
@@ -906,6 +817,13 @@ def flag(on: bool):
         yield
     finally:
         torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+
+
+def _tensors(out):
+    """The tensors of a wrapper's output: a tensor, or a tuple of tensors and
+    lists of tensors."""
+    return [t for v in (out if isinstance(out, tuple) else (out,))
+            for t in (v if isinstance(v, list) else [v])]
 
 
 def _bits_equal(a, b) -> bool:
@@ -1137,16 +1055,16 @@ def phase_kernels_bwd(cfg, card: str):
                 t = rec.add_times(dev_ms, call)
                 # reads: the rows it samples and every small input; writes:
                 # all of d fm and the coordinate and weight gradients
-                taps, rows = _k1_reads(px, py, wg, h, w, bwd=True)
-                b = bound(rows * C * fm.element_size() + _nbytes(px, py, wg, gout)
-                          + _nbytes(*got), taps * C * 4)
+                n_taps, rows = taps.k1_reads(px, py, wg, h, w, bwd=True)
+                b = taps.bound(rows * C * fm.element_size() + taps.nbytes(px, py, wg, gout)
+                               + taps.nbytes(*got), n_taps * C * 4)
                 rec.add_bound(b)
                 say(f"[kernels-bwd] K1-bwd level {lvl} ({h}x{w}) fp32 on {card}: kernel "
                     f"{t[0]:.4f} ms, "
                     f"plain backward {t[1]:.4f} ms, F.grid_sample backward (not the same "
                     f"function) {t[2]:.4f} ms ({TIMES}); per call {min(call[1], call[2]):.4f} "
-                    f"ms; bound {b[0]:.4f} ms ({b[1]}: {taps} taps, {rows} of {B * h * w} map "
-                    f"rows read)")
+                    f"ms; bound {b[0] * 1e3:.4f} ms ({b[1]}: {n_taps} taps, {rows} of "
+                    f"{B * h * w} map rows read)")
             del leaves, out, ref, got
 
     for dtype, bs in ((f32, 1), (bf16, 1), (f32, 2), (bf16, 2)):
@@ -1186,14 +1104,14 @@ def phase_kernels_bwd(cfg, card: str):
                 lambda: torch.autograd.grad(out, lm + [lx, ly, lw], gout, retain_graph=True),
                 lambda: [torch.autograd.grad(o, a, go, retain_graph=True)
                          for o, a, go in zip(lib_out, lib_in, lib_g)]]))
-            taps, map_bytes = _k2_reads(maps, cam, x, y, w, bwd=True)
-            k2.add_bound(bound(map_bytes + _nbytes(cam, x, y, w, gout, *dmaps, dx, dy, dw),
-                               taps * C * 4))
+            n_taps, map_bytes = taps.k2_reads(maps, cam, x, y, w, bwd=True)
+            k2.add_bound(taps.bound(map_bytes + taps.nbytes(cam, x, y, w, gout, *dmaps, dx, dy,
+                                                            dw), n_taps * C * 4))
             say(f"[kernels-bwd] K2-bwd fp32 on {card}: kernel {k2.ms:.4f} ms, plain backward "
                 f"{k2.plain_ms:.4f} ms, F.grid_sample backward (not the same function) "
                 f"{k2.library_ms:.4f} ms ({TIMES}); per call {k2.per_call_ms:.4f} ms; bound "
-                f"{k2.bound_ms:.4f} ms ({k2.bound_by}: {taps} taps, {map_bytes / 1e6:.2f} of "
-                f"{_nbytes(*maps) / 1e6:.2f} MB of maps read)")
+                f"{k2.bound_ms:.4f} ms ({k2.bound_by}: {n_taps} taps, {map_bytes / 1e6:.2f} of "
+                f"{taps.nbytes(*maps) / 1e6:.2f} MB of maps read)")
     step = _step_shapes(card)
     k1.err = max(k1.err, step["interp_sample_camsum_bwd"])
     k2.err = max(k2.err, step["patch_sample_bwd"])
@@ -1234,8 +1152,7 @@ def phase_slice(cfg, card: str):
         f"{time.perf_counter() - t0:.1f} s: "
         f"{sum(p.numel() for p in model.parameters()) / 1e6:.2f} M parameters")
 
-    n_deform, per_call = _launch_plan(cfg)
-    per_call = {k: v for k, v in per_call.items() if not k.endswith("_bwd")}  # no gradient
+    n_deform, per_call = _sampler_plan(cfg, grad=False)
     n_frames = WARMUP_FRAMES + TIMED_FRAMES
 
     def frame_inputs(i):
@@ -1358,30 +1275,14 @@ def phase_slice(cfg, card: str):
 GLUE = ("cam_select", "point_sum")
 
 
-def _launch_plan(cfg):
-    """(deformable calls per forward, launches of each kernel per call): K1
-    once for all coarse levels, K2 once for all fine levels, K1-bwd once per
-    coarse level and K2-bwd once (with torch's deterministic flag on or
-    off: one design each); with ``sampler_level_k`` below the number of fine
-    levels, K2's and K2-bwd's level-k variants in their place; on a call that
-    wants no gradient the camera selection once where there are fine levels
-    and the point sum once (``GLUE``; a training step launches neither:
-    :func:`_step_plan`)."""
-    n_deform = cfg.operation_order.count("deformable") * len(cfg.query_select)
-    coarse = len([l for l in cfg.sampler_matmul_levels if l < cfg.num_levels])
-    fine = [l for l in range(cfg.num_levels) if l not in cfg.sampler_matmul_levels]
-    lk = "_lk" if cfg.sampler_level_k is not None and 0 < cfg.sampler_level_k < len(fine) else ""
-    k2 = int(bool(fine))
-    return n_deform, {"coarse_sample": int(coarse > 0), f"patch_sample{lk}": k2,
-                      "interp_sample_camsum_bwd": coarse, f"patch_sample_bwd{lk}": k2,
-                      "cam_select": k2, "point_sum": 1}
+def _sampler_plan(cfg, grad: bool):
+    """(deformable calls a forward, the kernel launches of each call:
+    ``sampling.launch_plan``; ``grad``: a training step's)."""
+    from hipad_torch.ops import sampling
 
-
-def _step_plan(cfg):
-    """:func:`_launch_plan` of a training step: the glue kernels left out
-    (autograd runs the glue's torch ops; their launch count stays 0)."""
-    n_deform, per_call = _launch_plan(cfg)
-    return n_deform, {k: v for k, v in per_call.items() if k not in GLUE}
+    return (cfg.operation_order.count("deformable") * len(cfg.query_select),
+            sampling.launch_plan(cfg.num_levels, cfg.sampler_matmul_levels,
+                                 cfg.sampler_level_k, grad))
 
 
 def _glue_unlaunched(tag: str, launches):
@@ -1427,7 +1328,7 @@ def phase_train(card: str):
 
     dev = torch.device(DEVICE)
     cfg = stage2()
-    n_deform, per_call = _step_plan(cfg)
+    n_deform, per_call = _sampler_plan(cfg, grad=True)
     batch = {k: torch.as_tensor(v, device=dev)
              for k, v in synthetic.make_batch(cfg, 1, seed=SEED).items()}
     n_steps = WARMUP_STEPS + TIMED_STEPS
@@ -1812,12 +1713,15 @@ def _check_against_scipy(what, cost, mask, got):
     return worst
 
 
-def _sync_sites(fn):
+def _every_sync_site(fn):
     """Run fn under ``torch.cuda.set_sync_debug_mode("warn")`` -> {call site:
     count} of the synchronizing calls it made, each site the innermost frame
     in the port (else the innermost frame). A warning raised outside fn (the
     one ``set_sync_debug_mode`` itself gives in some runs) is not fn's and is
-    not counted."""
+    not counted. The benchmark's ``count_syncs`` counts the same calls at the
+    same frames, but keeps only its 10 most common sites; the checks here
+    look for any site in the matcher or the decoder, so every site is kept,
+    named with its function."""
     import collections
     import traceback
     import warnings
@@ -1850,7 +1754,7 @@ def _sync_sites(fn):
     return sites
 
 
-def count_step_syncs(tag, step, batch, card):
+def count_step_syncs(step, batch, card):
     """The synchronizing calls of one stage-2 fp32 training step (after one
     warm-up step) -> {call site: count}."""
     import torch
@@ -1858,9 +1762,9 @@ def count_step_syncs(tag, step, batch, card):
     gen = torch.Generator(device=batch["images"].device).manual_seed(SEED)
     banks, _ = step(None, batch, gen)
     torch.cuda.synchronize()
-    sites = _sync_sites(lambda: step(banks, batch, gen))
+    sites = _every_sync_site(lambda: step(banks, batch, gen))
     total = sum(sites.values())
-    say(f"[syncs] {tag} one stage-2 fp32 training step on {card}: {total} synchronizing "
+    say(f"[syncs] one stage-2 fp32 training step on {card}: {total} synchronizing "
         f"calls (torch.cuda.set_sync_debug_mode('warn')) at {len(sites)} call sites:")
     for site, n in sites.most_common():
         say(f"[syncs]   {n:5d}  {site}")
@@ -1877,13 +1781,13 @@ FP64_FLOP_PER_S = 34e12
 
 def _k3_bound(problems, iterations):
     """K3's bound on ``problems`` whose matrices took ``iterations`` (one
-    list per problem, one count per matrix) -> ((ms, by), bytes, fp64 ops):
+    list per problem, one count per matrix) -> ((seconds, by), bytes, fp64 ops):
     the cost, mask and out once over the HBM rate, or the fp64 operations
     those iterations need over the fp64 rate, the larger."""
-    nbytes = sum(_nbytes(c, m) + m.numel() * 4 for c, m in problems)
+    nbytes = sum(taps.nbytes(c, m) + m.numel() * 4 for c, m in problems)
     ops = sum(K3_OPS_PER_COLUMN * (c.shape[1] + c.shape[2] + 1) * sum(it)
               for (c, _), it in zip(problems, iterations))
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP64_FLOP_PER_S * 1e3
+    tb, to = nbytes / HBM_BYTES_PER_S, ops / FP64_FLOP_PER_S
     return ((tb, "bytes") if tb >= to else (to, "operations")), nbytes, ops
 
 
@@ -2029,13 +1933,13 @@ def phase_match(card: str):
         for c, m in probs:
             _scipy_cols(c, m)
         host.append((time.perf_counter() - t0) * 1e3)
-    (bms, by), nbytes, ops = _k3_bound(probs, its)
+    (bound_s, by), nbytes, ops = _k3_bound(probs, its)
     rec = _Rec()
     rec.ms = min(dev_ms)
     rec.per_call_ms = min(call_ms)
     rec.plain_ms = plain_ms
     rec.library_ms = statistics.median(host)
-    rec.add_bound((bms, by))
+    rec.add_bound((bound_s, by))
     say(f"[match] K3 per stage-2 step (bs=1: det {tuple(probs[0][0].shape)} and map "
         f"{tuple(probs[1][0].shape)} in one launch) on {card}: {rec.ms:.4f} ms ({QUEUED}, the "
         f"better of two); the longest chain {chain} inner iterations (det {_iters(its[0])}, map "
@@ -2044,8 +1948,8 @@ def phase_match(card: str):
         f"{rec.per_call_ms:.4f} ms")
     say(f"[match] K3 plain (syncs each iteration: CUDA events around one call per problem, "
         f"median of 3) {plain_ms:.2f} ms; scipy with the device-to-host copy (host clock, "
-        f"median of 5) {rec.library_ms:.3f} ms; bound {bms:.6f} ms ({by}: {nbytes} B of cost, "
-        f"mask and out over {HBM_BYTES_PER_S / 1e12:g} TB/s; {ops:.4g} fp64 operations, "
+        f"median of 5) {rec.library_ms:.3f} ms; bound {bound_s * 1e3:.6f} ms ({by}: {nbytes} B "
+        f"of cost, mask and out over {HBM_BYTES_PER_S / 1e12:g} TB/s; {ops:.4g} fp64 operations, "
         f"{K3_OPS_PER_COLUMN} per padded column of each iteration, over "
         f"{FP64_FLOP_PER_S / 1e12:g} TFLOP/s)")
 
@@ -2070,7 +1974,7 @@ def phase_match(card: str):
         f"{min(strip_ms):.4f} ms against the register kernel's {reg_ms:.4f} ms on {card} "
         f"({QUEUED}); bit for bit with assign_plain")
 
-    sites = count_step_syncs("ours:", step, batches[1], card)
+    sites = count_step_syncs(step, batches[1], card)
     mine = [s for s in sites if "targets/matching.py" in s or "ops/kernels.py" in s]
     if mine:
         fail(f"[syncs] the matcher synchronizes: {mine}")
@@ -2209,7 +2113,7 @@ def phase_train_cli(card: str):
            if not math.isfinite(v)]
     if bad:
         fail(f"train-cli: non-finite {bad}")
-    n_deform, per_call = _step_plan(stage2())
+    n_deform, per_call = _sampler_plan(stage2(), grad=True)
     _glue_unlaunched("[train-cli]", launches)
     for name, per in per_call.items():
         want = CLI_STEPS * CLI_ACCUM * n_deform * per
@@ -2456,7 +2360,7 @@ def phase_eval(card: str, ckpt: str):
 
     # fp32 through the runner: streaming, its frame 0 against a direct
     # forward, then batched against streaming
-    n_deform, per_call = _launch_plan(cfg)
+    n_deform, per_call = _sampler_plan(cfg, grad=False)
     tasks = dict(eval_det=True, eval_map=True, eval_motion=True)
     t = time.perf_counter()
     fp32 = runner.collect_records(model, dataset, EVAL_FRAMES, torch.float32, **tasks)
@@ -2540,11 +2444,11 @@ def phase_eval(card: str, ckpt: str):
     perf = stream["perf"]
     if stream["cameras"]["absent"] or perf["frames"] != EVAL_FRAMES:
         fail(f"eval: cameras {stream['cameras']}, {perf['frames']} frames evaluated")
-    for name in ("coarse_sample", "patch_sample") + GLUE:
-        want = EVAL_FRAMES * n_deform * per_call[name]
+    for name, per in per_call.items():
+        want = EVAL_FRAMES * n_deform * per
         say(f"[eval] streaming {name}: {launches[name]} launches over {perf['frames']} frames "
             f"= {launches[name] / perf['frames']:g}/frame (expected {n_deform} deformable "
-            f"calls x {per_call[name]})")
+            f"calls x {per})")
         if launches[name] != want:
             fail(f"eval: {name} launched {launches[name]} times, expected {want}")
     batched, blaunch = cli("--batch-slots", "2", "--num-workers", "2")
@@ -2598,10 +2502,11 @@ def phase_eval(card: str, ckpt: str):
     if bad or len(res["metrics"]) != LOADER_STEPS or len(res["evals"]) != 1:
         fail(f"eval: loader training: non-finite {bad}, {len(res['metrics'])} steps, "
              f"{len(res['evals'])} evals")
-    frames = LOADER_STEPS + LOADER_EVAL_FRAMES  # forwards: one per step, one per eval frame
-    for name, per in _launch_plan(cfg)[1].items():
-        want = ((LOADER_STEPS if "_bwd" in name else LOADER_EVAL_FRAMES if name in GLUE else
-                 frames) * n_deform * per)
+    # forwards: one per step (with its backward), one per eval frame (no gradient)
+    step_plan = _sampler_plan(cfg, grad=True)[1]
+    for name in {**step_plan, **per_call}:
+        want = n_deform * (LOADER_STEPS * step_plan.get(name, 0)
+                           + LOADER_EVAL_FRAMES * per_call.get(name, 0))
         if loader_launches[name] != want:
             fail(f"eval: loader training launched {name} {loader_launches[name]} times, "
                  f"expected {want}")
@@ -2645,7 +2550,7 @@ def phase_stage1(card: str):
     bad = [k for k, v in m.items() if not math.isfinite(v)]
     if bad or any(k.startswith("motion") for k in m):
         fail(f"stage1: non-finite {bad} or a motion loss in {sorted(m)}")
-    n_deform, per_call = _step_plan(cfg)
+    n_deform, per_call = _sampler_plan(cfg, grad=True)
     say(f"[stage1] stage1() step bs=1 fp32 on {card}: {ms:.1f} ms (first step), "
         f"{len(cfg.plan_anchor_types)} plan anchor type, tasks {cfg.task_select}, every loss "
         f"finite, total_loss {m['total_loss']:.4f} grad_norm {m['grad_norm']:.4f}; launches "
@@ -2770,7 +2675,7 @@ def phase_ddp(card: str):
     if differ:
         fail(f"ddp: the ranks' parameters differ after the update: {differ[:5]}")
     launches = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
-    n_deform, per_call = _step_plan(cfg)
+    n_deform, per_call = _sampler_plan(cfg, grad=True)
     for name, per in per_call.items():
         if launches[name] != 2 * n_deform * per:
             fail(f"ddp: {name} launched {launches[name]} times by the two ranks, expected "
@@ -3038,7 +2943,7 @@ def phase_graphs(card: str):
             frame()
         torch.cuda.synchronize()
         before = dict(dec.graphs.counts)
-        sites = _sync_sites(frame)
+        sites = _every_sync_site(frame)
         total = sum(sites.values())
         say(f"[syncs] [graphs] {name} one warm bf16 frame with post-processing: {total} "
             f"synchronizing calls at {len(sites)} call sites (runs {dict(dec.graphs.counts)} "
@@ -3111,8 +3016,7 @@ def phase_serving(card: str):
     say(f"[serve] stage2_serving_det (sampler_point_frac {cfg.sampler_point_frac}, "
         f"topk_det_list {cfg.topk_det_list}) built with seeded weights in "
         f"{time.perf_counter() - t0:.1f} s")
-    n_deform, per_call = _launch_plan(cfg)
-    per_call = {k: v for k, v in per_call.items() if not k.endswith("_bwd")}
+    n_deform, per_call = _sampler_plan(cfg, grad=False)
     n_frames = WARMUP_FRAMES + TIMED_FRAMES
 
     def frame_inputs(i):
@@ -3311,13 +3215,14 @@ def _options_kernels(cfg, card: str):
                 lambda: kernels.patch_sample_lk(maps, cam, x, y, w, cam_k, lvl),
                 lambda: sampling.patch_sample_plain(maps, cam, x, y, w, cam_k, lvl),
                 lambda: [F.grid_sample(m, gr, align_corners=False) for m, gr in lib]]))
-            taps, map_bytes = _k2_reads(maps, cam, x, y, w, False, lvl)
-            fwd.add_bound(bound(map_bytes + _nbytes(cam, x, y, w, lvl, got), taps * C * 2))
+            n_taps, map_bytes = taps.k2_reads(maps, cam, x, y, w, False, lvl)
+            fwd.add_bound(taps.bound(map_bytes + taps.nbytes(cam, x, y, w, lvl, got),
+                                     n_taps * C * 2))
             say(f"[options] K2-lk fp32 on {card}: kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, "
                 f"F.grid_sample (each kept level's samples, no slots or weights: not the same "
                 f"function) {t[2]:.4f} ms ({TIMES}); per call {fwd.per_call_ms:.4f} ms; bound "
-                f"{fwd.bound_ms:.4f} ms ({fwd.bound_by}: {taps} taps, {map_bytes / 1e6:.2f} of "
-                f"{_nbytes(*maps) / 1e6:.2f} MB of maps read)")
+                f"{fwd.bound_ms:.4f} ms ({fwd.bound_by}: {n_taps} taps, {map_bytes / 1e6:.2f} of "
+                f"{taps.nbytes(*maps) / 1e6:.2f} MB of maps read)")
             lib_in = [[m.detach().clone().requires_grad_(), gr.detach().clone().requires_grad_()]
                       for m, gr in lib]
             lib_out = [F.grid_sample(*a, align_corners=False) for a in lib_in]
@@ -3329,13 +3234,13 @@ def _options_kernels(cfg, card: str):
                 lambda: torch.autograd.grad(out, lm + [lx, ly, lw], gout, retain_graph=True),
                 lambda: [torch.autograd.grad(o, a, go, retain_graph=True)
                          for o, a, go in zip(lib_out, lib_in, lib_g)]]))
-            taps, map_bytes = _k2_reads(maps, cam, x, y, w, True, lvl)
-            bwd.add_bound(bound(map_bytes + _nbytes(cam, x, y, w, lvl, gout, *dmaps, dx, dy, dw),
-                                taps * C * 4))
+            n_taps, map_bytes = taps.k2_reads(maps, cam, x, y, w, True, lvl)
+            bwd.add_bound(taps.bound(map_bytes + taps.nbytes(cam, x, y, w, lvl, gout, *dmaps, dx,
+                                                             dy, dw), n_taps * C * 4))
             say(f"[options] K2-bwd-lk fp32 on {card}: kernel {t[0]:.4f} ms, plain backward "
                 f"{t[1]:.4f} ms, F.grid_sample backward (not the same function) {t[2]:.4f} ms "
                 f"({TIMES}); per call {bwd.per_call_ms:.4f} ms; bound {bwd.bound_ms:.4f} ms "
-                f"({bwd.bound_by}: {taps} taps, {map_bytes / 1e6:.2f} MB of maps read)")
+                f"({bwd.bound_by}: {n_taps} taps, {map_bytes / 1e6:.2f} MB of maps read)")
             del out, lm, ref_g
     return {"patch_sample_lk": fwd, "patch_sample_bwd_lk": bwd}
 
@@ -3423,8 +3328,7 @@ def _options_frames(tag: str, cfg, cpu_cfg, card: str):
     dev = torch.device(DEVICE)
     model = init_random(HiPAD(cfg, device=dev), SEED)
     images, metas = batch_to_torch(synthetic.make_batch(cfg, 1, seed=SEED), dev)
-    n_deform, per_call = _launch_plan(cfg)
-    per_call = {k: v for k, v in per_call.items() if not k.endswith(("_bwd", "_bwd_lk"))}
+    n_deform, per_call = _sampler_plan(cfg, grad=False)
     n_frames = WARMUP_FRAMES + TIMED_FRAMES
 
     def frame_inputs(i):
@@ -3497,7 +3401,7 @@ def _options_train(card: str):
 
     dev = torch.device(DEVICE)
     cfg = stage2_serving(drop_out=0.0, use_grid_mask=False, **OPTIONS_A)
-    n_deform, per_call = _launch_plan(cfg)
+    n_deform, per_call = _sampler_plan(cfg, grad=True)
     batch = {k: torch.as_tensor(v) for k, v in synthetic.make_batch(cfg, 1, seed=SEED).items()}
     weights = {k: v.detach().cpu().clone() for k, v in
                init_random(HiPAD(cfg, device=dev), SEED).state_dict().items()}
@@ -3540,7 +3444,7 @@ def _options_train(card: str):
     finally:
         matching.assign_many = assign_many
     for counts, on in zip(launches, (False, True)):
-        want = {k: n_deform * v for k, v in _step_plan(cfg)[1].items()}
+        want = {k: n_deform * v for k, v in per_call.items()}
         want["lsa_assign"] = MATCH_LAUNCHES
         say(f"[options] A's step launches on the card{' under the flag' if on else ''}: "
             + ", ".join(f"{k} {counts[k]} (expected {v})" for k, v in want.items()))
@@ -3840,7 +3744,7 @@ def phase_gather(card: str):
         rec.plain_ms, rec.library_ms = min(dev_ms[0], dev_ms[5]), min(dev_ms[2], dev_ms[3])
         uniq = int(torch.unique(sel).numel())
         row_bytes = gather.ROW * table.element_size()
-        rec.add_bound(bound(uniq * row_bytes + _nbytes(got) + _nbytes(sel), 0.0))
+        rec.add_bound(taps.bound(uniq * row_bytes + taps.nbytes(got) + taps.nbytes(sel), 0.0))
         recs[kernel.name] = rec
         say(f"[gather] {kernel.name} on {card}: device time kernel {rec.ms:.4f} ms, plain "
             f"{rec.plain_ms:.4f} ms, torch.index_select (the same function) "
@@ -3850,508 +3754,10 @@ def phase_gather(card: str):
             f"call with its Python launch, CUDA events, median of 20: kernel {rec.per_call_ms:.4f} ms, plain {min(call[0], call[5]):.4f} ms, "
             f"index_select {min(call[2], call[3]):.4f} ms; bound "
             f"{rec.bound_ms:.4f} ms (bytes: {uniq} distinct "
-            f"table rows of {row_bytes} B read, {_nbytes(got) / 1e6:.2f} MB written, the "
-            f"indices; the {_nbytes(table) / 1e6:.2f} MB table fits in the 50 MB L2, so the "
+            f"table rows of {row_bytes} B read, {taps.nbytes(got) / 1e6:.2f} MB written, the "
+            f"indices; the {taps.nbytes(table) / 1e6:.2f} MB table fits in the 50 MB L2, so the "
             f"HBM bound is a floor the L2 may beat)")
     return recs, launches
-
-
-def _tensors(out):
-    """The tensors of a wrapper's output: a tensor, or a tuple of tensors and
-    lists of tensors."""
-    return [t for v in (out if isinstance(out, tuple) else (out,))
-            for t in (v if isinstance(v, list) else [v])]
-
-
-def _other_tree(other: str):
-    """The ``hipad_torch`` package of the checkout at ``other``, imported as
-    ``other_hipad_torch`` beside this tree's: its modules import each other
-    relatively, and its kernels build into that checkout's ``build/``."""
-    import importlib
-    import importlib.util
-
-    root = os.path.join(os.path.abspath(other), "hipad_torch")
-    spec = importlib.util.spec_from_file_location(
-        "other_hipad_torch", os.path.join(root, "__init__.py"), submodule_search_locations=[root])
-    pkg = importlib.util.module_from_spec(spec)
-    sys.modules[spec.name] = pkg  # its dataclasses look their module up there
-    spec.loader.exec_module(pkg)
-    return {m: importlib.import_module(f"other_hipad_torch.{m}") for m in (
-        "ops.kernels", "ops.sampling", "configs.model", "models.detector", "postprocess",
-        "train.optim", "train.train_step", "agent.core", "targets.matching")}
-
-
-def _their_coarse(kernels, acc, maps, pts, wts, levels):
-    """The coarse levels as the other tree runs them: its K1 in one call
-    where it has ``coarse_sample``; else (the per-level K1 of PRs 1-4) its
-    glue, ``ops/sampling.py:298-313`` there: camera-major coordinates and
-    masked weights, one K1 launch per level, each added to acc."""
-    if hasattr(kernels, "coarse_sample"):
-        return kernels.coarse_sample(acc, maps, pts, wts, levels)
-    bs, M0, cams, _ = pts.shape
-    L, G = wts.shape[-2:]
-    B = bs * cams
-    inside = ((pts > 0.0) & (pts < 1.0)).all(dim=-1)
-    xf = pts[..., 0].permute(0, 2, 1).reshape(B, M0).float()
-    yf = pts[..., 1].permute(0, 2, 1).reshape(B, M0).float()
-    insf = inside.permute(0, 2, 1).reshape(B, M0)
-    wf = wts.permute(0, 2, 1, 3, 4).reshape(B, M0, L, G).float() * insf[..., None, None]
-    out = acc
-    for lvl, feat in zip(levels, maps):
-        h, w, C = feat.shape[2:]
-        out = out + kernels.interp_sample_camsum(
-            feat.reshape(B, h, w, C), (xf * w - 0.5).contiguous(), (yf * h - 0.5).contiguous(),
-            wf[:, :, lvl].contiguous(), bs, cams)
-    return out
-
-
-def _compare_k3_and_gathers(tree, cfg):
-    """``compare_against``'s cases for K3 (a stage-2 fp32 step's det and map
-    problems at bs=1, through each tree's ``assign_many``) and P2-P4 (the
-    probe tool's shapes and data), each held bit for bit."""
-    import numpy as np
-    import torch
-
-    from hipad_torch.ops import gather, kernels
-    from hipad_torch.targets import matching
-    from hipad_torch.tools import probe_gather
-
-    probs = step_problems(cfg, (1,))[0][1]
-    iterations = [[] for _ in probs]
-    for (c, m), it in zip(probs, iterations):
-        matching.assign_plain(c, m, it)
-    chain = max(max(it) for it in iterations)
-    their_many = tree["targets.matching"].assign_many
-    cases = [(f"K3 a stage-2 step's det and map at bs=1, the longest chain {chain} inner "
-              f"iterations (bit for bit)", lambda: their_many(probs),
-              lambda: matching.assign_many(probs))]
-    theirs = tree["ops.kernels"]
-    rng = np.random.RandomState(0)
-    rows = rng.randn(probe_gather.N, gather.ROW).astype(np.float32)
-    idx = torch.as_tensor(rng.randint(0, probe_gather.N, probe_gather.M).astype(np.int32),
-                          device=DEVICE)
-    for which, name in (("A", "gather_rows_f32"), ("D", "gather_rows_bf16"),
-                        ("C", "gather_rows_f32_every8")):
-        flat = gather.make_table(which, rows, DEVICE).reshape(-1, gather.ROW)
-        ours = getattr(kernels, name)
-        cases.append((f"{ours.probe} {name} (bit for bit)",
-                      lambda f=flat, k=getattr(theirs, name): k(f, idx),
-                      lambda f=flat, k=ours: k(f, idx)))
-    return cases
-
-
-def _their_routes(wrapper):
-    """(route name, function) of each design a tree's backward wrapper
-    launches: each route it declares, through ``launch(route, ...)`` (the
-    trees where a wrapper could hold several); else (None, the wrapper),
-    its one design."""
-    routes = getattr(wrapper, "routes", None)
-    if not routes:
-        return [(None, wrapper)]
-    return [(r.name, lambda *a, r=r: wrapper.launch(r, *a)) for r in routes]
-
-
-def compare_against(other: str, cfg, card: str):
-    """The kernels of the checkout at ``other`` against this tree's, at
-    phase 3 and 3b's shapes (bs=1, fp32), K3 at phase 5f's and P2-P4 at
-    phase 8's: device time in turns theirs/ours/ours/theirs, and the largest
-    difference of their outputs. K1 is held as the coarse levels of one
-    deformable call (the other tree's launches and glue), and the whole
-    sampler call as well."""
-    import torch
-
-    from hipad_torch.ops import kernels, sampling
-
-    tree = _other_tree(other)
-    theirs = tree["ops.kernels"]
-    lib = theirs.library()
-    say(f"[compare] {other}: built {lib.path} in {lib.build_seconds:.1f} s")
-    dev = torch.device(DEVICE)
-    g = torch.Generator(device=dev).manual_seed(SEED + 1)
-    cases = []
-    acc, maps, pts, wts, levels = _k1_inputs(cfg, g, dev, torch.float32)
-    their_k1 = "1 launch" if hasattr(theirs, "coarse_sample") else f"{len(levels)} launches, glue"
-    cases.append((f"K1 levels {levels} (theirs: {their_k1})",
-                  lambda: _their_coarse(theirs, acc, maps, pts, wts, levels),
-                  lambda: kernels.coarse_sample(acc, maps, pts, wts, levels)))
-    for lvl in levels:
-        args = _k1_bwd_inputs(cfg, g, dev, lvl, torch.float32)
-        gout = torch.randn(1, args[1].shape[1], args[0].shape[-1], generator=g, device=dev)
-        bwd_args = args[:4] + (gout,) + args[4:]
-        for route, fn in _their_routes(theirs.interp_sample_camsum_bwd):
-            label = f", theirs route {route}" if route else ""
-            cases.append((f"K1-bwd level {lvl} ({args[0].shape[1]}x{args[0].shape[2]}){label}",
-                          lambda a=bwd_args, f=fn: f(*a),
-                          lambda a=bwd_args: kernels.interp_sample_camsum_bwd(*a)))
-    k2_args = _k2_inputs(cfg, g, dev, torch.float32)
-    maps2, cam, x, y, w, cam_k = k2_args
-    W0 = maps2[0].shape[3]
-    x[:, ::50] = ((x[:, ::50] * W0 - 0.5).round() + 0.5) / W0
-    gout = torch.randn(x.shape[0], x.shape[1] // cam_k, maps2[0].shape[-1], generator=g,
-                       device=dev)
-    cases.append(("K2 (bit for bit)", lambda: theirs.patch_sample(*k2_args),
-                  lambda: kernels.patch_sample(*k2_args)))
-    bwd2 = (maps2, cam, x, y, w, gout, cam_k)
-    for route, fn in _their_routes(theirs.patch_sample_bwd):
-        label = f", theirs route {route}" if route else ""
-        cases.append((f"K2-bwd{label}", lambda f=fn: f(*bwd2),
-                      lambda: kernels.patch_sample_bwd(*bwd2)))
-    if hasattr(theirs, "patch_sample_bwd_lk"):  # the level-k variant, phase 9's shapes
-        lk = _lk_inputs(cfg, g, dev, torch.float32, True)
-        glk = torch.randn(x.shape[0], x.shape[1] // cam_k, maps2[0].shape[-1], generator=g,
-                          device=dev)
-        bwd_lk = lk[:5] + (glk, cam_k, lk[6])
-        for route, fn in _their_routes(theirs.patch_sample_bwd_lk):
-            label = f", theirs route {route}" if route else ""
-            cases.append((f"K2-bwd-lk{label}", lambda f=fn: f(*bwd_lk),
-                          lambda: kernels.patch_sample_bwd_lk(*bwd_lk)))
-    for what, name, args in step_bwd_calls():
-        for route, fn in _their_routes(getattr(theirs, name)):
-            label = f", theirs route {route}" if route else ""
-            cases.append((f"{what}{label}", lambda f=fn, a=args: f(*a),
-                          lambda n=name, a=args: getattr(kernels, n)(*a)))
-    fmaps = list(maps2) + maps  # levels 0-3 of one pyramid
-    topk = dict(cam_k=cfg.sampler_cam_k, matmul_levels=cfg.sampler_matmul_levels,
-                cam_renorm=cfg.sampler_cam_renorm)
-    their_sampler = tree["ops.sampling"].deformable_samples_topk_flat
-    # timed by CUDA events around each call: a call waits for the host once
-    # (the fine levels' weights are taken by a list index, whose copy to the
-    # card synchronises the stream), so its calls cannot queue behind a sleep
-    cases.append(("sampler call (deformable_samples_topk_flat: K2, K1 and their glue)",
-                  lambda: their_sampler(fmaps, pts, wts, **topk),
-                  lambda: sampling.deformable_samples_topk_flat(fmaps, pts, wts, **topk)))
-    cases += _compare_k3_and_gathers(tree, cfg)
-    for what, old_fn, new_fn in cases:
-        a, b = old_fn(), new_fn()
-        diff = max(_max_err(u, v)[0] for u, v in zip(_tensors(a), _tensors(b)))
-        scale = max(_max_err(u, u)[1] for u in _tensors(a))
-        queued = not what.startswith("sampler call")
-        t = (_device_ms if queued else _timed)([old_fn, new_fn, new_fn, old_fn])
-        old, new = min(t[0], t[3]), min(t[1], t[2])
-        how = QUEUED if queued else "CUDA events around each of 20 calls, median"
-        chain = re.search(r"longest chain (\d+)", what)
-        per_iter = (f"; per inner iteration theirs {old / int(chain[1]) * 1e3:.3f} us, ours "
-                    f"{new / int(chain[1]) * 1e3:.3f} us" if chain else "")
-        say(f"[compare] {what} fp32 on {card}: theirs {old:.4f} ms, ours {new:.4f} ms "
-            f"({new / old:.3f}x; {how}, in turns theirs/ours/ours/theirs){per_iter}; outputs "
-            f"differ by {diff:.3e} (scale {scale:.3e}, {diff / scale:.1e} of it)")
-        if not diff <= KERNEL_RTOL * scale:
-            fail(f"{what}: the two trees disagree by more than {KERNEL_RTOL:g} of scale")
-        if "bit for bit" in what and not all(torch.equal(u, v) for u, v in zip(
-                _tensors(a), _tensors(b))):
-            fail(f"{what}: the two trees' outputs are not the same bits")
-    return tree
-
-
-def _launch_counts(kernels_module):
-    return {k.name: k.launches for k in kernels_module.KERNELS if k.launches}
-
-
-def _profiled(fn, by_name=None, host=None):
-    """(CUDA kernels launched, device busy ms) of one call of fn, by
-    torch.profiler; ``by_name``, a dict, gets each kernel name's [launches,
-    device ms] added; ``host``, a list, gets the count of the host's launch
-    calls (kernels, graphs, copies and fills) appended."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from hipad_torch.probe import _merged_busy
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    ks = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if host is not None:
-        host.append(sum(e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith(
-            ("cudaLaunch", "cuLaunch", "cudaGraphLaunch", "cudaMemcpy", "cudaMemset"))
-            for e in prof.events()))
-    for e in ks if by_name is not None else ():
-        n = by_name.setdefault(e.name, [0, 0.0])
-        n[0] += 1
-        n[1] += (e.time_range.end - e.time_range.start) / 1e3
-    return len(ks), _merged_busy([(e.time_range.start, e.time_range.end) for e in ks]) / 1e3
-
-
-def _in_turns(what, runs, card, warmup=WARMUP_FRAMES, rounds=SERVE_ROUNDS):
-    """Each tree's iteration of one path in turns (theirs, ours; then ours,
-    theirs; and so on), host clock with a sync around each, after
-    ``warmup`` rounds; then each tree's sampler-kernel launches per
-    iteration over the timed rounds, and one more iteration of each under
-    torch.profiler (all its kernel launches, its device busy time)."""
-    import torch
-
-    ms = {name: [] for name in runs}
-    order = list(runs)
-    for i in range(warmup + rounds):
-        if i == warmup:
-            for _, kmod in runs.values():
-                for k in kmod.KERNELS:
-                    k.launches = 0
-        for name in (order if i % 2 == 0 else order[::-1]):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            runs[name][0]()
-            torch.cuda.synchronize()
-            ms[name].append((time.perf_counter() - t) * 1e3)
-    a, b = (ms[n][warmup:] for n in order)
-    diff = [y - x for x, y in zip(a, b)]
-    say(f"[compare] {what} on {card}, {rounds} rounds after {warmup} (host clock, sync around "
-        f"each, order alternating): theirs median {statistics.median(a):.2f} ms "
-        f"[{min(a):.2f}, {max(a):.2f}], ours {statistics.median(b):.2f} ms "
-        f"[{min(b):.2f}, {max(b):.2f}], ours - theirs per round median "
-        f"{statistics.median(diff):.2f} ms [{min(diff):.2f}, {max(diff):.2f}]")
-    for name, (fn, kmod) in runs.items():
-        per = {k: v / rounds for k, v in _launch_counts(kmod).items()}
-        n, busy = _profiled(fn)
-        say(f"[compare] {what} {name}: sampler kernel launches per iteration {per}; one more "
-            f"iteration profiled: {n} kernel launches, device busy {busy:.2f} ms")
-
-
-def compare_paths(tree, card: str):
-    """Phases 4-7's paths in both trees, fp32, bs=1, in turns: the stage-2
-    frame, the training step, the serving frame with post-processing and
-    the agent's tick; the two models of each path share their weights."""
-    import numpy as np
-    import torch
-
-    from hipad_torch import postprocess
-    from hipad_torch.agent.core import AgentCore
-    from hipad_torch.agent.replay import FakeSim
-    from hipad_torch.configs import model as configs
-    from hipad_torch.data import synthetic
-    from hipad_torch.models.detector import HiPAD, batch_to_torch
-    from hipad_torch.ops import kernels
-    from hipad_torch.train.optim import AdamW
-    from hipad_torch.train.train_step import make_train_step
-    from hipad_torch.weights import init_random
-
-    dev = torch.device(DEVICE)
-    theirs_k = tree["ops.kernels"]
-
-    def pair(name):
-        cfgs = (getattr(tree["configs.model"], name)(), getattr(configs, name)())
-        ours = init_random(HiPAD(cfgs[1], device=dev), SEED)
-        theirs = tree["models.detector"].HiPAD(cfgs[0], device=dev)
-        theirs.load_state_dict(ours.state_dict())
-        return cfgs, theirs, ours
-
-    for name in ("stage2", "stage2_serving_det"):
-        cfgs, theirs, ours = pair(name)
-        images, metas = batch_to_torch(synthetic.make_batch(cfgs[1], 1, seed=SEED), dev)
-        post = (tree["postprocess"].post_process_arrays, postprocess.post_process_arrays)
-        decode = name != "stage2"
-
-        def frame_fn(m, c, pp, state):
-            def run():
-                i = state["i"]
-                mt = dict(metas, timestamp=metas["timestamp"] + 0.5 * i)
-                with torch.no_grad():
-                    out, state["banks"] = m(images + 1e-3 * i, mt, state["banks"])
-                    if decode:
-                        pp(c, out, mt["gt_ego_fut_cmd"])
-                state["i"] += 1
-            return run
-
-        runs = {"theirs": (frame_fn(theirs, cfgs[0], post[0], {"i": 0, "banks": None}), theirs_k),
-                "ours": (frame_fn(ours, cfgs[1], post[1], {"i": 0, "banks": None}), kernels)}
-        _in_turns(f"{name} frame fp32{' with post_process_arrays' if decode else ''}", runs, card)
-        if decode:
-            weights = {k: v.detach().clone() for k, v in ours.state_dict().items()}
-        del theirs, ours, runs
-        torch.cuda.empty_cache()
-
-    cfgs, theirs, ours = pair("stage2")
-    batch = {k: torch.as_tensor(v, device=dev)
-             for k, v in synthetic.make_batch(cfgs[1], 1, seed=SEED).items()}
-    steps = (tree["train.train_step"].make_train_step(
-                 cfgs[0], theirs, tree["train.optim"].AdamW(theirs.named_parameters())),
-             make_train_step(cfgs[1], ours, AdamW(ours.named_parameters())))
-
-    def step_fn(step, state):
-        def run():
-            i = state["i"]
-            b = dict(batch, timestamp=batch["timestamp"] + 0.5 * i,
-                     images=batch["images"] + 1e-3 * i)
-            state["banks"], _ = step(state["banks"], b, state["gen"])
-            state["i"] += 1
-        return run
-
-    runs = {n: (step_fn(st, {"i": 0, "banks": None,
-                              "gen": torch.Generator(device=dev).manual_seed(SEED)}), km)
-            for n, st, km in (("theirs", steps[0], theirs_k), ("ours", steps[1], kernels))}
-    _in_turns("stage2 training step fp32", runs, card, WARMUP_STEPS, PAIRED_ROUNDS)
-    for name, st in zip(("theirs:", "ours:"), steps):
-        count_step_syncs(name, st, batch, card)
-    del theirs, ours, steps, runs
-    torch.cuda.empty_cache()
-
-    cfg = configs.stage2_serving_det()
-    agents = {"theirs": (tree["agent.core"].AgentCore(
-                  tree["configs.model"].stage2_serving_det(), weights, dtype=torch.float32,
-                  device=DEVICE), theirs_k),
-              "ours": (AgentCore(cfg, weights, dtype=torch.float32, device=DEVICE), kernels)}
-    sim = FakeSim(seed=SEED)
-    upload = {n: [] for n in agents}
-    for k in list(theirs_k.KERNELS) + list(kernels.KERNELS):
-        k.launches = 0
-    for t in range(AGENT_WARMUP + AGENT_TICKS):
-        obs = sim.observe()
-        for n in (list(agents) if t % 2 == 0 else list(agents)[::-1]):
-            control = agents[n][0].run_step(obs)
-            upload[n].append(agents[n][0].last_phase_ms["upload_infer"])
-            if not np.isfinite([control["steer"], control["throttle"], control["brake"]]).all():
-                fail(f"agent ({n}) tick {t}: control not finite")
-        sim.apply(control)
-    a, b = (upload[n][AGENT_WARMUP:] for n in agents)
-    diff = [y - x for x, y in zip(a, b)]
-    say(f"[compare] AgentCore(stage2_serving_det) fp32 tick on {card}, {AGENT_TICKS} ticks after "
-        f"{AGENT_WARMUP}, both agents on each observation, order alternating: upload_infer theirs "
-        f"median {statistics.median(a):.2f} ms [{min(a):.2f}, {max(a):.2f}], ours "
-        f"{statistics.median(b):.2f} ms [{min(b):.2f}, {max(b):.2f}], ours - theirs per tick "
-        f"median {statistics.median(diff):.2f} ms [{min(diff):.2f}, {max(diff):.2f}]; sampler "
-        f"kernel launches theirs {_launch_counts(theirs_k)}, ours {_launch_counts(kernels)} "
-        f"over {len(a) + AGENT_WARMUP} ticks each")
-
-
-
-PROFILE_CALLS = 5
-# --profile-routes: the binned plans' counts an item (kernels._BIN_COUNTS_PER_ITEM)
-PROFILE_COUNTS_PER_ITEM = (2, 8, 16, 64)
-
-
-def _k1_profile_bytes(args):
-    """K1-bwd's bytes by launch name: (the binned design's, the earlier
-    designs')."""
-    fm, px, py, wg, gout = args[:5]
-    h, w, C = fm.shape[1:]
-    _, rows = _k1_reads(px, py, wg, h, w, bwd=True)
-    small = _nbytes(px, py, wg, gout)
-    samples = rows * C * 4 + small + _nbytes(px) * 2 + _nbytes(wg)
-    items = px.numel()
-    return ({"samples": samples + items * (4 + 16), "bin_place": items * (4 + 16 + 16),
-             "bin_cells": items * 16 + small + _nbytes(fm)},
-            {"samples": samples, "tiles": small + _nbytes(fm)})
-
-
-def _k2_profile_bytes(args):
-    """K2-bwd's (or K2-bwd-lk's) bytes by launch name: (the binned
-    design's, the earlier designs')."""
-    m, c_, xx, yy, ww, gout = args[:6]
-    lvl = args[7] if len(args) > 7 else None
-    _, map_bytes = _k2_reads(m, c_, xx, yy, ww, True, lvl)
-    taps = xx.numel() * ww.shape[2] * 4
-    cells = sum(t.numel() // t.shape[-1] for t in m)
-    dmaps = _nbytes(*m)
-    small = _nbytes(c_, xx, yy, ww, gout) + (0 if lvl is None else _nbytes(lvl))
-    rows_k = map_bytes + small + _nbytes(xx, yy, ww)
-    return ({"patch_sample_bwd_kernel": rows_k + taps // 4 * (4 + 16),
-             "bin_place": taps // 4 * (4 + 16 + 16), "bin_cells": taps // 4 * 16 + small + dmaps},
-            {"patch_sample_bwd_kernel": rows_k, "cells": (cells + 1) * 4 + taps * 8 + small + dmaps,
-             "sort": taps * (4 + 4 + 8), "search": taps * 4 + (cells + 1) * 8,
-             "fillfunctor": [_nbytes(t) for t in m], "arange": (cells + 1) * 4})
-
-
-def _profile_call(tree, what, name, fn, args, nbytes):
-    """``PROFILE_CALLS`` profiled calls of fn(*args) after a warm-up: each
-    launch's device time (median) and bytes; returns their total."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(3):
-        fn(*args)
-    torch.cuda.synchronize()
-    calls = []
-    for _ in range(PROFILE_CALLS):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn(*args)
-            torch.cuda.synchronize()
-        calls.append([(e.name, (e.time_range.end - e.time_range.start) / 1e3)
-                      for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA])
-    n = min(len(c) for c in calls)
-    total = 0.0
-    for i in range(n):
-        launch = calls[0][i][0]
-        ms = statistics.median(c[i][1] for c in calls)
-        total += ms
-        nb = next((v for k, v in nbytes.items() if k in launch.lower()), None)
-        if isinstance(nb, list):  # one entry a launch of that name, in order
-            nb = nb[sum(1 for c in calls[0][:i] if c[0] == launch) % len(nb)]
-        by = (f", {nb / 1e6:.2f} MB, {nb / HBM_BYTES_PER_S * 1e3:.4f} ms at the memory "
-              f"rate ({ms / (nb / HBM_BYTES_PER_S * 1e3):.1f}x)" if nb else "")
-        say(f"[profile] {tree} {what} route {name} launch {i}: {ms:.4f} ms{by}: {launch[:110]}")
-    say(f"[profile] {tree} {what} route {name}: {n} launches, {total:.4f} ms of device time in "
-        f"all")
-    return total
-
-
-def profile_routes(cfg, card: str, kmod, tree: str, step_calls):
-    """``--profile-routes``: one call of each design of a tree's backward
-    wrappers (``kmod``, its ``ops/kernels.py``: each route where it
-    declares them, else its one design, the binned scatter) at phases 3b's
-    and 9's shapes (K1-bwd per coarse level, K2-bwd, K2-bwd-lk) and at a
-    stage-2 step's own largest calls (``step_calls``: ``step_bwd_calls``);
-    fp32, flag off; under torch.profiler, ``PROFILE_CALLS`` calls after a
-    warm-up: every launch inside the call (the kernels' own and torch's:
-    fills, memsets, sort, arange, searchsorted), its device time (median
-    over the calls), and, for the launches named, the bytes it must move
-    (each input read once, each output written once) over the card's memory
-    rate. The binned design is profiled at each of
-    ``PROFILE_COUNTS_PER_ITEM``, its plan printed."""
-    import torch
-
-    dev = torch.device(DEVICE)
-    g = torch.Generator(device=dev).manual_seed(SEED + 1)
-    cases = []  # (what, wrapper name, args, bytes of the binned design, the earlier designs')
-    for lvl in [l for l in cfg.sampler_matmul_levels if l < cfg.num_levels]:
-        fm, px, py, wg, bs, cams = _k1_bwd_inputs(cfg, g, dev, lvl, torch.float32)
-        gout = torch.randn(bs, px.shape[1], fm.shape[-1], generator=g, device=dev)
-        args = (fm, px, py, wg, gout, bs, cams)
-        cases.append((f"K1-bwd level {lvl} ({fm.shape[1]}x{fm.shape[2]})",
-                      "interp_sample_camsum_bwd", args, *_k1_profile_bytes(args)))
-    maps, cam, x, y, w, cam_k = _k2_inputs(cfg, g, dev, torch.float32)
-    gout = torch.randn(x.shape[0], x.shape[1] // cam_k, maps[0].shape[-1], generator=g,
-                       device=dev)
-    g2 = torch.Generator(device=dev).manual_seed(SEED + 2)
-    lk = _lk_inputs(cfg, g2, dev, torch.float32, True)
-    glk = torch.randn(x.shape[0], x.shape[1] // cam_k, maps[0].shape[-1], generator=g2,
-                      device=dev)
-    for what, name, args in (("K2-bwd", "patch_sample_bwd", (maps, cam, x, y, w, gout, cam_k)),
-                             ("K2-bwd-lk", "patch_sample_bwd_lk",
-                              lk[:5] + (glk, cam_k, lk[6]))):
-        cases.append((what, name, args, *_k2_profile_bytes(args)))
-    for what, name, args in step_calls:
-        cases.append((what, name, args, *(_k1_profile_bytes(args)
-                                           if name == "interp_sample_camsum_bwd"
-                                           else _k2_profile_bytes(args))))
-    say(f"[profile] {tree}: one call of each design, fp32, torch's deterministic flag off, "
-        f"{PROFILE_CALLS} calls profiled after a warm-up, device time per launch (median) on "
-        f"{card}; bytes: each input read once and each output written once, at "
-        f"{HBM_BYTES_PER_S / 1e12:g} TB/s")
-    budget = getattr(kmod, "_BIN_COUNTS_PER_ITEM", None)
-    for what, name, args, binned, earlier in cases:
-        kernel = getattr(kmod, name)
-        for route, fn in _their_routes(kernel):
-            if route is not None:
-                _profile_call(tree, what, route, fn, args, earlier)
-                continue
-            for c in ([budget] if budget is None else PROFILE_COUNTS_PER_ITEM):
-                if budget is not None:
-                    kmod._BIN_COUNTS_PER_ITEM = c
-                try:
-                    plan = (kmod.k1_bwd_plan(args[0].shape[0], args[0].shape[1], args[0].shape[2],
-                                             args[1].shape[1])
-                            if name == "interp_sample_camsum_bwd" else
-                            kmod.k2_bwd_plan(args[2].shape[0], args[0][0].shape[1],
-                                             [m.shape[2:4] for m in args[0]], args[2].shape[1],
-                                             args[4].shape[2]))
-                    total = _profile_call(tree, what, "binned", fn, args, binned)
-                finally:
-                    if budget is not None:
-                        kmod._BIN_COUNTS_PER_ITEM = budget
-                say(f"[profile] {tree} {what} binned at {c} counts an item "
-                    f"({'the default' if c == budget else 'swept'}): {_plan_text(plan)}; "
-                    f"{total:.4f} ms")
 
 
 def main():
@@ -4360,13 +3766,8 @@ def main():
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--against", metavar="DIR",
-                    help="time another checkout's kernels and paths against this tree's")
     ap.add_argument("--graphs", action="store_true",
                     help="run [graphs] (the decoder's op runs as CUDA graphs) and stop")
-    ap.add_argument("--profile-routes", action="store_true",
-                    help="profile one call of each backward route, launch by launch (with "
-                         "--against, the other tree's first), and stop")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke runs on a CUDA card only")
@@ -4392,18 +3793,6 @@ def main():
         say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                                "kind": torch.cuda.get_device_name(0),
                                                "count": torch.cuda.device_count()}}))
-        return
-    if args.profile_routes:
-        from hipad_torch.ops import kernels
-
-        step_calls = step_bwd_calls()
-        if args.against:
-            profile_routes(cfg, card, _other_tree(args.against)["ops.kernels"], "theirs",
-                           step_calls)
-        profile_routes(cfg, card, kernels, "ours", step_calls)
-        return
-    if args.against:
-        compare_paths(compare_against(args.against, cfg, card), card)
         return
     k = timed("kernels", phase_kernels, cfg, card)
     k.update(timed("kernels-bwd", phase_kernels_bwd, cfg, card))

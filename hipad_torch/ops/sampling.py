@@ -425,6 +425,28 @@ def glue_on_card(*tensors: torch.Tensor) -> bool:
         torch.is_grad_enabled() and any(t.requires_grad for t in tensors))
 
 
+def launch_plan(num_levels: int, matmul_levels: Sequence[int], level_k, grad: bool) -> dict:
+    """The kernel launches of one :func:`deformable_aggregation_topk` call
+    on the card, by kernel name (``kernels.KERNELS``), as
+    :func:`_samples_flat` and :func:`deformable_aggregation_topk` make them:
+    K1 once for every coarse level, K2 (its level-k variant under
+    ``0 < level_k <`` the fine levels) once for every fine level; with
+    ``grad`` (the training step), K1-bwd once a coarse level and K2-bwd (or
+    its level-k variant) once, and no glue kernel; without, the camera
+    selection once where there are fine levels and the point sum once
+    (:func:`glue_on_card`)."""
+    fine = [l for l in range(num_levels) if l not in matmul_levels]
+    coarse = [l for l in matmul_levels if l < num_levels]
+    lk = "_lk" if level_k is not None and 0 < level_k < len(fine) else ""
+    plan = {"coarse_sample": int(bool(coarse)), f"patch_sample{lk}": int(bool(fine))}
+    if grad:
+        plan.update({"interp_sample_camsum_bwd": len(coarse),
+                     f"patch_sample_bwd{lk}": int(bool(fine))})
+    else:
+        plan.update({"cam_select": int(bool(fine)), "point_sum": 1})
+    return {k: n for k, n in plan.items() if n}
+
+
 def select_cameras_plain(points_2d: torch.Tensor, weights: torch.Tensor, cam_k: int,
                          cam_renorm: bool, fine: Sequence[int]):
     """The camera selection in torch ops (plain version of

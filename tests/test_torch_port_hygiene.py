@@ -288,26 +288,36 @@ def test_no_wrapper_adds_with_atomics_under_the_deterministic_flag():
     assert len({k.name for k in kernels.KERNELS}) == len(kernels.KERNELS)
 
 
-@pytest.mark.parametrize("config", ["stage2", "stage2_serving_det", "tiny"])
+@pytest.mark.parametrize("config", ["stage2", "stage2_serving_det", "tiny",
+                                    "stage2_level_k1"])
 def test_launch_plan_counts_one_k1_launch_per_call(config):
-    """``chip_smoke.py`` holds each path's launches to its op program: per
-    deformable call one K1 for all coarse levels, one K2 for all fine
-    levels, one K1-bwd per coarse level and one K2-bwd; where no gradient
-    is wanted one camera selection and one point sum, and in a training
-    step neither."""
-    import chip_smoke
+    """``ops/sampling.py``'s ``launch_plan``, which ``chip_smoke.py`` holds
+    each path's launches to: per deformable call one K1 for all coarse
+    levels and one K2 for all fine levels (under ``sampler_level_k`` below
+    the fine levels, K2's level-k variant); where no gradient is wanted one
+    camera selection and one point sum; in a training step one K1-bwd per
+    coarse level and one K2-bwd (or its level-k variant), and no glue
+    kernel. Every name is a kernel's of ``kernels.KERNELS``."""
     from hipad_torch.configs import model as configs
+    from hipad_torch.ops import kernels, sampling
 
-    cfg = getattr(configs, config)()
-    n_deform, per_call = chip_smoke._launch_plan(cfg)
-    assert n_deform == cfg.operation_order.count("deformable") * len(cfg.query_select)
+    cfg = (configs.stage2(sampler_level_k=1) if config == "stage2_level_k1"
+           else getattr(configs, config)())
     coarse = [l for l in cfg.sampler_matmul_levels if l < cfg.num_levels]
-    assert per_call == {"coarse_sample": 1, "patch_sample": 1,
-                        "interp_sample_camsum_bwd": len(coarse), "patch_sample_bwd": 1,
-                        "cam_select": 1, "point_sum": 1}
-    assert chip_smoke._step_plan(cfg) == (n_deform, {
-        k: v for k, v in per_call.items() if k not in ("cam_select", "point_sum")})
+    lk = "_lk" if config == "stage2_level_k1" else ""
+
+    def plan(grad):
+        return sampling.launch_plan(cfg.num_levels, cfg.sampler_matmul_levels,
+                                    cfg.sampler_level_k, grad)
+
+    assert plan(grad=False) == {"coarse_sample": 1, f"patch_sample{lk}": 1,
+                                "cam_select": 1, "point_sum": 1}
+    assert plan(grad=True) == {"coarse_sample": 1, f"patch_sample{lk}": 1,
+                               "interp_sample_camsum_bwd": len(coarse),
+                               f"patch_sample_bwd{lk}": 1}
+    assert set(plan(False)) | set(plan(True)) <= {k.name for k in kernels.KERNELS}
     if config != "tiny":
+        n_deform = cfg.operation_order.count("deformable") * len(cfg.query_select)
         assert (n_deform, len(coarse)) == (24, 2)
 
 
